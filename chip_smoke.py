@@ -14,6 +14,8 @@ against its plain PyTorch version.  Phases, one JSON line each:
    path's shape (Z=96, S=1024, D=64, bf16, causal) and at a small fp32
    GQA + window shape with a ragged S; times of kernel, plain version and
    the PyTorch library call (SDPA; a yardstick the port never calls).
+   ``tile_skip``: each kernel's time unmasked, causal and windowed at the
+   main shape; the masked runs must be faster by the tiles they skip.
 3. ``model_check``: gpt-nano in fp32 on the card, flash kernels against
    the plain reference attention: logits and gradients.
 4. ``train``: ``init()``, ``build_gpt_step("small", "bf16", 8, 1024)``,
@@ -91,26 +93,59 @@ def check_close(name, got, want, tol) -> float:
     return err.max().item()
 
 
-def backward_pass_ms(fa, q, k, v, o, lse, do, args):
-    """Device time of each backward kernel alone, launched as the
-    backward wrapper launches it."""
+def backward_pass_ms(fa, q, k, v, o, lse, do, cfg, iters: int = 10):
+    """Device time of each backward pass alone, through the launch helpers
+    the backward wrapper calls; ``cfg`` is (causal, scale, h, hkv,
+    window)."""
     import torch
 
-    causal, scale, _, _, h, hkv, window = args
-    z, s, d = q.shape
-    common = (z, s, d, h, hkv, int(causal), window or 0, float(scale),
-              fa._DTYPE_CODE[q.dtype], fa._stream(q))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr())
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    dkdv = fa.kernels.library("flash_bwd_dkdv")
-    dq_fn = fa.kernels.library("flash_bwd_dq")
     return {
         "flash_bwd_dkdv": cuda_ms(
-            lambda: dkdv(*ptrs, dk.data_ptr(), dv.data_ptr(), *common), 10),
+            lambda: fa.launch_dkdv(q, k, v, o, lse, do, dk, dv, *cfg), iters),
         "flash_bwd_dq": cuda_ms(
-            lambda: dq_fn(*ptrs, dq.data_ptr(), *common), 10),
+            lambda: fa.launch_dq(q, k, v, o, lse, do, dq, *cfg), iters),
     }
+
+
+# The kernels skip the (Q, K) tiles their masks rule out, and that shows in
+# their times.  At S=1024 a causal mask leaves about half the tiles, and a
+# 64-key window about a quarter of the causal ones; a kernel that visited
+# every tile would take as long masked as not.
+SKIP_WINDOW = 64
+SKIP_LIMITS = {"causal_over_full": 0.7, "window_over_causal": 0.5}
+
+
+def tile_skip(fa, b: int = 8, s: int = 1024, h: int = 12, d: int = 64):
+    """Each kernel's device time with no mask, causal, and causal with a
+    ``SKIP_WINDOW``-key band, bf16 at one shape.  Raises unless each masked
+    run is as much faster as ``SKIP_LIMITS`` says; returns the times and
+    their ratios per kernel."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(b * h, s, d, device="cuda",
+                               generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    ms = {}
+    for mask, (causal, window) in {"full": (False, None),
+                                   "causal": (True, None),
+                                   "window": (True, SKIP_WINDOW)}.items():
+        cfg = (causal, d ** -0.5, h, h, window)
+        o, lse = fa.flash_fwd(q, k, v, causal, d ** -0.5, s, s, h, h, window)
+        ms[mask] = {"flash_fwd": cuda_ms(
+            lambda: fa.flash_fwd(q, k, v, causal, d ** -0.5, s, s, h, h,
+                                 window), 10),
+            **backward_pass_ms(fa, q, k, v, o, lse, do, cfg)}
+    ratios = {n: {"causal_over_full": ms["causal"][n] / ms["full"][n],
+                  "window_over_causal": ms["window"][n] / ms["causal"][n]}
+              for n in ms["full"]}
+    bad = {n: r for n, r in ratios.items()
+           if any(r[key] >= lim for key, lim in SKIP_LIMITS.items())}
+    if bad:
+        raise AssertionError(f"masked tiles are not skipped: {bad} "
+                             f"(limits {SKIP_LIMITS})")
+    return ms, ratios
 
 
 def attention_work(b, s, h, hkv, d, causal, window, itemsize):
@@ -205,8 +240,9 @@ def kernel_check(fa):
                 "flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, *args),
                                      20),
                 # one call of the backward wrapper launches both passes;
-                # each pass is timed alone by calling its library directly
-                **backward_pass_ms(fa, q, k, v, o_p, lse_p, do, args),
+                # each pass is timed alone
+                **backward_pass_ms(fa, q, k, v, o_p, lse_p, do,
+                                   (causal, scale, h, hkv, window)),
             }
             plain_fwd = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, *args),
                                 3, warmup=1)
@@ -390,6 +426,10 @@ def main() -> int:
                 for n in kernels.SOURCES})
 
     records = kernel_check(fa)
+    skip_ms, skip_ratios = tile_skip(fa)
+    emit("tile_skip", shape={"b": 8, "s": 1024, "h": 12, "d": 64,
+                             "dtype": "bf16", "window": SKIP_WINDOW},
+         ms=skip_ms, ratios=skip_ratios, limits=SKIP_LIMITS)
     model_check(hvd_models, fa)
     state, step, launches, step_ms = train(hvd, fa)
     profile(state, step, step_ms)

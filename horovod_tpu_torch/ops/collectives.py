@@ -55,8 +55,12 @@ Min = ReduceOp.MIN
 Max = ReduceOp.MAX
 
 
-def _sum_across(x: torch.Tensor, average: bool) -> torch.Tensor:
-    y = x.detach().clone(memory_format=torch.contiguous_format)
+def _sum_across(x: torch.Tensor, average: bool,
+                fresh: bool = False) -> torch.Tensor:
+    """The sum (or mean) over the world; reduces ``x`` itself when it is a
+    ``fresh`` contiguous buffer no one else holds, else a copy."""
+    y = x if fresh else x.detach().clone(
+        memory_format=torch.contiguous_format)
     dist.all_reduce(y, op=dist.ReduceOp.SUM)
     if average:
         y.div_(_size())
@@ -65,14 +69,16 @@ def _sum_across(x: torch.Tensor, average: bool) -> torch.Tensor:
 
 class _AllreduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, average):
+    def forward(ctx, x, average, fresh):
         ctx.average = average
-        return _sum_across(x, average)
+        if fresh:
+            ctx.mark_dirty(x)
+        return _sum_across(x, average, fresh)
 
     @staticmethod
     def backward(ctx, g):
         # reference rule: backward of allreduce is allreduce with the same op
-        return _sum_across(g, ctx.average), None
+        return _sum_across(g, ctx.average), None, None
 
 
 class _Broadcast(torch.autograd.Function):
@@ -103,13 +109,21 @@ def allreduce(
     """Allreduce across the world (reference: hvd.allreduce).  Returns a
     new tensor; differentiable."""
     del name  # the world reduces in program order; no negotiation by name
+    return _allreduce(tensor, op, prescale_factor, postscale_factor,
+                      fresh=False)
+
+
+def _allreduce(tensor, op, prescale_factor, postscale_factor, fresh):
+    """:func:`allreduce`; ``fresh`` says ``tensor`` is a contiguous buffer
+    the caller built for this reduce, which may be reduced in place."""
     if op not in (Average, Sum):
         raise NotImplementedError(
             f"allreduce op {op!r} is not ported yet (ROADMAP A2); "
             "Average and Sum are"
         )
-    x = tensor * prescale_factor if prescale_factor != 1.0 else tensor
-    y = _AllreduceSum.apply(x, op == Average)
+    if prescale_factor != 1.0:
+        tensor, fresh = tensor * prescale_factor, True
+    y = _AllreduceSum.apply(tensor, op == Average, fresh)
     return y * postscale_factor if postscale_factor != 1.0 else y
 
 
@@ -140,15 +154,15 @@ def grouped_allreduce(
     by_dtype: dict = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
-    kw = dict(prescale_factor=prescale_factor,
-              postscale_factor=postscale_factor)
+    scales = (prescale_factor, postscale_factor)
 
     def reduce_bin(idxs):
         if len(idxs) == 1:
-            out[idxs[0]] = allreduce(tensors[idxs[0]], op, **kw)
+            out[idxs[0]] = _allreduce(tensors[idxs[0]], op, *scales,
+                                      fresh=False)
             return
         flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
-        reduced = allreduce(flat, op, **kw)
+        reduced = _allreduce(flat, op, *scales, fresh=True)
         parts = reduced.split([tensors[i].numel() for i in idxs])
         for i, part in zip(idxs, parts):
             out[i] = part.view(tensors[i].shape)

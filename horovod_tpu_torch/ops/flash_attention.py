@@ -36,6 +36,8 @@ __all__ = [
     "flash_attention",
     "flash_fwd",
     "flash_bwd",
+    "launch_dkdv",
+    "launch_dq",
     "flash_fwd_plain",
     "flash_bwd_plain",
     "LAUNCHES",
@@ -70,8 +72,9 @@ def tile_needed(i: int, j: int, bq: int, bk: int, causal: bool,
                 window: Optional[int]) -> bool:
     """Whether (q tile i of bq rows, k tile j of bk rows) holds any
     unmasked score: the reference predicate (flash_attention.py:171-175,
-    :304-308, :333-337), which the CUDA kernels share
-    (``csrc/flash_common.cuh``)."""
+    :304-308, :333-337).  The CUDA kernels carry their own copy of it
+    (``tile_needed`` in ``csrc/flash_common.cuh``); the GPU tests see the
+    kernels skip the tiles it rules out by their times."""
     need = (j * bk <= (i + 1) * bq - 1) if causal else True
     if window is not None:
         need = need and (j + 1) * bk - 1 >= i * bq - (window - 1)
@@ -156,15 +159,7 @@ def flash_fwd(q, k, v, causal, scale, bq, bk, h, hkv, window):
     _check_kernel_inputs(h, hkv, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    z, s, d = q.shape
-    with torch.cuda.device(q.device):
-        rc = kernels.library("flash_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), z, s, d, h, hkv, int(causal), window or 0,
-            float(scale), _DTYPE_CODE[q.dtype], _stream(q),
-        )
-    _check_launch("flash_fwd", rc)
-    LAUNCHES["flash_fwd"] += 1
+    _launch("flash_fwd", q, (q, k, v, o, lse), causal, scale, h, hkv, window)
     return o, lse
 
 
@@ -182,21 +177,35 @@ def flash_bwd(q, k, v, o, lse, do, causal, scale, bq, bk, h, hkv, window):
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    z, s, d = q.shape
-    common = (z, s, d, h, hkv, int(causal), window or 0, float(scale),
-              _DTYPE_CODE[q.dtype], _stream(q))
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), do.data_ptr())
-    with torch.cuda.device(q.device):
-        rc = kernels.library("flash_bwd_dkdv")(
-            *ptrs, dk.data_ptr(), dv.data_ptr(), *common
-        )
-        _check_launch("flash_bwd_dkdv", rc)
-        LAUNCHES["flash_bwd_dkdv"] += 1
-        rc = kernels.library("flash_bwd_dq")(*ptrs, dq.data_ptr(), *common)
-        _check_launch("flash_bwd_dq", rc)
-        LAUNCHES["flash_bwd_dq"] += 1
+    cfg = (causal, scale, h, hkv, window)
+    launch_dkdv(q, k, v, o, lse, do, dk, dv, *cfg)
+    launch_dq(q, k, v, o, lse, do, dq, *cfg)
     return dq, dk, dv
+
+
+def launch_dkdv(q, k, v, o, lse, do, dk, dv, causal, scale, h, hkv, window):
+    """Launch the dK/dV pass into ``dk`` / ``dv``, on inputs
+    :func:`flash_bwd` has checked."""
+    _launch("flash_bwd_dkdv", q, (q, k, v, o, lse, do, dk, dv),
+            causal, scale, h, hkv, window)
+
+
+def launch_dq(q, k, v, o, lse, do, dq, causal, scale, h, hkv, window):
+    """Launch the dQ pass into ``dq``, on inputs :func:`flash_bwd` has
+    checked."""
+    _launch("flash_bwd_dq", q, (q, k, v, o, lse, do, dq),
+            causal, scale, h, hkv, window)
+
+
+def _launch(name, q, tensors, causal, scale, h, hkv, window) -> None:
+    z, s, d = q.shape
+    with torch.cuda.device(q.device):
+        rc = kernels.library(name)(
+            *(t.data_ptr() for t in tensors), z, s, d, h, hkv, int(causal),
+            window or 0, float(scale), _DTYPE_CODE[q.dtype], _stream(q),
+        )
+    _check_launch(name, rc)
+    LAUNCHES[name] += 1
 
 
 def _stream(t: torch.Tensor) -> int:

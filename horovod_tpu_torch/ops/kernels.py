@@ -106,7 +106,7 @@ def build_all() -> None:
         failed = []
         for n, proc in procs.items():
             log, _ = proc.communicate()
-            (_BUILD / f"{n}.ptxas.txt").write_text(log)
+            paths[n].with_suffix(".ptxas.txt").write_text(log)
             tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
             if proc.returncode != 0:
                 failed.append(f"--- {n} (exit {proc.returncode})\n{log}")
@@ -131,9 +131,10 @@ def library(name: str):
 
 
 def ptxas_report(name: str) -> str:
-    """The compiler's register / shared-memory / spill lines of the last
-    build of ``name`` in this checkout, or '' if it was not built here."""
-    p = _BUILD / f"{name}.ptxas.txt"
+    """The compiler's register / shared-memory / spill lines of the build
+    of ``name`` from the current sources (kept beside the library, under
+    the same hash), or '' if it has not been built."""
+    p = _lib_path(name).with_suffix(".ptxas.txt")
     if not p.exists():
         return ""
     return "\n".join(

@@ -33,8 +33,7 @@ def lm_loss(model, toks: torch.Tensor) -> torch.Tensor:
 def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
                    attention: str = "flash", *, device=None,
                    flash_block_q: int = 512, flash_block_k: int = 256,
-                   kv_heads: int = 0, attention_window: int = 0,
-                   lr: float = 1e-4, **model_overrides):
+                   kv_heads: int = 0, attention_window: int = 0):
     """GPT causal-LM training step.  Returns ``(step, state, static)``
     like the reference: ``step(*state) -> (model, optimizer, loss)`` with
     ``state = (model, optimizer, tokens)``, where ``tokens`` is this
@@ -42,8 +41,9 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
     world.  ``batch_size`` is per GPU; ``device=None`` is this process's
     GPU.
 
-    The optimizer is ``optax.adamw(lr)``'s equivalent: AdamW with betas
-    (0.9, 0.999), eps 1e-8 and weight decay 1e-4 on every parameter.
+    The optimizer is ``optax.adamw(1e-4)``'s equivalent: AdamW with lr
+    1e-4, betas (0.9, 0.999), eps 1e-8 and weight decay 1e-4 on every
+    parameter.
     """
     if dtype not in _DTYPES:
         raise NotImplementedError(
@@ -56,8 +56,7 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
                 attention_impl=attention, flash_block_q=flash_block_q,
                 flash_block_k=flash_block_k,
                 num_kv_heads=kv_heads or None,
-                attention_window=attention_window or None,
-                **model_overrides)
+                attention_window=attention_window or None)
     vocab = model.cfg.vocab_size
 
     global_batch = batch_size * n_gpus
@@ -69,7 +68,7 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
     broadcast_parameters(model.state_dict(), root_rank=0)
 
     opt = DistributedOptimizer(torch.optim.AdamW(
-        model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
         weight_decay=1e-4))
 
     def step(model, opt, toks):

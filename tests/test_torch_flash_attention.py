@@ -139,9 +139,10 @@ def test_plain_backward_matches_reference_blockwise():
     (False, None), (True, None), (True, 1), (True, 5), (True, 24), (True, 40),
 ])
 def test_tile_predicate_is_the_references(causal, window):
-    """tile_needed (shared with the CUDA kernels) against the reference's
-    forward (flash_attention.py:171-175) and dk/dv (:304-308) predicates,
-    transcribed."""
+    """tile_needed against the reference's forward
+    (flash_attention.py:171-175) and dk/dv (:304-308) predicates,
+    transcribed.  The CUDA kernels hold a copy of it, whose skipping
+    tests/test_torch_kernels_gpu.py times on the card."""
     for bq, bk in [(8, 8), (16, 8), (8, 32), (64, 32)]:
         for i in range(128 // bq):
             for j in range(128 // bk):

@@ -87,7 +87,10 @@ def _imports(path: Path):
 
 
 def test_no_source_names_a_forbidden_import():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # _build/ holds what the kernels' build writes, not sources of the port
+    files = sorted(f for f in PKG.rglob("*.py")
+                   if "_build" not in f.relative_to(PKG).parts)
+    files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imports(f) if name.split(".")[0] in FORBIDDEN]
