@@ -3,25 +3,33 @@ PyTorch versions.
 
 The counterpart of ``horovod_tpu/ops/flash_attention.py``: the same
 ``[batch, seq, heads, head_dim]`` signature and causal / scale / window /
-GQA semantics, and the same ``ValueError``s.  Three kernels under
-``csrc/`` replace the three Pallas kernels:
+GQA semantics, and the same ``ValueError``s.  Kernels under ``csrc/``
+replace the three Pallas kernels:
 
-* ``flash_fwd``       (``csrc/flash_fwd.cu``)       <- ``_flash_fwd_kernel``
-* ``flash_bwd_dkdv``  (``csrc/flash_bwd_dkdv.cu``)  <- ``kernel_dkdv``
-* ``flash_bwd_dq``    (``csrc/flash_bwd_dq.cu``)    <- ``kernel_dq``
+* ``_flash_fwd_kernel`` <- ``flash_fwd_tc`` (``csrc/flash_fwd_tc.cu``,
+  tensor cores) for bf16 at head_dim 64, ``flash_fwd``
+  (``csrc/flash_fwd.cu``, scalar fp32 FMAs) otherwise
+* ``kernel_dkdv`` <- ``flash_bwd_dkdv_tc`` (``csrc/flash_bwd_dkdv_tc.cu``)
+  for bf16 at head_dim 64, ``flash_bwd_dkdv`` (``csrc/flash_bwd_dkdv.cu``)
+  otherwise
+* ``kernel_dq`` <- ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``)
+
+:func:`kernel_for` is the whole route table.  ``wgmma`` has no fp32 form
+and TF32 would not hold the fp32 tolerance, so fp32 (and head_dims 16 and
+32) keep the scalar kernels.
 
 Dispatch is by the device of the tensors: CUDA tensors launch the kernels
 (or raise), CPU tensors take the plain versions below — a port of the
 forward recurrence and of the reference's ``_flash_bwd_blockwise``.  There
-is no fallback from one to the other.  Each kernel wrapper counts its
-launches in :data:`LAUNCHES`.
+is no fallback from one to the other, nor from one kernel to another.
+Each kernel wrapper counts its launches in :data:`LAUNCHES`.
 
 Tiles.  The plain versions tile like the reference: ``_pick_block`` picks
 the largest power of two <= ``block_q`` / ``block_k`` that divides S.  The
-CUDA kernels use their own fixed tiles (64-row blocks, 32-row streamed
-tiles, ``csrc/flash_common.cuh``) and mask ragged tails themselves, so
-``block_q`` / ``block_k`` are only hints to the plain versions; the result
-does not depend on the tiling beyond float summation order.
+CUDA kernels use their own fixed tiles (:data:`KERNEL_TILES`) and mask
+ragged tails themselves, so ``block_q`` / ``block_k`` are only hints to
+the plain versions; the result does not depend on the tiling beyond float
+summation order.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ __all__ = [
     "flash_attention",
     "flash_fwd",
     "flash_bwd",
+    "kernel_for",
+    "launch_fwd",
     "launch_dkdv",
     "launch_dq",
     "flash_fwd_plain",
@@ -50,6 +60,20 @@ NEG_INF = float(torch.finfo(torch.float32).min) / 2
 KERNEL_HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# kernel name -> (query rows, key rows) of the tile it skips or visits as a
+# whole: the CTA's block and the streamed tile (csrc/flash_common.cuh and
+# the tensor-core sources)
+KERNEL_TILES = {
+    "flash_fwd": (64, 32),
+    "flash_bwd_dkdv": (32, 64),
+    "flash_bwd_dq": (64, 32),
+    "flash_fwd_tc": (64, 64),
+    "flash_bwd_dkdv_tc": (64, 64),
+}
+_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dkdv_tc")
+# rows of the (lse, delta) scratch of flash_bwd_dkdv_tc are padded to this
+_TC_PAIR_ROWS = 64
+
 # kernel name -> launches since the last reset; each wrapper adds one where
 # it launches its kernel, and nowhere else
 LAUNCHES = {name: 0 for name in kernels.SOURCES}
@@ -58,6 +82,34 @@ LAUNCHES = {name: 0 for name in kernels.SOURCES}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _check_type(dtype: torch.dtype, head_dim: int) -> None:
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(
+            f"the flash kernels take float32 or bfloat16, got {dtype}"
+        )
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"the flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got "
+            f"{head_dim}"
+        )
+
+
+def kernel_for(pass_: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that runs pass ``"fwd"``, ``"dkdv"`` or ``"dq"`` on
+    inputs of ``dtype`` and ``head_dim``: the tensor-core kernels for bf16
+    at head_dim 64, the scalar kernels otherwise.  Raises ``ValueError`` for
+    what no kernel takes."""
+    _check_type(dtype, head_dim)
+    tc = dtype == torch.bfloat16 and head_dim == 64
+    if pass_ == "fwd":
+        return "flash_fwd_tc" if tc else "flash_fwd"
+    if pass_ == "dkdv":
+        return "flash_bwd_dkdv_tc" if tc else "flash_bwd_dkdv"
+    if pass_ == "dq":
+        return "flash_bwd_dq"
+    raise ValueError(f"unknown flash pass {pass_!r}")
 
 
 def _pick_block(seq: int, want: int) -> int:
@@ -159,7 +211,7 @@ def flash_fwd(q, k, v, causal, scale, bq, bk, h, hkv, window):
     _check_kernel_inputs(h, hkv, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q, (q, k, v, o, lse), causal, scale, h, hkv, window)
+    launch_fwd(q, k, v, o, lse, causal, scale, h, hkv, window)
     return o, lse
 
 
@@ -183,22 +235,45 @@ def flash_bwd(q, k, v, o, lse, do, causal, scale, bq, bk, h, hkv, window):
     return dq, dk, dv
 
 
-def launch_dkdv(q, k, v, o, lse, do, dk, dv, causal, scale, h, hkv, window):
+# The launch helpers take ``kernel=`` only so that chip_smoke.py can time
+# the scalar kernels at the tensor-core kernels' shapes; the port's own
+# calls leave it to kernel_for.
+
+
+def launch_fwd(q, k, v, o, lse, causal, scale, h, hkv, window, kernel=None):
+    """Launch the forward into ``o`` / ``lse``, on inputs :func:`flash_fwd`
+    has checked."""
+    name = kernel or kernel_for("fwd", q.dtype, q.shape[-1])
+    _launch(name, q, (q, k, v, o, lse), causal, scale, h, hkv, window)
+
+
+def launch_dkdv(q, k, v, o, lse, do, dk, dv, causal, scale, h, hkv, window,
+                kernel=None):
     """Launch the dK/dV pass into ``dk`` / ``dv``, on inputs
     :func:`flash_bwd` has checked."""
-    _launch("flash_bwd_dkdv", q, (q, k, v, o, lse, do, dk, dv),
-            causal, scale, h, hkv, window)
+    name = kernel or kernel_for("dkdv", q.dtype, q.shape[-1])
+    tensors = (q, k, v, o, lse, do, dk, dv)
+    if name == "flash_bwd_dkdv_tc":
+        # (lse, delta) per query row, filled by the kernel's pre-pass
+        z, s = q.shape[:2]
+        s_pad = -(-s // _TC_PAIR_ROWS) * _TC_PAIR_ROWS
+        tensors += (torch.empty((z, s_pad, 2), dtype=torch.float32,
+                                device=q.device),)
+    _launch(name, q, tensors, causal, scale, h, hkv, window)
 
 
 def launch_dq(q, k, v, o, lse, do, dq, causal, scale, h, hkv, window):
     """Launch the dQ pass into ``dq``, on inputs :func:`flash_bwd` has
     checked."""
-    _launch("flash_bwd_dq", q, (q, k, v, o, lse, do, dq),
-            causal, scale, h, hkv, window)
+    _launch(kernel_for("dq", q.dtype, q.shape[-1]), q,
+            (q, k, v, o, lse, do, dq), causal, scale, h, hkv, window)
 
 
 def _launch(name, q, tensors, causal, scale, h, hkv, window) -> None:
     z, s, d = q.shape
+    if name in _TC_KERNELS and any(t.data_ptr() % 16 for t in tensors):
+        # TMA reads and bulk copies start on 16-byte boundaries
+        raise ValueError(f"{name} needs 16-byte aligned tensors")
     with torch.cuda.device(q.device):
         rc = kernels.library(name)(
             *(t.data_ptr() for t in tensors), z, s, d, h, hkv, int(causal),
@@ -219,15 +294,7 @@ def _check_kernel_inputs(h, hkv, q, k, v, *like_q) -> None:
             f"flash attention runs its CUDA kernels on CUDA tensors and its "
             f"plain version on CPU tensors; got a {q.device.type} tensor"
         )
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(
-            f"the flash kernels take float32 or bfloat16, got {q.dtype}"
-        )
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"the flash kernels take head_dim in {KERNEL_HEAD_DIMS}, got "
-            f"{q.shape[-1]}"
-        )
+    _check_type(q.dtype, q.shape[-1])
     z, s, d = q.shape
     if h < 1 or hkv < 1 or h % hkv or z % h:
         raise ValueError(

@@ -20,7 +20,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "ptxas_report"]
+__all__ = ["SOURCES", "build_all", "library", "ptxas_report", "sass_counts"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -30,8 +30,10 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dkdv": "flash_bwd_dkdv.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_fwd_tc": "flash_fwd_tc.cu",
+    "flash_bwd_dkdv_tc": "flash_bwd_dkdv_tc.cu",
 }
-_HEADERS = ("flash_common.cuh",)
+_HEADERS = ("flash_common.cuh", "hopper_tc.cuh")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +48,11 @@ _SIGNATURES = {
                        [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
     "flash_bwd_dq": ("hvd_flash_bwd_dq",
                      [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
+    "flash_fwd_tc": ("hvd_flash_fwd_tc",
+                     [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+    # + the (lse, delta) scratch of the pre-pass
+    "flash_bwd_dkdv_tc": ("hvd_flash_bwd_dkdv_tc",
+                          [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -141,3 +148,16 @@ def ptxas_report(name: str) -> str:
         ln for ln in p.read_text().splitlines()
         if "registers" in ln or "spill" in ln
     )
+
+
+def sass_counts(name: str, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """How many instructions of each opcode the built library of ``name``
+    holds (``cuobjdump --dump-sass``): the proof that a tensor-core kernel
+    compiled to wgmma (HGMMA) and TMA loads (UTMALDG)."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    out = subprocess.run(
+        [str(cuobjdump), "--dump-sass", str(_lib_path(name))],
+        capture_output=True, text=True, check=True, timeout=120,
+    ).stdout
+    lines = out.splitlines()
+    return {op: sum(op in ln for ln in lines) for op in opcodes}

@@ -1,0 +1,157 @@
+"""Which flash kernel runs what, and the tile predicate at the
+tensor-core kernels' tiles (horovod_tpu_torch.ops.flash_attention).
+
+The route is a plain table (``kernel_for``): bf16 at head_dim 64 runs the
+tensor-core forward and dK/dV, everything else the scalar kernels, and
+dQ always runs ``flash_bwd_dq``.  The CUDA kernels cannot run here; what
+they are held to on the card is the plain version, and the last test
+holds that plain version against the JAX package's Pallas kernels on the
+inputs the tensor-core route takes (bf16, head_dim 64, GQA, a window and
+an S that is not a multiple of the kernels' 64-row tiles).  Tolerance
+there: bf16 0.05, as tests/test_torch_flash_attention.py holds bf16.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu.ops.flash_attention import flash_attention as jax_flash
+from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import kernels
+
+BF16_TOL = 0.05
+TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc")
+
+
+@pytest.mark.parametrize("pass_,dtype,d,want", [
+    ("fwd", torch.bfloat16, 64, "flash_fwd_tc"),
+    ("dkdv", torch.bfloat16, 64, "flash_bwd_dkdv_tc"),
+    ("dq", torch.bfloat16, 64, "flash_bwd_dq"),
+    ("fwd", torch.float32, 64, "flash_fwd"),
+    ("dkdv", torch.float32, 64, "flash_bwd_dkdv"),
+    ("dq", torch.float32, 64, "flash_bwd_dq"),
+    ("fwd", torch.bfloat16, 32, "flash_fwd"),
+    ("dkdv", torch.bfloat16, 32, "flash_bwd_dkdv"),
+    ("fwd", torch.bfloat16, 16, "flash_fwd"),
+    ("dkdv", torch.bfloat16, 16, "flash_bwd_dkdv"),
+    ("dq", torch.float32, 16, "flash_bwd_dq"),
+])
+def test_route_table(pass_, dtype, d, want):
+    assert fa.kernel_for(pass_, dtype, d) == want
+
+
+def test_every_kernel_is_built_counted_and_tiled():
+    """Five kernels, each with a source, a C signature, a launch counter
+    and its tiles; the route reaches every one of them."""
+    assert set(kernels.SOURCES) == set(kernels._SIGNATURES)
+    assert set(fa.LAUNCHES) == set(kernels.SOURCES) == set(fa.KERNEL_TILES)
+    reached = {fa.kernel_for(p, dt, d)
+               for p in ("fwd", "dkdv", "dq")
+               for dt in (torch.float32, torch.bfloat16)
+               for d in fa.KERNEL_HEAD_DIMS}
+    assert reached == set(kernels.SOURCES)
+    # the dK/dV tensor-core entry point takes the (lse, delta) scratch
+    assert len(kernels._SIGNATURES["flash_bwd_dkdv_tc"][1]) == \
+        len(kernels._SIGNATURES["flash_bwd_dkdv"][1]) + 1
+
+
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.float16, 64, "float32 or bfloat16"),
+    (torch.float64, 64, "float32 or bfloat16"),
+    (torch.bfloat16, 48, "head_dim"),
+    (torch.float32, 128, "head_dim"),
+])
+def test_route_refuses_what_no_kernel_takes(dtype, d, match):
+    """The wrappers' own errors on a CUDA tensor (held on the card by
+    tests/test_torch_kernels_gpu.py) come from the same check."""
+    for pass_ in ("fwd", "dkdv", "dq"):
+        with pytest.raises(ValueError, match=match):
+            fa.kernel_for(pass_, dtype, d)
+
+
+def test_route_refuses_an_unknown_pass():
+    with pytest.raises(ValueError, match="unknown flash pass"):
+        fa.kernel_for("dv", torch.bfloat16, 64)
+
+
+def _reference_predicates(i, j, bq, bk, causal, window):
+    """flash_attention.py's forward (:171-175) and dk/dv (:304-308)
+    predicates, transcribed."""
+    fwd = (j * bk <= (i + 1) * bq - 1) if causal else True
+    bwd = ((i + 1) * bq - 1 >= j * bk) if causal else True
+    if window is not None:
+        band = (j + 1) * bk - 1 >= i * bq - (window - 1)
+        fwd, bwd = fwd and band, bwd and band
+    return fwd, bwd
+
+
+def _holds_unmasked_pair(i, j, bq, bk, s, causal, window):
+    q = np.arange(i * bq, min((i + 1) * bq, s))[:, None]
+    k = np.arange(j * bk, min((j + 1) * bk, s))[None, :]
+    alive = np.ones((q.size, k.size), bool)
+    if causal:
+        alive &= k <= q
+    if window is not None:
+        alive &= k >= q - (window - 1)
+    return bool(alive.any())
+
+
+@pytest.mark.parametrize("kernel", TC)
+@pytest.mark.parametrize("causal,window", [
+    (False, None), (True, None), (True, 1), (True, 37), (True, 64),
+    (True, 100), (True, 200),
+])
+def test_tile_predicate_at_tensor_core_tiles(kernel, causal, window):
+    """At the tensor-core kernels' tiles, over ragged and whole S,
+    tile_needed is the reference's predicate, and it never skips a tile
+    that holds an unmasked (query, key) pair of the sequence."""
+    bq, bk = fa.KERNEL_TILES[kernel]
+    for s in (64, 97, 300, 1024):
+        nq, nk = -(-s // bq), -(-s // bk)
+        for i, j in itertools.product(range(nq), range(nk)):
+            got = fa.tile_needed(i, j, bq, bk, causal, window)
+            fwd, bwd = _reference_predicates(i, j, bq, bk, causal, window)
+            assert got == fwd == bwd, (s, i, j)
+            if not got:
+                assert not _holds_unmasked_pair(i, j, bq, bk, s, causal,
+                                                window), (s, i, j)
+
+
+def test_tc_route_inputs_match_jax():
+    """The plain version the tensor-core kernels are held to on the card,
+    at their route's inputs (bf16, head_dim 64, GQA, causal band), against
+    the JAX package's Pallas kernels in interpret mode: output and all
+    three gradients."""
+    rng = np.random.RandomState(7)
+    b, s, h, hkv, d, window = 1, 96, 4, 2, 64, 40
+    mk = lambda heads: (rng.randn(b, s, heads, d) * 0.5).astype(np.float32)
+    q, k, v = mk(h), mk(hkv), mk(hkv)
+    w = rng.randn(b, s, h, d).astype(np.float32)
+    kw = dict(causal=True, window=window, block_q=32, block_k=32)
+    assert fa.kernel_for("fwd", torch.bfloat16, d) == "flash_fwd_tc"
+
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+                  for x in (q, k, v))
+    out = fa.flash_attention(tq, tk, tv, **kw)
+    (out.float() * torch.from_numpy(w)).sum().backward()
+
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    loss = lambda a, b_, c: (jax_flash(a, b_, c, interpret=True, **kw)
+                             .astype(jnp.float32) * jnp.asarray(w)).sum()
+    want_out = jax_flash(jq, jk, jv, interpret=True, **kw)
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(want_out, np.float32),
+                               atol=BF16_TOL, rtol=BF16_TOL)
+    for name, got, ref in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
+        assert got.grad.shape == ref.shape
+        np.testing.assert_allclose(got.grad.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   atol=BF16_TOL, rtol=BF16_TOL,
+                                   err_msg=name)

@@ -8,7 +8,10 @@ Run on the machine with the card (the file imports no JAX; the
     python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q
 
 Tolerance, |kernel - plain| <= atol + rtol * |plain|: fp32 1e-4 (sums in
-another order), bf16 1e-2 (outputs rounded to bf16 after those sums).
+another order), bf16 1e-2 (outputs rounded to bf16 after those sums; the
+tensor-core kernels also round P and dS to bf16 before their second
+product).  bf16 at head_dim 64 runs the tensor-core forward and dK/dV
+(``fa.kernel_for``); fp32 and head_dims 16/32 the scalar kernels.
 """
 
 from __future__ import annotations
@@ -35,10 +38,17 @@ CASES = [
     (1, 200, 8, 2, 64, torch.float32, True, 37),     # ragged S, GQA, band
     (2, 97, 4, 1, 32, torch.float32, True, None),    # MQA, ragged
     (1, 70, 2, 2, 16, torch.float32, False, None),
-    (2, 256, 4, 2, 64, torch.bfloat16, True, None),
+    (2, 256, 4, 2, 64, torch.bfloat16, True, None),  # tensor cores, GQA
     (1, 130, 4, 4, 32, torch.bfloat16, True, 64),
     (1, 33, 4, 4, 16, torch.bfloat16, False, None),
+    # the tensor-core kernels: bf16, head_dim 64
+    (2, 128, 4, 4, 64, torch.bfloat16, False, None),
+    (2, 192, 4, 4, 64, torch.bfloat16, True, None),
+    (2, 300, 8, 2, 64, torch.bfloat16, True, 100),   # ragged S, GQA, band
+    (2, 97, 4, 1, 64, torch.bfloat16, True, None),   # MQA, ragged
 ]
+# a GQA case per route, for the run-to-run check
+GQA_CASES = [CASES[2], CASES[10]]
 
 
 @pytest.fixture
@@ -89,9 +99,11 @@ def test_backward_matches_plain(cuda, case):
         _close(a, b, q.dtype, name)
 
 
-def test_backward_is_deterministic(cuda):
-    """No atomics: two runs give the same bits (GQA folds in one block)."""
-    q, k, v, do, args = _inputs(CASES[2], cuda)
+@pytest.mark.parametrize("case", GQA_CASES)
+def test_backward_is_deterministic(cuda, case):
+    """No atomics: two runs give the same bits (GQA folds in one block),
+    on the scalar and on the tensor-core route."""
+    q, k, v, do, args = _inputs(case, cuda)
     o, lse = fa.flash_fwd(q, k, v, *args)
     first = fa.flash_bwd(q, k, v, o, lse, do, *args)
     second = fa.flash_bwd(q, k, v, o, lse, do, *args)
@@ -104,18 +116,21 @@ def test_masked_tiles_are_skipped(cuda):
     masks them: at S=1024 each kernel runs causal in under 0.7x its
     unmasked time and with a 64-key window in under 0.5x its causal time
     (``chip_smoke.tile_skip`` raises otherwise)."""
-    _, ratios = chip_smoke.tile_skip(fa)
+    _, ratios, _ = chip_smoke.tile_skip(fa)
     assert set(ratios) == set(fa.LAUNCHES)
 
 
-def test_autograd_launches_each_kernel_once(cuda):
+@pytest.mark.parametrize("dtype,launched", [
+    (torch.float32, ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")),
+    (torch.bfloat16, ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq")),
+])
+def test_autograd_launches_each_kernel_once(cuda, dtype, launched):
     b, s, h, d = 2, 128, 4, 64
-    q, k, v = (torch.randn(b, s, h, d, device=cuda, requires_grad=True)
-               for _ in range(3))
+    q, k, v = (torch.randn(b, s, h, d, device=cuda, dtype=dtype,
+                           requires_grad=True) for _ in range(3))
     fa.reset_launch_counts()
     fa.flash_attention(q, k, v, causal=True).square().sum().backward()
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkdv": 1,
-                           "flash_bwd_dq": 1}
+    assert fa.LAUNCHES == {n: int(n in launched) for n in fa.LAUNCHES}
     assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
 
 
@@ -132,3 +147,8 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
         fa.flash_fwd(q, q, q, True, 0.1, 16, 16, 4, 2, None)
     with pytest.raises(ValueError, match="kv_heads"):
         fa.flash_fwd(q, q, q, True, 0.1, 16, 16, 3, 3, None)
+    # a contiguous view 2 bytes into its storage: TMA cannot start there
+    q = torch.zeros(4 * 16 * 64 + 1, device=cuda,
+                    dtype=torch.bfloat16)[1:].view(4, 16, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_fwd(q, q, q, True, 0.1, 16, 16, 4, 4, None)
