@@ -6,21 +6,21 @@
 Drives the port's main path — one data-parallel gpt-small training step
 at full width and depth (12 layers, 12 heads, emb 768, vocab 32000, bf16,
 seq 1024, batch 8 per GPU, AdamW lr 1e-4) — and holds every kernel of it
-against its plain PyTorch version.  Five kernels: the tensor-core forward
-and dK/dV (``flash_fwd_tc``, ``flash_bwd_dkdv_tc``; bf16 at head_dim 64,
-the main path) and the scalar-FMA forward, dK/dV and dQ (``flash_fwd``,
-``flash_bwd_dkdv``: fp32 and head_dims 16/32; ``flash_bwd_dq``: every
-dtype).  Phases, one JSON line each:
+against its plain PyTorch version.  Six kernels: the tensor-core forward,
+dK/dV and dQ (``flash_fwd_tc``, ``flash_bwd_dkdv_tc``, ``flash_bwd_dq_tc``;
+bf16 at head_dim 64, the main path) and the scalar-FMA forward, dK/dV and
+dQ (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``: fp32 and head_dims
+16/32).  Phases, one JSON line each:
 
 1. ``build``: compile the CUDA kernels from ``horovod_tpu_torch/csrc``
    (one nvcc per source, all at once), print the seconds taken, each
    kernel's registers, and the HGMMA (wgmma) and UTMALDG (TMA load)
    instructions in the tensor-core libraries' SASS.
 2. ``kernel_check``: each kernel against its plain version at the main
-   path's shape (Z=96, S=1024, D=64, bf16, causal; the scalar forward and
-   dK/dV too, through their launch helpers), at a bf16 GQA + window shape
+   path's shape (Z=96, S=1024, D=64, bf16, causal; the scalar kernels
+   too, through their launch helpers), at a bf16 GQA + window shape
    with a ragged S (tensor-core kernels) and at the same shape in fp32
-   (scalar kernels); device times of all five kernels at the main shape,
+   (scalar kernels); device times of all six kernels at the main shape,
    of the plain versions and of the PyTorch library call (SDPA; a
    yardstick the port never calls).  ``tile_skip``: each kernel's time
    unmasked, causal and windowed; the masked runs must be faster by the
@@ -64,19 +64,22 @@ SOURCES = {
                      "horovod_tpu/ops/flash_attention.py:158"),
     "flash_bwd_dkdv_tc": ("horovod_tpu_torch/csrc/flash_bwd_dkdv_tc.cu",
                           "horovod_tpu/ops/flash_attention.py:291"),
-    "flash_bwd_dq": ("horovod_tpu_torch/csrc/flash_bwd_dq.cu",
-                     "horovod_tpu/ops/flash_attention.py:324"),
+    "flash_bwd_dq_tc": ("horovod_tpu_torch/csrc/flash_bwd_dq_tc.cu",
+                        "horovod_tpu/ops/flash_attention.py:324"),
     "flash_fwd": ("horovod_tpu_torch/csrc/flash_fwd.cu",
                   "horovod_tpu/ops/flash_attention.py:158"),
     "flash_bwd_dkdv": ("horovod_tpu_torch/csrc/flash_bwd_dkdv.cu",
                        "horovod_tpu/ops/flash_attention.py:291"),
+    "flash_bwd_dq": ("horovod_tpu_torch/csrc/flash_bwd_dq.cu",
+                     "horovod_tpu/ops/flash_attention.py:324"),
 }
 PASS = {"flash_fwd_tc": "fwd", "flash_fwd": "fwd",
         "flash_bwd_dkdv_tc": "dkdv", "flash_bwd_dkdv": "dkdv",
-        "flash_bwd_dq": "dq"}
+        "flash_bwd_dq_tc": "dq", "flash_bwd_dq": "dq"}
 # tensor-core kernel -> the scalar kernel of the same function
 SCALAR_TWIN = {"flash_fwd_tc": "flash_fwd",
-               "flash_bwd_dkdv_tc": "flash_bwd_dkdv"}
+               "flash_bwd_dkdv_tc": "flash_bwd_dkdv",
+               "flash_bwd_dq_tc": "flash_bwd_dq"}
 MIN_SPEEDUP = 3.0
 
 
@@ -131,18 +134,25 @@ def check_close(name, got, want, tol) -> float:
 
 def launcher(fa, name, q, k, v, o, lse, do, cfg):
     """One launch of kernel ``name`` through its launch helper, into
-    scratch outputs; ``cfg`` is (causal, scale, h, hkv, window)."""
+    scratch outputs; ``cfg`` is (causal, scale, h, hkv, window).  For
+    ``flash_bwd_dq_tc`` the (lse, delta) pairs it reads are filled first,
+    by one ``flash_bwd_dkdv_tc`` launch, as ``flash_bwd`` does."""
     import torch
 
     if PASS[name] == "fwd":
         o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
         return lambda: fa.launch_fwd(q, k, v, o2, lse2, *cfg, kernel=name)
+    pairs = fa.pair_scratch(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
     if PASS[name] == "dkdv":
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
         return lambda: fa.launch_dkdv(q, k, v, o, lse, do, dk, dv, *cfg,
-                                      kernel=name)
+                                      kernel=name, pairs=pairs)
+    if name == "flash_bwd_dq_tc":
+        fa.launch_dkdv(q, k, v, o, lse, do, dk, dv, *cfg,
+                       kernel="flash_bwd_dkdv_tc", pairs=pairs)
     dq = torch.empty_like(q)
-    return lambda: fa.launch_dq(q, k, v, o, lse, do, dq, *cfg)
+    return lambda: fa.launch_dq(q, k, v, o, lse, do, dq, *cfg, kernel=name,
+                                pairs=pairs)
 
 
 # The kernels skip the (Q, K) tiles their masks rule out, and that shows in
@@ -158,8 +168,8 @@ SKIP_SHAPE = {"b": 2, "s": 4096, "h": 12, "d": 64}
 MAIN_SHAPE = {"b": 8, "s": 1024, "h": 12, "d": 64}
 # dtype each kernel is timed in: the one the route sends it
 SKIP_DTYPE = {"flash_fwd_tc": "bf16", "flash_bwd_dkdv_tc": "bf16",
-              "flash_bwd_dq": "bf16", "flash_fwd": "fp32",
-              "flash_bwd_dkdv": "fp32"}
+              "flash_bwd_dq_tc": "bf16", "flash_fwd": "fp32",
+              "flash_bwd_dkdv": "fp32", "flash_bwd_dq": "fp32"}
 
 
 def mask_times(fa, names, b, s, h, d, dtype):
@@ -188,7 +198,7 @@ def ratios_of(ms):
 
 
 def tile_skip(fa):
-    """Each of the five kernels' device time unmasked, causal and windowed
+    """Each of the six kernels' device time unmasked, causal and windowed
     at ``SKIP_SHAPE``, in the dtype its route gives it.  Raises unless each
     masked run is as much faster as ``SKIP_LIMITS`` says; returns the times
     and ratios per kernel, and the tensor-core kernels' ratios at the main
@@ -322,6 +332,11 @@ def kernel_check(fa):
             err["flash_bwd_dkdv"] = max(
                 check_close("flash_bwd_dkdv dk", dk_s, dk_p, TOL[tname]),
                 check_close("flash_bwd_dkdv dv", dv_s, dv_p, TOL[tname]))
+            dq_s = torch.empty_like(q)
+            fa.launch_dq(q, k, v, o_p, lse_p, do, dq_s, *cfg,
+                         kernel="flash_bwd_dq")
+            err["flash_bwd_dq"] = check_close("flash_bwd_dq", dq_s, dq_p,
+                                              TOL[tname])
             ms = {n: cuda_ms(launcher(fa, n, q, k, v, o_p, lse_p, do, cfg),
                              20 if n in SCALAR_TWIN else 10)
                   for n in SOURCES}
@@ -415,7 +430,7 @@ def model_flops_per_step(cfg, batch: int, seq: int) -> float:
 
 # the kernels of the main path (bf16, head_dim 64) and the ones it must not
 # reach
-MAIN_PATH = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq")
+MAIN_PATH = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
 LOSS_RTOL = 0.01
 
 
@@ -517,6 +532,8 @@ def profile(state, step, step_ms: float):
     emit("profile", device_busy_ms=busy_ms, step_ms=step_ms,
          device_busy_share=busy_ms / step_ms, flash_kernels_ms=flash_ms,
          kernels=len(rows),
+         flash=[{"name": n[:60], "ms": ms, "calls": c}
+                for ms, n, c in rows if "flash_" in n],
          host_busy_ms=sum(r[0] for r in cpu),
          top=[{"name": n[:80], "ms": ms, "calls": c}
               for ms, n, c in rows[:12]],

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_fwd_tc.cu, flash_bwd_dkdv_tc.cu): mbarriers, TMA loads, wgmma
-// descriptors and the one wgmma shape both kernels use, m64n64k16 bf16 with
-// fp32 accumulators, in its SS form (A and B from shared memory) and its RS
-// form (A from registers).
+// (flash_fwd_tc.cu, flash_bwd_dkdv_tc.cu, flash_bwd_dq_tc.cu): mbarriers,
+// TMA loads, wgmma descriptors and the one wgmma shape the three kernels
+// use, m64n64k16 bf16 with fp32 accumulators, in its SS form (A and B from
+// shared memory) and its RS form (A from registers).
 //
 // Shared-memory tiles.  Every bf16 tile is [rows, 64] with 128-byte rows,
 // written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row

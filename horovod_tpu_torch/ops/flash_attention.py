@@ -12,7 +12,9 @@ replace the three Pallas kernels:
 * ``kernel_dkdv`` <- ``flash_bwd_dkdv_tc`` (``csrc/flash_bwd_dkdv_tc.cu``)
   for bf16 at head_dim 64, ``flash_bwd_dkdv`` (``csrc/flash_bwd_dkdv.cu``)
   otherwise
-* ``kernel_dq`` <- ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``)
+* ``kernel_dq`` <- ``flash_bwd_dq_tc`` (``csrc/flash_bwd_dq_tc.cu``) for
+  bf16 at head_dim 64, ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``)
+  otherwise
 
 :func:`kernel_for` is the whole route table.  ``wgmma`` has no fp32 form
 and TF32 would not hold the fp32 tolerance, so fp32 (and head_dims 16 and
@@ -48,6 +50,7 @@ __all__ = [
     "launch_fwd",
     "launch_dkdv",
     "launch_dq",
+    "pair_scratch",
     "flash_fwd_plain",
     "flash_bwd_plain",
     "LAUNCHES",
@@ -69,9 +72,14 @@ KERNEL_TILES = {
     "flash_bwd_dq": (64, 32),
     "flash_fwd_tc": (64, 64),
     "flash_bwd_dkdv_tc": (64, 64),
+    "flash_bwd_dq_tc": (64, 64),
 }
-_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dkdv_tc")
-# rows of the (lse, delta) scratch of flash_bwd_dkdv_tc are padded to this
+_TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
+# the tensor-core backward kernels share an (lse, delta) scratch
+# (pair_scratch): flash_bwd_dkdv_tc's pre-pass fills it, flash_bwd_dq_tc
+# reads it
+_PAIR_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
+# rows of that scratch are padded to this
 _TC_PAIR_ROWS = 64
 
 # kernel name -> launches since the last reset; each wrapper adds one where
@@ -108,7 +116,7 @@ def kernel_for(pass_: str, dtype: torch.dtype, head_dim: int) -> str:
     if pass_ == "dkdv":
         return "flash_bwd_dkdv_tc" if tc else "flash_bwd_dkdv"
     if pass_ == "dq":
-        return "flash_bwd_dq"
+        return "flash_bwd_dq_tc" if tc else "flash_bwd_dq"
     raise ValueError(f"unknown flash pass {pass_!r}")
 
 
@@ -230,9 +238,38 @@ def flash_bwd(q, k, v, o, lse, do, causal, scale, bq, bk, h, hkv, window):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     cfg = (causal, scale, h, hkv, window)
-    launch_dkdv(q, k, v, o, lse, do, dk, dv, *cfg)
-    launch_dq(q, k, v, o, lse, do, dq, *cfg)
+    pairs = (pair_scratch(q) if kernel_for("dq", q.dtype, q.shape[-1])
+             in _PAIR_KERNELS else None)
+    # dK/dV first: on the tensor-core route its pre-pass writes the
+    # (lse, delta) pairs that the dQ kernel then reads in place of o and lse
+    launch_dkdv(q, k, v, o, lse, do, dk, dv, *cfg, pairs=pairs)
+    launch_dq(q, k, v, o, lse, do, dq, *cfg, pairs=pairs)
     return dq, dk, dv
+
+
+def pair_scratch(q: torch.Tensor) -> torch.Tensor:
+    """The (lse, delta) scratch of the tensor-core backward for folded
+    ``q`` [Z, S, D]: [Z, S_pad, 2] fp32 with S_pad = S rounded up to 64.
+    ``flash_bwd_dkdv_tc`` fills every row of it (pad rows with zeros);
+    ``flash_bwd_dq_tc`` reads it."""
+    return torch.empty(_pair_shape(q), dtype=torch.float32, device=q.device)
+
+
+def _pair_shape(q: torch.Tensor) -> tuple:
+    z, s = q.shape[:2]
+    return (z, -(-s // _TC_PAIR_ROWS) * _TC_PAIR_ROWS, 2)
+
+
+def _checked_pairs(name, q, pairs) -> torch.Tensor:
+    if pairs is None:
+        raise ValueError(f"{name} needs the (lse, delta) scratch: pass "
+                         "pairs=pair_scratch(q)")
+    want = _pair_shape(q)
+    if (pairs.dtype != torch.float32 or tuple(pairs.shape) != want
+            or not pairs.is_contiguous() or pairs.device != q.device):
+        raise ValueError(f"{name} needs a contiguous fp32 (lse, delta) "
+                         f"scratch of shape {want} on the device of q")
+    return pairs
 
 
 # The launch helpers take ``kernel=`` only so that chip_smoke.py can time
@@ -248,25 +285,29 @@ def launch_fwd(q, k, v, o, lse, causal, scale, h, hkv, window, kernel=None):
 
 
 def launch_dkdv(q, k, v, o, lse, do, dk, dv, causal, scale, h, hkv, window,
-                kernel=None):
+                kernel=None, pairs=None):
     """Launch the dK/dV pass into ``dk`` / ``dv``, on inputs
-    :func:`flash_bwd` has checked."""
+    :func:`flash_bwd` has checked.  ``flash_bwd_dkdv_tc`` also writes
+    (lse, delta) per query row into ``pairs`` (:func:`pair_scratch`)."""
     name = kernel or kernel_for("dkdv", q.dtype, q.shape[-1])
     tensors = (q, k, v, o, lse, do, dk, dv)
-    if name == "flash_bwd_dkdv_tc":
-        # (lse, delta) per query row, filled by the kernel's pre-pass
-        z, s = q.shape[:2]
-        s_pad = -(-s // _TC_PAIR_ROWS) * _TC_PAIR_ROWS
-        tensors += (torch.empty((z, s_pad, 2), dtype=torch.float32,
-                                device=q.device),)
+    if name in _PAIR_KERNELS:
+        tensors += (_checked_pairs(name, q, pairs),)
     _launch(name, q, tensors, causal, scale, h, hkv, window)
 
 
-def launch_dq(q, k, v, o, lse, do, dq, causal, scale, h, hkv, window):
+def launch_dq(q, k, v, o, lse, do, dq, causal, scale, h, hkv, window,
+              kernel=None, pairs=None):
     """Launch the dQ pass into ``dq``, on inputs :func:`flash_bwd` has
-    checked."""
-    _launch(kernel_for("dq", q.dtype, q.shape[-1]), q,
-            (q, k, v, o, lse, do, dq), causal, scale, h, hkv, window)
+    checked.  ``flash_bwd_dq_tc`` reads (lse, delta) from ``pairs``, which
+    ``flash_bwd_dkdv_tc`` must have filled on the same inputs, and reads
+    neither ``o`` nor ``lse``."""
+    name = kernel or kernel_for("dq", q.dtype, q.shape[-1])
+    if name in _PAIR_KERNELS:
+        tensors = (q, k, v, _checked_pairs(name, q, pairs), do, dq)
+    else:
+        tensors = (q, k, v, o, lse, do, dq)
+    _launch(name, q, tensors, causal, scale, h, hkv, window)
 
 
 def _launch(name, q, tensors, causal, scale, h, hkv, window) -> None:

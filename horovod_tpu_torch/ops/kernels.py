@@ -32,6 +32,7 @@ SOURCES = {
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_fwd_tc": "flash_fwd_tc.cu",
     "flash_bwd_dkdv_tc": "flash_bwd_dkdv_tc.cu",
+    "flash_bwd_dq_tc": "flash_bwd_dq_tc.cu",
 }
 _HEADERS = ("flash_common.cuh", "hopper_tc.cuh")
 _FLAGS = (
@@ -53,6 +54,9 @@ _SIGNATURES = {
     # + the (lse, delta) scratch of the pre-pass
     "flash_bwd_dkdv_tc": ("hvd_flash_bwd_dkdv_tc",
                           [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
+    # the filled (lse, delta) scratch in place of o and lse
+    "flash_bwd_dq_tc": ("hvd_flash_bwd_dq_tc",
+                        [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -2,8 +2,8 @@
 tensor-core kernels' tiles (horovod_tpu_torch.ops.flash_attention).
 
 The route is a plain table (``kernel_for``): bf16 at head_dim 64 runs the
-tensor-core forward and dK/dV, everything else the scalar kernels, and
-dQ always runs ``flash_bwd_dq``.  The CUDA kernels cannot run here; what
+tensor-core forward, dK/dV and dQ, everything else the scalar kernels.
+The CUDA kernels cannot run here; what
 they are held to on the card is the plain version, and the last test
 holds that plain version against the JAX package's Pallas kernels on the
 inputs the tensor-core route takes (bf16, head_dim 64, GQA, a window and
@@ -13,6 +13,7 @@ there: bf16 0.05, as tests/test_torch_flash_attention.py holds bf16.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 
 import jax
@@ -26,13 +27,13 @@ from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import kernels
 
 BF16_TOL = 0.05
-TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc")
+TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
 
 
 @pytest.mark.parametrize("pass_,dtype,d,want", [
     ("fwd", torch.bfloat16, 64, "flash_fwd_tc"),
     ("dkdv", torch.bfloat16, 64, "flash_bwd_dkdv_tc"),
-    ("dq", torch.bfloat16, 64, "flash_bwd_dq"),
+    ("dq", torch.bfloat16, 64, "flash_bwd_dq_tc"),
     ("fwd", torch.float32, 64, "flash_fwd"),
     ("dkdv", torch.float32, 64, "flash_bwd_dkdv"),
     ("dq", torch.float32, 64, "flash_bwd_dq"),
@@ -41,13 +42,14 @@ TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc")
     ("fwd", torch.bfloat16, 16, "flash_fwd"),
     ("dkdv", torch.bfloat16, 16, "flash_bwd_dkdv"),
     ("dq", torch.float32, 16, "flash_bwd_dq"),
+    ("dq", torch.bfloat16, 32, "flash_bwd_dq"),
 ])
 def test_route_table(pass_, dtype, d, want):
     assert fa.kernel_for(pass_, dtype, d) == want
 
 
 def test_every_kernel_is_built_counted_and_tiled():
-    """Five kernels, each with a source, a C signature, a launch counter
+    """Six kernels, each with a source, a C signature, a launch counter
     and its tiles; the route reaches every one of them."""
     assert set(kernels.SOURCES) == set(kernels._SIGNATURES)
     assert set(fa.LAUNCHES) == set(kernels.SOURCES) == set(fa.KERNEL_TILES)
@@ -59,6 +61,43 @@ def test_every_kernel_is_built_counted_and_tiled():
     # the dK/dV tensor-core entry point takes the (lse, delta) scratch
     assert len(kernels._SIGNATURES["flash_bwd_dkdv_tc"][1]) == \
         len(kernels._SIGNATURES["flash_bwd_dkdv"][1]) + 1
+    # the dQ one takes the filled scratch in place of o and lse: q, k, v,
+    # pairs, dO, dq, then the scalar dQ's ints, scale, dtype and stream
+    sym, args = kernels._SIGNATURES["flash_bwd_dq_tc"]
+    assert sym == "hvd_flash_bwd_dq_tc"
+    assert args == [ctypes.c_void_p] * 6 + \
+        kernels._SIGNATURES["flash_bwd_dq"][1][7:]
+
+
+@pytest.mark.parametrize("s,s_pad", [(1, 64), (64, 64), (300, 320),
+                                     (1024, 1024)])
+def test_pair_scratch_pads_rows_to_the_tile(s, s_pad):
+    """One [Z, S_pad, 2] fp32 buffer per backward: a 64-row slice of it is
+    one 512-byte bulk copy for both tensor-core backward kernels."""
+    pairs = fa.pair_scratch(torch.zeros(6, s, 64, dtype=torch.bfloat16))
+    assert pairs.shape == (6, s_pad, 2) and pairs.dtype == torch.float32
+    assert pairs.is_contiguous()
+
+
+@pytest.mark.parametrize("launch,kernel", [
+    ("launch_dkdv", "flash_bwd_dkdv_tc"),
+    ("launch_dq", "flash_bwd_dq_tc"),
+])
+@pytest.mark.parametrize("bad", ["missing", "short", "dtype"])
+def test_tc_backward_refuses_a_bad_pair_buffer(launch, kernel, bad):
+    """The tensor-core backward kernels read or write (lse, delta) pairs
+    sized from q; the launch helpers refuse a missing or mis-shaped
+    buffer before any launch (so the check holds on CPU tensors too)."""
+    z, s, d = 4, 100, 64
+    q = torch.zeros(z, s, d, dtype=torch.bfloat16)
+    lse = torch.zeros(z, s)
+    pairs = {"missing": None,
+             "short": torch.zeros(z, s, 2),
+             "dtype": torch.zeros(z, 128, 2, dtype=torch.float64)}[bad]
+    outs = (q, q) if launch == "launch_dkdv" else (q,)
+    with pytest.raises(ValueError, match="lse, delta"):
+        getattr(fa, launch)(q, q, q, q, lse, q, *outs, True, 0.125, 4, 4,
+                            None, kernel=kernel, pairs=pairs)
 
 
 @pytest.mark.parametrize("dtype,d,match", [
@@ -81,14 +120,15 @@ def test_route_refuses_an_unknown_pass():
 
 
 def _reference_predicates(i, j, bq, bk, causal, window):
-    """flash_attention.py's forward (:171-175) and dk/dv (:304-308)
-    predicates, transcribed."""
+    """flash_attention.py's forward (:171-175), dk/dv (:304-308) and dq
+    (:333-337) predicates, transcribed."""
     fwd = (j * bk <= (i + 1) * bq - 1) if causal else True
-    bwd = ((i + 1) * bq - 1 >= j * bk) if causal else True
+    dkdv = ((i + 1) * bq - 1 >= j * bk) if causal else True
+    dq = (j * bk <= (i + 1) * bq - 1) if causal else (j >= 0)
     if window is not None:
         band = (j + 1) * bk - 1 >= i * bq - (window - 1)
-        fwd, bwd = fwd and band, bwd and band
-    return fwd, bwd
+        fwd, dkdv, dq = fwd and band, dkdv and band, dq and band
+    return fwd, dkdv, dq
 
 
 def _holds_unmasked_pair(i, j, bq, bk, s, causal, window):
@@ -116,8 +156,9 @@ def test_tile_predicate_at_tensor_core_tiles(kernel, causal, window):
         nq, nk = -(-s // bq), -(-s // bk)
         for i, j in itertools.product(range(nq), range(nk)):
             got = fa.tile_needed(i, j, bq, bk, causal, window)
-            fwd, bwd = _reference_predicates(i, j, bq, bk, causal, window)
-            assert got == fwd == bwd, (s, i, j)
+            fwd, dkdv, dq = _reference_predicates(i, j, bq, bk, causal,
+                                                  window)
+            assert got == fwd == dkdv == dq, (s, i, j)
             if not got:
                 assert not _holds_unmasked_pair(i, j, bq, bk, s, causal,
                                                 window), (s, i, j)

@@ -10,7 +10,7 @@ Run on the machine with the card (the file imports no JAX; the
 Tolerance, |kernel - plain| <= atol + rtol * |plain|: fp32 1e-4 (sums in
 another order), bf16 1e-2 (outputs rounded to bf16 after those sums; the
 tensor-core kernels also round P and dS to bf16 before their second
-product).  bf16 at head_dim 64 runs the tensor-core forward and dK/dV
+product).  bf16 at head_dim 64 runs the tensor-core forward, dK/dV and dQ
 (``fa.kernel_for``); fp32 and head_dims 16/32 the scalar kernels.
 """
 
@@ -47,8 +47,9 @@ CASES = [
     (2, 300, 8, 2, 64, torch.bfloat16, True, 100),   # ragged S, GQA, band
     (2, 97, 4, 1, 64, torch.bfloat16, True, None),   # MQA, ragged
 ]
-# a GQA case per route, for the run-to-run check
-GQA_CASES = [CASES[2], CASES[10]]
+# a GQA case per route, for the run-to-run check (the bf16 ones run the
+# tensor-core dQ)
+GQA_CASES = [CASES[2], CASES[5], CASES[10]]
 
 
 @pytest.fixture
@@ -122,7 +123,8 @@ def test_masked_tiles_are_skipped(cuda):
 
 @pytest.mark.parametrize("dtype,launched", [
     (torch.float32, ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")),
-    (torch.bfloat16, ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq")),
+    (torch.bfloat16, ("flash_fwd_tc", "flash_bwd_dkdv_tc",
+                      "flash_bwd_dq_tc")),
 ])
 def test_autograd_launches_each_kernel_once(cuda, dtype, launched):
     b, s, h, d = 2, 128, 4, 64
@@ -132,6 +134,29 @@ def test_autograd_launches_each_kernel_once(cuda, dtype, launched):
     fa.flash_attention(q, k, v, causal=True).square().sum().backward()
     assert fa.LAUNCHES == {n: int(n in launched) for n in fa.LAUNCHES}
     assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+
+
+def test_tc_dq_needs_the_pairs_dkdv_filled(cuda):
+    """flash_bwd_dq_tc reads (lse, delta) from the dK/dV pre-pass's scratch:
+    without one its launch helper refuses; with one filled by
+    flash_bwd_dkdv_tc it gives the plain dq."""
+    case = (2, 300, 8, 2, 64, torch.bfloat16, True, 100)
+    q, k, v, do, args = _inputs(case, cuda)
+    causal, scale, _, bk, h, hkv, window = args
+    cfg = (causal, scale, h, hkv, window)
+    o, lse = fa.flash_fwd_plain(q, k, v, *args)
+    dq = torch.empty_like(q)
+    with pytest.raises(ValueError, match="lse, delta"):
+        fa.launch_dq(q, k, v, o, lse, do, dq, *cfg, kernel="flash_bwd_dq_tc")
+    pairs = fa.pair_scratch(q)
+    fa.launch_dkdv(q, k, v, o, lse, do, torch.empty_like(k),
+                   torch.empty_like(v), *cfg, kernel="flash_bwd_dkdv_tc",
+                   pairs=pairs)
+    fa.launch_dq(q, k, v, o, lse, do, dq, *cfg, kernel="flash_bwd_dq_tc",
+                 pairs=pairs)
+    want, _, _ = fa.flash_bwd_plain(q, k, v, o, lse, do, causal, scale, bk,
+                                    h, hkv, window)
+    _close(dq, want, q.dtype, "dq")
 
 
 def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
