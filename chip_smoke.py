@@ -134,22 +134,21 @@ def check_close(name, got, want, tol) -> float:
 
 def launcher(fa, name, q, k, v, o, lse, do, cfg):
     """One launch of kernel ``name`` through its launch helper, into
-    scratch outputs; ``cfg`` is (causal, scale, h, hkv, window).  For
-    ``flash_bwd_dq_tc`` the (lse, delta) pairs it reads are filled first,
-    by one ``flash_bwd_dkdv_tc`` launch, as ``flash_bwd`` does."""
+    scratch outputs; ``cfg`` is (causal, scale, h, hkv, window).  A dQ
+    kernel's launches follow one dK/dV launch, as in ``flash_bwd``: it
+    fills the (lse, delta) pairs that the tensor-core dQ reads, outside
+    the timed launches."""
     import torch
 
     if PASS[name] == "fwd":
         o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
         return lambda: fa.launch_fwd(q, k, v, o2, lse2, *cfg, kernel=name)
-    pairs = fa.pair_scratch(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if PASS[name] == "dkdv":
+        pairs = fa.pair_scratch(q)
         return lambda: fa.launch_dkdv(q, k, v, o, lse, do, dk, dv, *cfg,
                                       kernel=name, pairs=pairs)
-    if name == "flash_bwd_dq_tc":
-        fa.launch_dkdv(q, k, v, o, lse, do, dk, dv, *cfg,
-                       kernel="flash_bwd_dkdv_tc", pairs=pairs)
+    pairs = fa.launch_dkdv_for_dq(name, q, k, v, o, lse, do, dk, dv, *cfg)
     dq = torch.empty_like(q)
     return lambda: fa.launch_dq(q, k, v, o, lse, do, dq, *cfg, kernel=name,
                                 pairs=pairs)
@@ -224,10 +223,12 @@ def tile_skip(fa):
 
 
 def attention_work(b, s, h, hkv, d, causal, window, itemsize):
-    """FLOPs of each pass's products and the bytes it must move (each
-    input read once, each output written once) on these shapes; only the
-    (q, k) pairs the masks leave alive count.  Keyed by pass and by every
-    kernel that runs it."""
+    """FLOPs of each kernel's products and the bytes it must move (each
+    of its inputs read once, each of its outputs written once) on these
+    shapes; only the (q, k) pairs the masks leave alive count.  Keyed by
+    kernel: the tensor-core backward kernels move other tensors than their
+    scalar twins (dK/dV's pre-pass also writes the (lse, delta) pairs, dQ
+    reads them in place of o and lse)."""
     import torch
 
     qp = torch.arange(s)[:, None]
@@ -241,18 +242,24 @@ def attention_work(b, s, h, hkv, d, causal, window, itemsize):
     q_bytes = b * h * s * d * itemsize
     kv_bytes = b * hkv * s * d * itemsize
     lse_bytes = b * h * s * 4
-    work = {
-        # S = QK^T and O = PV
-        "fwd": (4 * d * pairs, q_bytes + 2 * kv_bytes + q_bytes
-                + lse_bytes),
-        # S, dP = dO V^T, dV = P^T dO, dK = dS^T Q
-        "dkdv": (8 * d * pairs, 3 * q_bytes + 2 * kv_bytes + lse_bytes
-                 + 2 * kv_bytes),
-        # S, dP, dQ = dS K
-        "dq": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + lse_bytes
-               + q_bytes),
+    # [Z, S rounded up to 64] float2 (lse, delta): fa.pair_scratch
+    pair_bytes = b * h * -(-s // 64) * 64 * 8
+    # S = QK^T and O = PV: q, k, v in; o, lse out
+    fwd = (4 * d * pairs, q_bytes + 2 * kv_bytes + q_bytes + lse_bytes)
+    # S, dP = dO V^T, dV = P^T dO, dK = dS^T Q: q, o, dO, k, v, lse in;
+    # dk, dv out
+    dkdv = (8 * d * pairs, 3 * q_bytes + 2 * kv_bytes + lse_bytes
+            + 2 * kv_bytes)
+    # S, dP, dQ = dS K: q, o, dO, k, v, lse in; dq out
+    dq = (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes)
+    return {
+        "flash_fwd_tc": fwd, "flash_fwd": fwd,
+        "flash_bwd_dkdv_tc": (dkdv[0], dkdv[1] + pair_bytes),
+        "flash_bwd_dkdv": dkdv,
+        # q, dO, k, v and the pairs in; dq out
+        "flash_bwd_dq_tc": (dq[0], dq[1] - q_bytes - lse_bytes + pair_bytes),
+        "flash_bwd_dq": dq,
     }
-    return {**work, **{n: work[p] for n, p in PASS.items()}}
 
 
 def bound(flops: int, nbytes: int, peak: float):
@@ -373,6 +380,13 @@ def kernel_check(fa):
             speedup = {n: ms[twin] / ms[n] for n, twin in SCALAR_TWIN.items()}
             line["kernel_ms"] = ms
             line["speedup_over_scalar"] = speedup
+            # the like-for-like backward: the tensor-core dQ's time leaves
+            # out delta, which dK/dV's pre-pass computes for it
+            line["backward_ms"] = {
+                "tensor_core_dkdv_plus_dq":
+                    ms["flash_bwd_dkdv_tc"] + ms["flash_bwd_dq_tc"],
+                "scalar_dkdv_plus_dq":
+                    ms["flash_bwd_dkdv"] + ms["flash_bwd_dq"]}
             line["plain_ms"] = {"forward": plain_fwd,
                                 "backward_dq_dk_dv": plain_bwd}
             line["library_ms"] = {"sdpa_forward": lib_fwd,

@@ -50,6 +50,7 @@ __all__ = [
     "launch_fwd",
     "launch_dkdv",
     "launch_dq",
+    "launch_dkdv_for_dq",
     "pair_scratch",
     "flash_fwd_plain",
     "flash_bwd_plain",
@@ -75,10 +76,10 @@ KERNEL_TILES = {
     "flash_bwd_dq_tc": (64, 64),
 }
 _TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
-# the tensor-core backward kernels share an (lse, delta) scratch
-# (pair_scratch): flash_bwd_dkdv_tc's pre-pass fills it, flash_bwd_dq_tc
-# reads it
-_PAIR_KERNELS = ("flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
+# a dQ kernel that reads the (lse, delta) scratch (pair_scratch) -> the
+# dK/dV kernel whose pre-pass fills it (launch_dkdv_for_dq)
+_PAIRS_FILLED_BY = {"flash_bwd_dq_tc": "flash_bwd_dkdv_tc"}
+_PAIR_KERNELS = (*_PAIRS_FILLED_BY.values(), *_PAIRS_FILLED_BY)
 # rows of that scratch are padded to this
 _TC_PAIR_ROWS = 64
 
@@ -238,13 +239,26 @@ def flash_bwd(q, k, v, o, lse, do, causal, scale, bq, bk, h, hkv, window):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     cfg = (causal, scale, h, hkv, window)
-    pairs = (pair_scratch(q) if kernel_for("dq", q.dtype, q.shape[-1])
-             in _PAIR_KERNELS else None)
-    # dK/dV first: on the tensor-core route its pre-pass writes the
-    # (lse, delta) pairs that the dQ kernel then reads in place of o and lse
-    launch_dkdv(q, k, v, o, lse, do, dk, dv, *cfg, pairs=pairs)
-    launch_dq(q, k, v, o, lse, do, dq, *cfg, pairs=pairs)
+    dq_kernel = kernel_for("dq", q.dtype, q.shape[-1])
+    pairs = launch_dkdv_for_dq(dq_kernel, q, k, v, o, lse, do, dk, dv, *cfg)
+    launch_dq(q, k, v, o, lse, do, dq, *cfg, kernel=dq_kernel, pairs=pairs)
     return dq, dk, dv
+
+
+def launch_dkdv_for_dq(dq_kernel, q, k, v, o, lse, do, dk, dv, causal,
+                       scale, h, hkv, window):
+    """Launch the dK/dV pass into ``dk`` / ``dv`` ahead of a ``dq_kernel``
+    launch on the same inputs, and return the ``pairs`` to hand that
+    launch.  For a dQ kernel that reads the (lse, delta) scratch this is
+    the kernel whose pre-pass fills it, so the dK/dV launch must come
+    first; for one that reads ``o`` and ``lse`` it is the routed dK/dV
+    kernel.  The one place that knows the dK/dV -> dQ order."""
+    name = (_PAIRS_FILLED_BY.get(dq_kernel)
+            or kernel_for("dkdv", q.dtype, q.shape[-1]))
+    pairs = pair_scratch(q) if name in _PAIR_KERNELS else None
+    launch_dkdv(q, k, v, o, lse, do, dk, dv, causal, scale, h, hkv, window,
+                kernel=name, pairs=pairs)
+    return pairs
 
 
 def pair_scratch(q: torch.Tensor) -> torch.Tensor:
@@ -300,8 +314,8 @@ def launch_dq(q, k, v, o, lse, do, dq, causal, scale, h, hkv, window,
               kernel=None, pairs=None):
     """Launch the dQ pass into ``dq``, on inputs :func:`flash_bwd` has
     checked.  ``flash_bwd_dq_tc`` reads (lse, delta) from ``pairs``, which
-    ``flash_bwd_dkdv_tc`` must have filled on the same inputs, and reads
-    neither ``o`` nor ``lse``."""
+    :func:`launch_dkdv_for_dq` must have filled on the same inputs, and
+    reads neither ``o`` nor ``lse``."""
     name = kernel or kernel_for("dq", q.dtype, q.shape[-1])
     if name in _PAIR_KERNELS:
         tensors = (q, k, v, _checked_pairs(name, q, pairs), do, dq)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import ctypes
 import itertools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +27,9 @@ import torch
 from horovod_tpu.ops.flash_attention import flash_attention as jax_flash
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import kernels
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (the repo root's on-card smoke run)
 
 BF16_TOL = 0.05
 TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
@@ -67,6 +72,36 @@ def test_every_kernel_is_built_counted_and_tiled():
     assert sym == "hvd_flash_bwd_dq_tc"
     assert args == [ctypes.c_void_p] * 6 + \
         kernels._SIGNATURES["flash_bwd_dq"][1][7:]
+
+
+# tensors each kernel reads or writes once: its launch helper's pointers
+_MOVED = {
+    "flash_fwd_tc": ("q", "k", "v", "o", "lse"),
+    "flash_fwd": ("q", "k", "v", "o", "lse"),
+    "flash_bwd_dkdv_tc": ("q", "k", "v", "o", "lse", "do", "dk", "dv",
+                          "pairs"),
+    "flash_bwd_dkdv": ("q", "k", "v", "o", "lse", "do", "dk", "dv"),
+    "flash_bwd_dq_tc": ("q", "k", "v", "pairs", "do", "dq"),
+    "flash_bwd_dq": ("q", "k", "v", "o", "lse", "do", "dq"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_MOVED))
+def test_bound_counts_the_bytes_each_kernel_moves(name):
+    """chip_smoke's bound is per kernel: the tensor-core dQ is charged for
+    the (lse, delta) pairs it reads, not for o and lse, which dK/dV's
+    pre-pass reads for it."""
+    b, s, h, hkv, d = 1, 300, 4, 2, 64
+    q = torch.zeros(b * h, s, d, dtype=torch.bfloat16)
+    kv = torch.zeros(b * hkv, s, d, dtype=torch.bfloat16)
+    nbytes = lambda t: t.numel() * t.element_size()
+    size = {"q": nbytes(q), "o": nbytes(q), "do": nbytes(q),
+            "dq": nbytes(q), "k": nbytes(kv), "v": nbytes(kv),
+            "dk": nbytes(kv), "dv": nbytes(kv), "lse": b * h * s * 4,
+            "pairs": nbytes(fa.pair_scratch(q))}
+    work = chip_smoke.attention_work(b, s, h, hkv, d, True, 100, 2)
+    assert set(work) == set(_MOVED) == set(kernels.SOURCES)
+    assert work[name][1] == sum(size[t] for t in _MOVED[name])
 
 
 @pytest.mark.parametrize("s,s_pad", [(1, 64), (64, 64), (300, 320),

@@ -138,8 +138,9 @@ def test_autograd_launches_each_kernel_once(cuda, dtype, launched):
 
 def test_tc_dq_needs_the_pairs_dkdv_filled(cuda):
     """flash_bwd_dq_tc reads (lse, delta) from the dK/dV pre-pass's scratch:
-    without one its launch helper refuses; with one filled by
-    flash_bwd_dkdv_tc it gives the plain dq."""
+    without one its launch helper refuses; with the one that
+    launch_dkdv_for_dq fills (through flash_bwd_dkdv_tc) it gives the
+    plain dq."""
     case = (2, 300, 8, 2, 64, torch.bfloat16, True, 100)
     q, k, v, do, args = _inputs(case, cuda)
     causal, scale, _, bk, h, hkv, window = args
@@ -148,10 +149,11 @@ def test_tc_dq_needs_the_pairs_dkdv_filled(cuda):
     dq = torch.empty_like(q)
     with pytest.raises(ValueError, match="lse, delta"):
         fa.launch_dq(q, k, v, o, lse, do, dq, *cfg, kernel="flash_bwd_dq_tc")
-    pairs = fa.pair_scratch(q)
-    fa.launch_dkdv(q, k, v, o, lse, do, torch.empty_like(k),
-                   torch.empty_like(v), *cfg, kernel="flash_bwd_dkdv_tc",
-                   pairs=pairs)
+    fa.reset_launch_counts()
+    pairs = fa.launch_dkdv_for_dq("flash_bwd_dq_tc", q, k, v, o, lse, do,
+                                  torch.empty_like(k), torch.empty_like(v),
+                                  *cfg)
+    assert fa.LAUNCHES["flash_bwd_dkdv_tc"] == 1
     fa.launch_dq(q, k, v, o, lse, do, dq, *cfg, kernel="flash_bwd_dq_tc",
                  pairs=pairs)
     want, _, _ = fa.flash_bwd_plain(q, k, v, o, lse, do, causal, scale, bk,
