@@ -32,7 +32,21 @@ dQ (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``: fp32 and head_dims
    launched 12 times per step, and the 7 losses within 1% of the same
    steps run with the plain reference attention.
 5. ``profile``: one more step under ``torch.profiler``: device time by
-   kernel, the device's busy share, host busy time by op.
+   kernel, the device's busy share, host busy time by op (the phases
+   below profile one step of each of their runs the same way).
+6. ``overlap``: the same 7 steps from the same weights and tokens through
+   the backward-overlap plane, ``overlap_mode="bucket"`` and
+   ``"bucket+zero1"`` (16 MB buckets): losses against ``train``'s within
+   ``OVERLAP_LOSS_RTOL`` (and whether bit for bit), exact launch counts,
+   step time, MFU, peak memory, the buckets, and the issue order: the
+   bucket collectives issued on the host before the step's last
+   ``flash_bwd_dkdv_tc`` launch, held at the buckets that hold no
+   gradient produced after block 0's attention backward or more.
+7. ``rope_remat``: ``pos_embedding="rope"``, ``remat=True``,
+   ``"bucket+zero1"``: ``flash_fwd_tc`` launched twice per layer and step
+   (the recompute), the backward kernels once; losses within 1% of the
+   same steps with the plain reference attention; peak memory no higher
+   than the same run without remat.
 
 Then the ``kernels`` summary, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line.  Any failure raises and exits
@@ -429,23 +443,22 @@ def model_check(hvd_models, fa):
          tolerance={"logits": [2e-4, 2e-4], "grads": [5e-4, 5e-4]})
 
 
-def model_flops_per_step(cfg, batch: int, seq: int) -> float:
-    """Training FLOPs of one step, counted from the model: 6 per parameter
-    of the matrix products per token (forward 2, backward 4), plus the
-    attention products (forward 4 * emb per (q, k) pair alive under the
-    causal mask, times 3 for forward and backward); the backward's
-    recompute of the scores is not counted."""
-    e, L, v = cfg.emb_dim, cfg.num_layers, cfg.vocab_size
-    kv = cfg.kv_heads * cfg.head_dim
-    n_mm = L * (e * (e + 2 * kv) + e * e + 2 * cfg.mlp_ratio * e * e) + e * v
-    pairs = seq * (seq + 1) // 2
-    return 6 * n_mm * batch * seq + 3 * L * 4 * e * pairs * batch
-
-
 # the kernels of the main path (bf16, head_dim 64) and the ones it must not
 # reach
 MAIN_PATH = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
 LOSS_RTOL = 0.01
+STEPS, WARMUP = 5, 2
+# the gpt-small step every phase from ``train`` on drives
+GPT_STEP = ("small", "bf16", 8, 1024)
+# bucket and bucket+zero1 compute off's update: at world 1 the reduce of a
+# bucket is its own gradient and AdamW the same elementwise arithmetic, so
+# the losses may differ from off's only where a kernel of the step sums in
+# a run-dependent order
+OVERLAP_LOSS_RTOL = 1e-3
+OVERLAP_MODES = ("bucket", "bucket+zero1")
+# parameters whose gradients the backward produces only after block 0's
+# attention backward, the step's last flash_bwd_dkdv_tc launch
+LATE_PARAMS = ("block0.qkv.", "block0.ln1.", "wpe", "wte.")
 
 
 def run_steps(step, state, n):
@@ -457,67 +470,217 @@ def run_steps(step, state, n):
     return state, losses
 
 
-def train(hvd, fa, steps: int = 5, warmup: int = 2):
+def drive(fa, step, state, remat: bool = False):
+    """``WARMUP`` then ``STEPS`` timed steps from ``state``: the launch
+    counts are set to 0 just before and read just after, and must be exact
+    (each main-path kernel once per layer and step; the forward twice
+    under remat, which recomputes it; none of the others).  Returns the
+    state and the run's record."""
     import torch
 
-    from horovod_tpu_torch.train import build_gpt_step
-
-    topo = hvd.init()
-    assert topo.device.type == "cuda" and topo.backend == "nccl", topo
-    step, state, static = build_gpt_step("small", "bf16", 8, 1024)
     model = state[0]
     batch, seq = state[2].shape[0], state[2].shape[1] - 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
 
     fa.reset_launch_counts()                # the main path starts here
-    state, losses = run_steps(step, state, warmup)
+    state, losses = run_steps(step, state, WARMUP)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, timed = run_steps(step, state, steps)
+    state, timed = run_steps(step, state, STEPS)
     torch.cuda.synchronize()
-    secs = (time.perf_counter() - t0) / steps
+    secs = (time.perf_counter() - t0) / STEPS
     launches = dict(fa.LAUNCHES)            # ... and ends here
     losses = [float(x) for x in losses + timed]
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    total = steps + warmup
+    total = STEPS + WARMUP
     layers = model.cfg.num_layers
-    want = {n: layers * total if n in MAIN_PATH else 0 for n in launches}
+    per_step = {n: (layers * (2 if remat and n == "flash_fwd_tc" else 1)
+                    if n in MAIN_PATH else 0) for n in launches}
+    want = {n: k * total for n, k in per_step.items()}
     if launches != want:
         raise AssertionError(
-            f"kernel launches {launches} != {want} ({layers} per step x "
-            f"{total} steps for {MAIN_PATH}, none for the others)")
+            f"kernel launches {launches} != {want} ({per_step} per step x "
+            f"{total} steps)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
+    from horovod_tpu_torch.bench import model_flops_per_step
+
+    flops = model_flops_per_step(model.cfg, batch, seq)
+    return state, {
+        "losses": losses, "step_ms": secs * 1e3,
+        "tokens_per_s_per_gpu": batch * seq / secs,
+        "model_flops_per_step": flops, "mfu": flops / secs / H100_BF16_PEAK,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        # what the built model, optimizer and buffers hold before a step
+        "resident_mem_gib": resident,
+        "launches": launches, "launches_per_step": per_step}
+
+
+def losses_of(build, **kwargs):
+    """The losses of the same steps built with ``kwargs`` (no timing)."""
+    step, state, _ = build(*GPT_STEP, **kwargs)
+    return [float(x) for x in run_steps(step, state, STEPS + WARMUP)[1]]
+
+
+def max_rel(losses, ref) -> float:
+    return max(abs(a - r) / abs(r) for a, r in zip(losses, ref))
+
+
+# what may stay allocated once a run is dropped (library workspaces); a
+# gpt-small run that stayed alive would hold over 1 GiB
+RELEASE_SLACK_GIB = 0.5
+
+
+def release() -> None:
+    """Free what the last run left on the card and check that it is gone,
+    so the next run's resident and peak memory are its own."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    if left > RELEASE_SLACK_GIB:
+        raise AssertionError(f"{left:.3f} GiB still allocated after the last "
+                             f"run was dropped (> {RELEASE_SLACK_GIB})")
+
+
+def train(hvd, fa):
+    from horovod_tpu_torch.train import build_gpt_step
+
+    topo = hvd.init()
+    assert topo.device.type == "cuda" and topo.backend == "nccl", topo
+    step, state, static = build_gpt_step(*GPT_STEP)
+    state, run = drive(fa, step, state)
     # the same steps from the same weights and tokens, with the plain
     # reference attention in place of the kernels
-    ref_step, ref_state, _ = build_gpt_step("small", "bf16", 8, 1024,
-                                            attention="reference")
-    ref_state, ref_losses = run_steps(ref_step, ref_state, total)
-    ref_losses = [float(x) for x in ref_losses]
-    del ref_state
-    rel = max(abs(a - r) / abs(r) for a, r in zip(losses, ref_losses))
+    ref_losses = losses_of(build_gpt_step, attention="reference")
+    rel = max_rel(run["losses"], ref_losses)
     if rel > LOSS_RTOL:
         raise AssertionError(
-            f"losses {losses} differ from the reference attention's "
+            f"losses {run['losses']} differ from the reference attention's "
             f"{ref_losses} by {rel:.4f} > {LOSS_RTOL}")
-    flops = model_flops_per_step(model.cfg, batch, seq)
-    tokens = batch * seq
-    emit("train", model="gpt-small", dtype="bf16", batch_per_gpu=batch,
-         seq=seq, world=static["n_chips"], steps_timed=steps,
-         warmup=warmup, losses=losses, reference_losses=ref_losses,
-         max_rel_loss_diff=rel, loss_rtol=LOSS_RTOL, step_ms=secs * 1e3,
-         tokens_per_s_per_gpu=tokens / secs,
-         model_flops_per_step=flops,
-         mfu=flops / secs / H100_BF16_PEAK,
-         mfu_peak_flops=H100_BF16_PEAK,
-         peak_mem_gib=peak_gib,
-         launches=launches, launches_per_step_per_kernel=layers)
-    return state, step, launches, secs * 1e3, static["n_chips"]
+    emit("train", model="gpt-small", dtype="bf16",
+         batch_per_gpu=GPT_STEP[2], seq=GPT_STEP[3],
+         world=static["n_chips"], steps_timed=STEPS, warmup=WARMUP,
+         reference_losses=ref_losses, max_rel_loss_diff=rel,
+         loss_rtol=LOSS_RTOL, mfu_peak_flops=H100_BF16_PEAK, **run)
+    return state, step, run, static["n_chips"]
 
 
-def profile(state, step, step_ms: float):
+def issue_order(fa, plan, names):
+    """Record, at each bucket collective the plan issues, how many
+    ``flash_bwd_dkdv_tc`` launches came before it.  Returns the record and
+    *expected*: the buckets holding no parameter of ``LATE_PARAMS``."""
+    seen = []
+    plan.on_issue = lambda index: seen.append(
+        (index, fa.LAUNCHES["flash_bwd_dkdv_tc"]))
+    late = {i for i, n in enumerate(names) if n.startswith(LATE_PARAMS)}
+    expected = sum(1 for b in plan.layout.buckets
+                   if not late & set(b.leaf_indices))
+    return seen, expected
+
+
+def early_issues(seen, n_buckets: int, layers: int) -> list:
+    """Per step: the bucket collectives issued before the step's last
+    ``flash_bwd_dkdv_tc`` launch (its ``layers``-th), from
+    :func:`issue_order`'s record; every bucket must be issued once per
+    step."""
+    if len(seen) % n_buckets:
+        raise AssertionError(f"{len(seen)} bucket issues for {n_buckets} "
+                             "buckets a step")
+    steps = [seen[i:i + n_buckets] for i in range(0, len(seen), n_buckets)]
+    out = []
+    for k, issues in enumerate(steps):
+        if sorted(i for i, _ in issues) != list(range(n_buckets)):
+            raise AssertionError(f"step {k} issued buckets {issues}")
+        out.append(sum(1 for _, dkdv in issues if dkdv < layers * (k + 1)))
+    return out
+
+
+def overlap(fa, off_losses):
+    """gpt-small in ``bucket`` and ``bucket+zero1``: the ``train`` phase's
+    steps, through the overlap plane."""
+    from horovod_tpu_torch.train import build_gpt_step
+
+    out = {}
+    for mode in OVERLAP_MODES:
+        step, state, _ = build_gpt_step(*GPT_STEP, overlap_mode=mode)
+        model, plan = state[0], state[1]
+        seen, expected = issue_order(
+            fa, plan, [n for n, _ in model.named_parameters()])
+        state, run = drive(fa, step, state)
+        layout = plan.layout
+        early = early_issues(seen, len(layout.buckets), model.cfg.num_layers)
+        run["profile"] = profile_step(state, step, run["step_ms"], top=6)
+        rel = max_rel(run["losses"], off_losses)
+        out[mode] = dict(
+            run, buckets=len(layout.buckets), bucket_mb=layout.bucket_bytes
+            / 2**20, bucket_bytes=[b.nbytes for b in layout.buckets],
+            total_grad_bytes=layout.total_bytes,
+            issued_before_last_dkdv=min(early),
+            issued_before_last_dkdv_per_step=early,
+            expected_before_last_dkdv=expected,
+            max_rel_loss_diff_vs_off=rel,
+            bitwise_equal_to_off=run["losses"] == off_losses)
+        del step, state, model, plan
+        release()
+        if rel > OVERLAP_LOSS_RTOL:
+            raise AssertionError(
+                f"{mode} losses {run['losses']} differ from off's "
+                f"{off_losses} by {rel:.2e} > {OVERLAP_LOSS_RTOL}")
+        if min(early) < expected:
+            raise AssertionError(
+                f"{mode}: {early} bucket collectives issued before the last "
+                f"dK/dV launch per step, fewer than the {expected} buckets "
+                "complete by then")
+    emit("overlap", model="gpt-small", dtype="bf16",
+         batch_per_gpu=GPT_STEP[2], seq=GPT_STEP[3], world=1,
+         off_losses=off_losses, loss_rtol=OVERLAP_LOSS_RTOL, modes=out)
+
+
+def rope_remat(fa):
+    """RoPE + remat + ZeRO-1 at full width: exact launches (the forward
+    twice per layer), losses against the reference attention, and peak
+    memory against the same run without remat."""
+    from horovod_tpu_torch.train import build_gpt_step
+
+    kw = dict(pos_embedding="rope", overlap_mode="bucket+zero1")
+    runs = {}
+    for remat in (True, False):
+        step, state, _ = build_gpt_step(*GPT_STEP, remat=remat, **kw)
+        state, runs[remat] = drive(fa, step, state, remat=remat)
+        runs[remat]["profile"] = profile_step(state, step,
+                                              runs[remat]["step_ms"], top=6)
+        del step, state
+        release()
+    ref_losses = losses_of(build_gpt_step, attention="reference", remat=True,
+                           **kw)
+    release()
+    rel = max_rel(runs[True]["losses"], ref_losses)
+    if rel > LOSS_RTOL:
+        raise AssertionError(
+            f"rope+remat losses {runs[True]['losses']} differ from the "
+            f"reference attention's {ref_losses} by {rel:.4f} > {LOSS_RTOL}")
+    peak, plain_peak = runs[True]["peak_mem_gib"], runs[False]["peak_mem_gib"]
+    if peak > plain_peak:
+        raise AssertionError(f"remat raised the peak memory: {peak:.3f} GiB "
+                             f"against {plain_peak:.3f} without it")
+    emit("rope_remat", model="gpt-small", dtype="bf16",
+         batch_per_gpu=GPT_STEP[2], seq=GPT_STEP[3], world=1, **kw,
+         remat=runs[True], no_remat=runs[False],
+         reference_losses=ref_losses, max_rel_loss_diff=rel,
+         loss_rtol=LOSS_RTOL,
+         max_rel_loss_diff_remat_vs_not=max_rel(runs[True]["losses"],
+                                                runs[False]["losses"]),
+         bitwise_equal_remat_vs_not=(runs[True]["losses"]
+                                     == runs[False]["losses"]))
+
+
+def profile_step(state, step, step_ms: float, top: int = 12) -> dict:
     """One more step under torch.profiler: device time by kernel, the
     share of the timed (unprofiled) step the device was busy, and the
     host's busy time by op (the profiler's own overhead included)."""
@@ -543,16 +706,16 @@ def profile(state, step, step_ms: float):
                  reverse=True)
     busy_ms = sum(r[0] for r in rows)
     flash_ms = sum(r[0] for r in rows if "flash_" in r[1])
-    emit("profile", device_busy_ms=busy_ms, step_ms=step_ms,
-         device_busy_share=busy_ms / step_ms, flash_kernels_ms=flash_ms,
-         kernels=len(rows),
-         flash=[{"name": n[:60], "ms": ms, "calls": c}
-                for ms, n, c in rows if "flash_" in n],
-         host_busy_ms=sum(r[0] for r in cpu),
-         top=[{"name": n[:80], "ms": ms, "calls": c}
-              for ms, n, c in rows[:12]],
-         host_top=[{"name": n[:80], "ms": ms, "calls": c}
-                   for ms, n, c in cpu[:12]])
+    return dict(device_busy_ms=busy_ms, step_ms=step_ms,
+                device_busy_share=busy_ms / step_ms,
+                flash_kernels_ms=flash_ms, kernels=len(rows),
+                flash=[{"name": n[:60], "ms": ms, "calls": c}
+                       for ms, n, c in rows if "flash_" in n],
+                host_busy_ms=sum(r[0] for r in cpu),
+                top=[{"name": n[:80], "ms": ms, "calls": c}
+                     for ms, n, c in rows[:top]],
+                host_top=[{"name": n[:80], "ms": ms, "calls": c}
+                          for ms, n, c in cpu[:top]])
 
 
 def main() -> int:
@@ -589,8 +752,13 @@ def main() -> int:
          main_shape={**MAIN_SHAPE, "ratios": main_ratios,
                      "held": False})
     model_check(hvd_models, fa)
-    state, step, launches, step_ms, world = train(hvd, fa)
-    profile(state, step, step_ms)
+    state, step, run, world = train(hvd, fa)
+    launches = run["launches"]
+    emit("profile", **profile_step(state, step, run["step_ms"]))
+    del state, step
+    release()
+    overlap(fa, run["losses"])
+    rope_remat(fa)
 
     summary = [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],

@@ -11,10 +11,13 @@ NCCL on CUDA, gloo on the CPU.  Entry points run on the GPU unless the
 caller passes ``device="cpu"``; with no GPU and no ``device="cpu"``,
 :func:`init` raises.
 
-The slice ported so far is the data-parallel GPT training step:
-``init``, the collectives, ``DistributedOptimizer`` with
-``broadcast_parameters``, the GPT model, and flash attention, whose three
-kernels are hand-written CUDA for Hopper (``csrc/``).
+The slices ported so far are the data-parallel GPT training step and
+what ``bench.py --model gpt-*`` builds around it: ``init``, the
+collectives, ``DistributedOptimizer`` with ``broadcast_parameters``, the
+backward-overlap / ZeRO-1 plane (``optim.overlap``), the GPT model with
+learned or rotary positions and remat, flash attention, whose three
+kernels are hand-written CUDA for Hopper (``csrc/``), and the bench entry
+``python -m horovod_tpu_torch.bench``.
 """
 
 from .basics import (
@@ -39,11 +42,16 @@ from .ops.collectives import (
     Min,
     ReduceOp,
     Sum,
+    all_gather_flat,
+    allgather,
     allreduce,
+    alltoall,
     broadcast,
     grouped_allreduce,
+    reduce_scatter_flat,
+    reducescatter,
 )
-from .ops.compression import Compression
+from .ops.compression import Compression, ErrorFeedbackCompressor
 from .optim import (
     DistributedOptimizer,
     broadcast_object,
@@ -56,7 +64,9 @@ __all__ = [
     "local_size", "cross_rank", "cross_size", "is_homogeneous", "device",
     "global_topology", "NotInitializedError",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max",
-    "allreduce", "grouped_allreduce", "broadcast", "Compression",
+    "allreduce", "grouped_allreduce", "broadcast", "allgather",
+    "alltoall", "reducescatter", "reduce_scatter_flat", "all_gather_flat",
+    "Compression", "ErrorFeedbackCompressor",
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object",
 ]

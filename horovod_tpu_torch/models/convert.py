@@ -25,8 +25,9 @@ def params_from_jax(tree: Mapping) -> dict:
 
     Dense ``kernel`` ``[in, out]`` becomes ``weight`` ``[out, in]``;
     LayerNorm ``scale`` becomes ``weight``; Embed ``embedding`` becomes
-    ``weight``; ``wpe`` stays as it is.  Accepts the tree with or without
-    its top-level ``"params"`` collection.
+    ``weight``; ``wpe`` stays as it is (a RoPE tree has none, nor has the
+    port's RoPE model).  Accepts the tree with or without its top-level
+    ``"params"`` collection.
     """
     if "params" in tree:
         tree = tree["params"]

@@ -1,9 +1,9 @@
 """GPT-style transformer (counterpart of
 ``horovod_tpu/models/transformer.py``).
 
-Pre-LN decoder-only causal LM with learned positions.  Submodule and
-parameter names mirror the flax tree (``wte``, ``wpe``,
-``block{i}.{ln1,qkv,proj,ln2,fc1,fc2}``, ``lnf``, ``head``), so
+Pre-LN decoder-only causal LM.  Submodule and parameter names mirror the
+flax tree (``wte``, ``wpe``, ``block{i}.{ln1,qkv,proj,ln2,fc1,fc2}``,
+``lnf``, ``head``), so
 :func:`horovod_tpu_torch.models.convert.params_from_jax` maps one onto the
 other.  The flax defaults are kept where PyTorch's differ:
 
@@ -16,6 +16,18 @@ other.  The flax defaults are kept where PyTorch's differ:
 
 Attention: ``attention_impl="flash"`` (the CUDA kernels on the card, their
 plain versions on the CPU) or ``"reference"`` (plain softmax attention).
+
+Positions: ``pos_embedding="learned"`` (the ``wpe`` table) or ``"rope"``
+(rotary, ``ops/rope.py``; no ``wpe`` parameter, as flax creates none): the
+tables are computed once per forward for positions ``0..S-1`` and handed
+to every block.
+
+``remat=True`` checkpoints each block as the reference's
+``nn.remat(Block, policy=dots_with_no_batch_dims_saveable)``: non-reentrant
+``torch.utils.checkpoint`` with a selective policy that saves the outputs
+of the 2-D matrix products (the Dense layers) and recomputes everything
+else in the backward, attention included (the flash forward launches
+again).
 """
 
 from __future__ import annotations
@@ -26,6 +38,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.rope import apply_rope_tables, rope_tables
 
 __all__ = ["TransformerConfig", "Block", "GPT", "GPT_CONFIGS", "gpt",
            "block_math"]
@@ -45,14 +60,16 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16
     attention_impl: str = "flash"  # flash | reference
     attention_window: Optional[int] = None  # flash only
-    pos_embedding: str = "learned"
+    pos_embedding: str = "learned"  # learned | rope
+    rope_theta: float = 10000.0
+    # Checkpoint each block, saving only the Dense products (see module doc)
+    remat: bool = False
     # Tile hints for the plain flash versions (the CUDA kernels use their
     # own tiles); the reference's defaults.
     flash_block_q: int = 512
     flash_block_k: int = 256
     # Options of the reference model not ported yet: each raises
     # NotImplementedError naming its ROADMAP item when set.
-    remat: bool = False
     moe_experts: int = 0
     act_store_dtype: Optional[torch.dtype] = None
 
@@ -91,11 +108,6 @@ def _check_ported(cfg: TransformerConfig) -> None:
             f"unknown attention_impl {cfg.attention_impl!r}; expected "
             "'flash' or 'reference'"
         )
-    if cfg.pos_embedding == "rope":
-        raise NotImplementedError(
-            "pos_embedding='rope' is not ported yet (ROADMAP A4)")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet (ROADMAP A4)")
     if cfg.moe_experts > 0:
         raise NotImplementedError(
             "moe_experts > 0 is not ported yet (ROADMAP A11)")
@@ -129,10 +141,12 @@ def _attend(cfg: TransformerConfig, q, k, v):
     return local_attention(q, k, v, causal=True)
 
 
-def block_math(cfg: TransformerConfig, x, *, ln1, qkv, proj, ln2, mlp):
-    """The pre-LN block wiring: ``LN -> qkv -> split heads -> attend ->
-    proj (+res) -> LN -> mlp (+res)``; ``proj`` and ``mlp`` return the
-    residual delta."""
+def block_math(cfg: TransformerConfig, x, rope_tabs, *, ln1, qkv, proj,
+               ln2, mlp):
+    """The pre-LN block wiring: ``LN -> qkv -> split heads -> rope ->
+    attend -> proj (+res) -> LN -> mlp (+res)``; ``proj`` and ``mlp``
+    return the residual delta; ``rope_tabs`` is ``(cos, sin)`` or
+    ``None``."""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     q_dim, kv_dim = nh * hd, nkv * hd
@@ -140,6 +154,9 @@ def block_math(cfg: TransformerConfig, x, *, ln1, qkv, proj, ln2, mlp):
     q = fused[..., :q_dim].reshape(b, s, nh, hd)
     k = fused[..., q_dim:q_dim + kv_dim].reshape(b, s, nkv, hd)
     v = fused[..., q_dim + kv_dim:].reshape(b, s, nkv, hd)
+    if rope_tabs is not None:
+        q = apply_rope_tables(q, *rope_tabs)
+        k = apply_rope_tables(k, *rope_tabs)
     att = _attend(cfg, q, k, v).reshape(b, s, q_dim)
     x = x + proj(att)
     return x + mlp(ln2(x))
@@ -185,12 +202,34 @@ class Block(nn.Module):
         self.fc1 = _Dense(e, cfg.mlp_ratio * e, dt)
         self.fc2 = _Dense(cfg.mlp_ratio * e, e, dt)
 
-    def forward(self, x):
+    def forward(self, x, rope_tabs=None):
         return block_math(
-            self.cfg, x, ln1=self.ln1, qkv=self.qkv, proj=self.proj,
+            self.cfg, x, rope_tabs, ln1=self.ln1, qkv=self.qkv, proj=self.proj,
             ln2=self.ln2,
             mlp=lambda h: self.fc2(F.gelu(self.fc1(h), approximate="tanh")),
         )
+
+
+def _remat_context_fn():
+    """The ``context_fn`` of :func:`torch.utils.checkpoint.checkpoint` for
+    the reference's ``dots_with_no_batch_dims_saveable`` policy: the
+    outputs of 2-D matrix products (``mm``/``addmm``: the Dense layers)
+    are saved, everything else is recomputed (batched products such as the
+    reference attention's, and the flash kernels, which are no matrix
+    product to the dispatcher).  Needs torch's selective-checkpoint API and
+    raises ``ImportError`` without it, rather than recompute everything."""
+    from torch.utils.checkpoint import (  # noqa: PLC0415
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    saved = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return lambda: create_selective_checkpoint_contexts(policy)
 
 
 class GPT(nn.Module):
@@ -200,7 +239,8 @@ class GPT(nn.Module):
     Parameters are made on the CPU from ``generator`` (seed 0 when
     omitted) with the variances of the flax initializers: Dense weights
     N(0, 1/fan_in) and zero biases, ``wte`` N(0, 1/emb_dim), ``wpe``
-    N(0, 0.02^2), LayerNorms 1 and 0.  Move the module with ``.to()``.
+    N(0, 0.02^2) (learned positions only), LayerNorms 1 and 0.  Move the
+    module with ``.to()``.
     """
 
     def __init__(self, cfg: TransformerConfig,
@@ -210,7 +250,9 @@ class GPT(nn.Module):
         self.cfg = cfg
         e = cfg.emb_dim
         self.wte = nn.Embedding(cfg.vocab_size, e)
-        self.wpe = nn.Parameter(torch.empty(cfg.max_len, e))
+        if cfg.pos_embedding == "learned":
+            self.wpe = nn.Parameter(torch.empty(cfg.max_len, e))
+        self._remat_context = _remat_context_fn() if cfg.remat else None
         for i in range(cfg.num_layers):
             self.add_module(f"block{i}", Block(cfg))
         self.lnf = _LayerNorm(e)
@@ -228,7 +270,8 @@ class GPT(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
         self.wte.weight.normal_(0.0, self.cfg.emb_dim ** -0.5, generator=g)
-        self.wpe.normal_(0.0, 0.02, generator=g)
+        if self.cfg.pos_embedding == "learned":
+            self.wpe.normal_(0.0, 0.02, generator=g)
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.cfg.num_layers)]
@@ -240,9 +283,19 @@ class GPT(nn.Module):
             raise ValueError(
                 f"sequence length {s} exceeds max_len={cfg.max_len}")
         x = self.wte(tokens).to(cfg.dtype)
-        x = x + self.wpe[:s].to(cfg.dtype)[None]
+        rope_tabs = None
+        if cfg.pos_embedding == "learned":
+            x = x + self.wpe[:s].to(cfg.dtype)[None]
+        else:
+            # once for all blocks: a block's recompute does not redo them
+            positions = torch.arange(s, device=tokens.device)
+            rope_tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         for block in self.blocks():
-            x = block(x)
+            if self._remat_context is None:
+                x = block(x, rope_tabs)
+            else:
+                x = checkpoint(block, x, rope_tabs, use_reentrant=False,
+                               context_fn=self._remat_context)
         return self.head(self.lnf(x)).float()
 
 

@@ -1,6 +1,6 @@
-"""Ops of horovod_tpu_torch: collectives, compression and flash attention
-(``ops.flash_attention``; not re-exported here, so the name stays the
-module's)."""
+"""Ops of horovod_tpu_torch: collectives, compression, RoPE
+(``ops.rope``) and flash attention (``ops.flash_attention``; neither
+re-exported here, so the names stay the modules')."""
 
 from .collectives import (
     Adasum,
@@ -9,14 +9,20 @@ from .collectives import (
     Min,
     ReduceOp,
     Sum,
+    all_gather_flat,
+    allgather,
     allreduce,
+    alltoall,
     broadcast,
     grouped_allreduce,
+    reduce_scatter_flat,
+    reducescatter,
 )
-from .compression import Compression
+from .compression import Compression, ErrorFeedbackCompressor
 
 __all__ = [
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max",
-    "allreduce", "grouped_allreduce", "broadcast",
-    "Compression",
+    "allreduce", "grouped_allreduce", "broadcast", "allgather", "alltoall",
+    "reducescatter", "reduce_scatter_flat", "all_gather_flat",
+    "Compression", "ErrorFeedbackCompressor",
 ]

@@ -2,7 +2,8 @@
 reference: horovod/torch/compression.py).
 
 Cast floating gradients to a narrower wire dtype before the allreduce and
-back after.  ``ErrorFeedbackCompressor`` is not ported yet (ROADMAP A2).
+back after.  :class:`ErrorFeedbackCompressor` carries each stream's
+quantization residual into its next compression.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ __all__ = [
     "NoneCompressor",
     "BFloat16Compressor",
     "FP16Compressor",
+    "ErrorFeedbackCompressor",
     "Compression",
 ]
 
@@ -71,6 +73,41 @@ class FP16Compressor(_CastCompressor):
     """Cast floats to fp16 on the wire (the reference's compressor)."""
 
     wire_dtype = torch.float16
+
+
+class ErrorFeedbackCompressor(Compressor):
+    """Residual-carrying (error-feedback) compressor.
+
+    A cast compressor throws its quantization error away on every call;
+    this one keeps the residual ``x - dec(enc(x))`` per tensor ``key``
+    (in the tensor's own dtype) and adds it back before the next
+    compression of that key, so the error is carried, not compounded.
+    Stateful: one instance per job, an explicit ``key`` per tensor stream
+    (the default is only safe for a single stream).  A shape change
+    resets that key's residual.  Not a member of :class:`Compression`,
+    which holds stateless classes only.
+    """
+
+    def __init__(self, inner=BFloat16Compressor):
+        self._inner = inner
+        self._residuals: dict = {}
+
+    def compress(self, tensor, *, key: str = "default"):
+        prev = self._residuals.get(key)
+        if prev is not None and prev.shape == tensor.shape:
+            tensor = tensor + prev.to(tensor.dtype)
+        wire, ctx = self._inner.compress(tensor)
+        # what the wire failed to carry, in the original dtype
+        restored = self._inner.decompress(wire, ctx)
+        self._residuals[key] = tensor - restored.to(tensor.dtype)
+        return wire, ctx
+
+    def decompress(self, tensor, ctx):
+        return self._inner.decompress(tensor, ctx)
+
+    def reset(self) -> None:
+        """Drop every residual (a new stream, or a re-formed world)."""
+        self._residuals.clear()
 
 
 class Compression:

@@ -152,11 +152,15 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
     The root's state layout (keys, shapes, dtypes and non-tensor values)
     travels by :func:`broadcast_object`; ranks allocate the tensors they
     lack, then every tensor is broadcast in the fixed order of the
-    parameters.
+    parameters.  A ZeRO-1 plan (``optim.overlap.OverlapPlan`` in mode
+    ``bucket+zero1``) is left alone: each rank's state is its own shard.
     """
-    opt = getattr(optimizer, "optimizer", optimizer)
-    if global_topology().process_count == 1:
+    if getattr(optimizer, "sharded_state", False) \
+            or global_topology().process_count == 1:
         return
+    opt = optimizer
+    while hasattr(opt, "optimizer"):  # DistributedOptimizer, OverlapPlan
+        opt = opt.optimizer
     params = [p for g in opt.param_groups for p in g["params"]]
     layout = broadcast_object(
         [

@@ -1,9 +1,13 @@
 """The data-parallel GPT training step (counterpart of the root
-``bench.py::build_gpt_step``, its ``DistributedOptimizer`` branch).
+``bench.py::build_gpt_step``).
 
 One process per GPU: each rank holds a replica of the model, takes its
-slice of the global batch, and :class:`DistributedOptimizer` averages the
-gradients before an AdamW update, so the replicas stay identical.
+slice of the global batch, and the gradients are averaged before an AdamW
+update, so the replicas stay identical.  ``overlap_mode`` picks how:
+``"off"`` is :class:`DistributedOptimizer` (one fused reduce in
+``step()``), ``"bucket"`` and ``"bucket+zero1"`` the backward-overlap plane
+of ``optim/overlap.py`` (per-bucket collectives issued during the
+backward; ZeRO-1 also shards the AdamW state).
 """
 
 from __future__ import annotations
@@ -15,9 +19,10 @@ import torch.nn.functional as F
 from . import basics
 from .models.transformer import gpt
 from .optim import DistributedOptimizer, broadcast_parameters
+from .optim.overlap import MODES, OverlapPlan
 from .ops.collectives import allreduce
 
-__all__ = ["build_gpt_step", "lm_loss"]
+__all__ = ["build_gpt_step", "lm_loss", "make_adamw"]
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -30,32 +35,48 @@ def lm_loss(model, toks: torch.Tensor) -> torch.Tensor:
                            toks[:, 1:].reshape(-1))
 
 
-def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
-                   attention: str = "flash", *, device=None,
-                   flash_block_q: int = 512, flash_block_k: int = 256,
-                   kv_heads: int = 0, attention_window: int = 0):
-    """GPT causal-LM training step.  Returns ``(step, state, static)``
-    like the reference: ``step(*state) -> (model, optimizer, loss)`` with
-    ``state = (model, optimizer, tokens)``, where ``tokens`` is this
-    rank's slice of the global batch and ``loss`` is the mean over the
-    world.  ``batch_size`` is per GPU; ``device=None`` is this process's
-    GPU.
+def make_adamw(params) -> torch.optim.AdamW:
+    """``optax.adamw(1e-4)``'s equivalent: lr 1e-4, betas (0.9, 0.999),
+    eps 1e-8 and weight decay 1e-4 on every parameter."""
+    return torch.optim.AdamW(params, lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
 
-    The optimizer is ``optax.adamw(1e-4)``'s equivalent: AdamW with lr
-    1e-4, betas (0.9, 0.999), eps 1e-8 and weight decay 1e-4 on every
-    parameter.
+
+def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
+                   attention: str = "flash", remat: bool = False,
+                   flash_block_q: int = 512, flash_block_k: int = 256,
+                   kv_heads: int = 0, pos_embedding: str = "learned",
+                   moe_experts: int = 0, attention_window: int = 0,
+                   overlap_mode: str = "off", grad_bucket_mb=None, *,
+                   device=None):
+    """GPT causal-LM training step, with the reference's keywords and
+    defaults.  Returns ``(step, state, static)`` like the reference:
+    ``step(*state) -> (model, optimizer, loss)`` with ``state = (model,
+    optimizer, tokens)``, where ``tokens`` is this rank's slice of the
+    global batch and ``loss`` is the mean over the world.  ``batch_size``
+    is per GPU; ``device=None`` is this process's GPU.
+
+    ``optimizer`` is a :class:`DistributedOptimizer` around
+    :func:`make_adamw` (``overlap_mode="off"``), or an
+    :class:`~horovod_tpu_torch.optim.overlap.OverlapPlan` of that mode
+    with buckets of ``grad_bucket_mb`` (None: ``HVDTPU_GRAD_BUCKET_MB`` or
+    16).
     """
     if dtype not in _DTYPES:
         raise NotImplementedError(
             f"dtype {dtype!r} is not ported yet (ROADMAP A4); "
             f"use one of {sorted(_DTYPES)}")
+    if overlap_mode not in MODES:
+        raise ValueError(
+            f"overlap_mode must be one of {MODES}, got {overlap_mode!r}")
     topo = basics.init(device=device)
     dev = topo.device
     n_gpus = topo.process_count
     model = gpt(size, device=dev, dtype=_DTYPES[dtype], max_len=seq_len,
-                attention_impl=attention, flash_block_q=flash_block_q,
-                flash_block_k=flash_block_k,
-                num_kv_heads=kv_heads or None,
+                attention_impl=attention, remat=remat,
+                flash_block_q=flash_block_q, flash_block_k=flash_block_k,
+                num_kv_heads=kv_heads or None, pos_embedding=pos_embedding,
+                moe_experts=moe_experts,
                 attention_window=attention_window or None)
     vocab = model.cfg.vocab_size
 
@@ -67,9 +88,11 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
         tokens[r * batch_size:(r + 1) * batch_size]).to(dev)
     broadcast_parameters(model.state_dict(), root_rank=0)
 
-    opt = DistributedOptimizer(torch.optim.AdamW(
-        model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=1e-4))
+    if overlap_mode == "off":
+        opt = DistributedOptimizer(make_adamw(model.parameters()))
+    else:
+        opt = OverlapPlan(model.parameters(), make_adamw, mode=overlap_mode,
+                          bucket_mb=grad_bucket_mb)
 
     def step(model, opt, toks):
         opt.zero_grad()

@@ -34,7 +34,18 @@ TORCHRUN_MASTER_PORT = "MASTER_PORT"
 FUSION_THRESHOLD = "HVDTPU_FUSION_THRESHOLD"
 DEFAULT_FUSION_BYTES = 64 * 1024 * 1024
 
+# Backward-overlap plane (optim/overlap.py): the gradient bucket cap in MB
+# and the default overlap mode of the bench (horovod_tpu/utils/env.py:58-60).
+GRAD_BUCKET_MB = "HVDTPU_GRAD_BUCKET_MB"
+DEFAULT_GRAD_BUCKET_MB = 16.0
+OVERLAP = "HVDTPU_OVERLAP"
+
 
 def env_int(name: str, default: int) -> int:
     value = os.environ.get(name)
     return int(value) if value not in (None, "") else default
+
+
+def env_float(name: str, default: float) -> float:
+    value = os.environ.get(name)
+    return float(value) if value not in (None, "") else default

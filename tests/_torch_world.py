@@ -80,14 +80,63 @@ def run_world(fn, args=(), world: int = 2, timeout: float = 60.0) -> list:
 # ---------------------------------------------------------------------------
 
 
-def collectives_worker(xs, ws, bf16_xs):
-    """allreduce / grouped_allreduce / broadcast values and grads on this
-    rank's inputs (``xs[rank]`` etc.), returned as numpy."""
+def collectives_worker(xs, ws, bf16_xs, rows):
+    """Every collective's values and grads on this rank's inputs
+    (``xs[rank]`` etc.; ``rows`` holds the row-wise ops' inputs and loss
+    weights by case), returned as numpy."""
     import torch
 
     import horovod_tpu_torch as hvd
 
     r = hvd.rank()
+    res = _row_collectives(hvd, torch, r, rows)
+    res.update(_reduce_collectives(hvd, torch, r, xs, ws, bf16_xs))
+    return res
+
+
+def _row_collectives(hvd, torch, r, rows):
+    """allgather (even and ragged dim 0), alltoall, reducescatter (even and
+    ragged, Sum and Average), the flat pair, and Min/Max: per case the
+    value and the gradient of ``sum(op(x) * w)``; Min/Max record the error
+    their backward raises."""
+    ops = {
+        "allgather": hvd.allgather,
+        "allgather_ragged": hvd.allgather,
+        "alltoall": hvd.alltoall,
+        "reducescatter_sum": lambda x: hvd.reducescatter(x, hvd.Sum),
+        "reducescatter_avg": lambda x: hvd.reducescatter(x, hvd.Average),
+        "reducescatter_ragged": lambda x: hvd.reducescatter(x, hvd.Sum),
+        "reduce_scatter_flat_sum": hvd.reduce_scatter_flat,
+        "reduce_scatter_flat_avg": lambda x: hvd.reduce_scatter_flat(
+            x, hvd.Average),
+        "all_gather_flat": hvd.all_gather_flat,
+    }
+    res = {}
+    for case, fn in ops.items():
+        x_np, w_np = rows[case]
+        x = torch.from_numpy(x_np[r]).requires_grad_()
+        y = fn(x)
+        (y * torch.from_numpy(w_np[r])).sum().backward()
+        res[case] = (y.detach().numpy(), x.grad.numpy())
+    for case, op in (("min", hvd.Min), ("max", hvd.Max)):
+        x = torch.from_numpy(rows["extreme"][r]).requires_grad_()
+        y = hvd.allreduce(x, op)
+        try:
+            y.sum().backward()
+            err = None
+        except NotImplementedError as e:
+            err = str(e)
+        res[case] = (y.detach().numpy(), err)
+    try:
+        hvd.alltoall(torch.zeros(3, 2))
+        res["alltoall_odd"] = None
+    except ValueError as e:
+        res["alltoall_odd"] = str(e)
+    return res
+
+
+def _reduce_collectives(hvd, torch, r, xs, ws, bf16_xs):
+    """allreduce / grouped_allreduce / broadcast values and grads."""
     res = {"rank": r, "size": hvd.size(), "local_rank": hvd.local_rank(),
            "local_size": hvd.local_size(), "cross_rank": hvd.cross_rank(),
            "cross_size": hvd.cross_size(),
@@ -220,3 +269,153 @@ def reduce_worker(grads):
         opt.step()
         out[name] = (-p.detach()).numpy()
     return out
+
+
+def overlap_worker(state_np, tokens, steps, bucket_mb, rebucket_mb):
+    """gpt-nano (fp32) AdamW steps through the overlap plane in every mode
+    from ``state_np`` on this rank's rows of ``tokens``.  Returns, per
+    run, the world-mean losses and the final parameters by name, and the
+    issue-order record of one ``bucket`` step."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.optim.overlap import OverlapPlan
+    from horovod_tpu_torch.train import lm_loss, make_adamw
+
+    r, n = hvd.rank(), hvd.size()
+    rows = tokens.shape[0] // n
+    mine = torch.from_numpy(tokens[r * rows:(r + 1) * rows])
+
+    def fresh():
+        model = gpt("nano", device="cpu", dtype=torch.float32,
+                    flash_block_q=16, flash_block_k=16)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state_np.items()})
+        return model
+
+    def train(model, plan, k, set_to_none=False):
+        losses = []
+        for _ in range(k):
+            if set_to_none:  # drops the plan's gradient views
+                model.zero_grad(set_to_none=True)
+            else:
+                plan.zero_grad()
+            loss = lm_loss(model, mine)
+            loss.backward()
+            plan.step()
+            losses.append(hvd.allreduce(loss.detach()).item())
+        return losses
+
+    def params(model):
+        return {k: v.detach().numpy().copy()
+                for k, v in model.state_dict().items()}
+
+    out = {}
+    for mode in ("off", "bucket", "bucket+zero1"):
+        model = fresh()
+        plan = OverlapPlan(model.parameters(), make_adamw, mode=mode,
+                           bucket_mb=bucket_mb)
+        out[mode] = {"losses": train(model, plan, steps),
+                     "params": params(model),
+                     "buckets": len(plan.layout.buckets)}
+        if mode == "bucket+zero1":
+            # each rank's state is its own shard: nothing to broadcast
+            hvd.broadcast_optimizer_state(plan, root_rank=0)
+            out[mode]["shard_sizes"] = [s.numel() for s in plan.shards]
+            out[mode]["materialized"] = all(
+                torch.equal(a, b) for a, b in zip(plan.materialize(),
+                                                  model.parameters()))
+    model = fresh()
+    plan = OverlapPlan(model.parameters(), make_adamw, mode="bucket",
+                       bucket_mb=bucket_mb)
+    out["bucket_set_to_none"] = {
+        "losses": train(model, plan, steps, set_to_none=True),
+        "params": params(model)}
+
+    # N -> M buckets after 2 steps, against 2 + 2 steps un-rebucketed
+    model = fresh()
+    plan = OverlapPlan(model.parameters(), make_adamw, mode="bucket+zero1",
+                       bucket_mb=bucket_mb)
+    losses = train(model, plan, 2)
+    new = OverlapPlan(model.parameters(), make_adamw, mode="bucket+zero1",
+                      bucket_mb=rebucket_mb)
+    plan = plan.rebucket(new)
+    out["rebucket"] = {"losses": losses + train(model, plan, 2),
+                       "params": params(model),
+                       "buckets": (out["bucket+zero1"]["buckets"],
+                                   len(new.layout.buckets))}
+    model = fresh()
+    plan = OverlapPlan(model.parameters(), make_adamw, mode="bucket+zero1",
+                       bucket_mb=bucket_mb)
+    out["zero1_4_steps"] = {"losses": train(model, plan, 4),
+                            "params": params(model)}
+    bucket = OverlapPlan(fresh().parameters(), make_adamw, mode="bucket",
+                         bucket_mb=bucket_mb)
+    try:
+        bucket.rebucket(plan)
+        out["rebucket_refusal"] = None
+    except ValueError as e:
+        out["rebucket_refusal"] = str(e)
+
+    # issue order: bucket collectives issued on the host before the last
+    # flash backward of the step (block 0's attention)
+    model = fresh()
+    plan = OverlapPlan(model.parameters(), make_adamw, mode="bucket",
+                       bucket_mb=bucket_mb)
+    events = []
+    plan.on_issue = lambda index: events.append(("bucket", index))
+    plain_bwd = fa.flash_bwd
+
+    def recording_bwd(*args):
+        events.append(("attention_backward", None))
+        return plain_bwd(*args)
+
+    fa.flash_bwd = recording_bwd
+    try:
+        train(model, plan, 1)
+    finally:
+        fa.flash_bwd = plain_bwd
+    out["issue"] = {
+        "events": events,
+        "names": [name for name, _ in model.named_parameters()],
+        "buckets": [b.leaf_indices for b in plan.layout.buckets]}
+    return out
+
+
+def dropped_plan_worker(mode):
+    """Whether an OverlapPlan is garbage once dropped: with its model, and
+    with the model kept (whose parameters still hold the plan's hooks);
+    the kept model then trains under a new plan."""
+    import gc
+    import weakref
+
+    import torch
+
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.optim.overlap import OverlapPlan
+    from horovod_tpu_torch.train import lm_loss, make_adamw
+
+    toks = torch.randint(0, 1024, (2, 9), generator=torch.Generator()
+                         .manual_seed(0))
+
+    def plan_for(model):
+        plan = OverlapPlan(model.parameters(), make_adamw, mode=mode,
+                           bucket_mb=0.25)
+        lm_loss(model, toks).backward()
+        plan.step()
+        return plan
+
+    model = gpt("nano", device="cpu", dtype=torch.float32)
+    gone = weakref.ref(plan_for(model))
+    del model
+    gc.collect()
+    freed = gone() is None
+    model = gpt("nano", device="cpu", dtype=torch.float32)
+    gone = weakref.ref(plan_for(model))
+    gc.collect()
+    freed_kept = gone() is None
+    plan = plan_for(model)  # the dead plan's hooks stand aside
+    return {"plan_freed": freed, "plan_freed_model_kept": freed_kept,
+            "steps_after": all(p.grad is not None for p in plan.params)}

@@ -12,6 +12,13 @@ another order), bf16 1e-2 (outputs rounded to bf16 after those sums; the
 tensor-core kernels also round P and dS to bf16 before their second
 product).  bf16 at head_dim 64 runs the tensor-core forward, dK/dV and dQ
 (``fa.kernel_for``); fp32 and head_dims 16/32 the scalar kernels.
+
+The last tests drive gpt-nano at head_dim 64 (2 heads, bf16) through the
+training path on the card, in a one-GPU NCCL world: the overlap plane's
+``bucket`` and ``bucket+zero1`` steps against ``off`` (losses within
+``chip_smoke.OVERLAP_LOSS_RTOL``, exact launch counts, the buckets issued
+during the backward), and remat, whose recompute launches the forward
+kernel a second time per layer.
 """
 
 from __future__ import annotations
@@ -19,10 +26,14 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from horovod_tpu_torch.models import GPT_CONFIGS, gpt
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.optim.overlap import OverlapPlan
+from horovod_tpu_torch.train import lm_loss, make_adamw
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (the repo root's on-card smoke run)
@@ -179,3 +190,77 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(cuda):
                     dtype=torch.bfloat16)[1:].view(4, 16, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_fwd(q, q, q, True, 0.1, 16, 16, 4, 4, None)
+
+
+@pytest.fixture(scope="module")
+def world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import horovod_tpu_torch as hvd
+
+    fa.kernels.build_all()
+    hvd.init()
+    yield hvd
+    hvd.shutdown()
+
+
+def _nano_tc(**overrides):
+    """gpt-nano with 2 heads: head_dim 64 in bf16, the tensor-core route;
+    the same seeded weights on every call."""
+    return gpt("nano", num_heads=2, dtype=torch.bfloat16, **overrides)
+
+
+def _tokens():
+    return torch.from_numpy(
+        np.random.RandomState(0).randint(0, 1024, (2, 129))).cuda()
+
+
+def _overlap_steps(mode, steps=3):
+    model = _nano_tc()
+    plan = OverlapPlan(model.parameters(), make_adamw, mode=mode,
+                       bucket_mb=0.25)
+    names = [n for n, _ in model.named_parameters()]
+    seen, expected = chip_smoke.issue_order(fa, plan, names)
+    toks = _tokens()
+    fa.reset_launch_counts()
+    losses = []
+    for _ in range(steps):
+        plan.zero_grad()
+        loss = lm_loss(model, toks)
+        loss.backward()
+        plan.step()
+        losses.append(float(loss.detach()))
+    early = (chip_smoke.early_issues(seen, len(plan.layout.buckets),
+                                     model.cfg.num_layers)
+             if mode != "off" else None)
+    return losses, dict(fa.LAUNCHES), early, expected
+
+
+@pytest.mark.parametrize("mode", ["bucket", "bucket+zero1"])
+def test_overlap_step_on_the_card(world, mode):
+    off, _, _, _ = _overlap_steps("off")
+    losses, launches, early, expected = _overlap_steps(mode)
+    layers = GPT_CONFIGS["nano"].num_layers
+    assert launches == {n: 3 * layers if n in chip_smoke.MAIN_PATH else 0
+                        for n in fa.LAUNCHES}
+    assert chip_smoke.max_rel(losses, off) <= chip_smoke.OVERLAP_LOSS_RTOL
+    assert all(n >= expected > 0 for n in early), (early, expected)
+
+
+def test_remat_recomputes_the_forward_kernel(world):
+    """One remat backward launches ``flash_fwd_tc`` twice per layer and
+    the backward kernels once; the gradients are the plain backward's."""
+    toks = _tokens()
+    grads = {}
+    for remat in (True, False):
+        model = _nano_tc(remat=remat, pos_embedding="rope")
+        fa.reset_launch_counts()
+        lm_loss(model, toks).backward()
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()}
+        if remat:
+            layers = model.cfg.num_layers
+            assert fa.LAUNCHES == {
+                n: (2 * layers if n == "flash_fwd_tc" else layers)
+                if n in chip_smoke.MAIN_PATH else 0 for n in fa.LAUNCHES}
+    for name, g in grads[True].items():
+        _close(g, grads[False][name], torch.bfloat16, name)
