@@ -47,6 +47,22 @@ dQ (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``: fp32 and head_dims
    (the recompute), the backward kernels once; losses within 1% of the
    same steps with the plain reference attention; peak memory no higher
    than the same run without remat.
+8. ``conv``: the conv zoo, which runs no kernel of this repo (its
+   convolutions are cuDNN's).  ``conv_check``: one SGD step of ResNet-18
+   (batch 4, 64x64), ResNet-50 (batch 2, 64x64), VGG-16 (64x64) and
+   Inception V3 (96x96, eval mode: see ``CONV_CHECKS``) in fp32 with TF32
+   off, on the card and on the CPU from the same weights: logits, loss,
+   every gradient, the updated parameters and running statistics within
+   ``CONV_TOL``.  ``resnet``:
+   ``build_step("resnet50", "bf16", 128, 224)``, 2 warm-up and 5 timed
+   steps in ``off`` and ``bucket`` (16 MB buckets): every loss finite,
+   ``bucket`` within ``OVERLAP_LOSS_RTOL`` of ``off``, the bf16 first
+   loss within ``LOSS_RTOL`` of the same step in fp32 (TF32 off), no
+   flash launch; images/s/GPU, MFU, memory, the buckets and their issue
+   order, and one profiled step with the share of device time in cuDNN's
+   layout conversions (0 if channels_last holds end to end).  ``zoo``:
+   VGG-16 at 224 and Inception V3 at 299, bf16, batch 32, 1 warm-up and
+   3 steps: finite losses, images/s/GPU.
 
 Then the ``kernels`` summary, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line.  Any failure raises and exits
@@ -680,10 +696,289 @@ def rope_remat(fa):
                                      == runs[False]["losses"]))
 
 
+# (atol, rtol) of the card's fp32 conv step against the CPU's: both sum in
+# fp32, in orders their libraries choose (cuDNN with TF32 off, oneDNN)
+CONV_TOL = (1e-4, 1e-4)
+# model, batch, image size, train mode of the card-vs-CPU step.  Inception
+# V3 runs in eval mode (BatchNorm on its running statistics): its
+# train-mode fp32 step is ill-conditioned at init, at any size (on the
+# CPU the port's own fp32 and fp64 gradients differ by 3-5% normwise, and
+# at 96x96 its last blocks normalise 1x1 maps over 2 values), so there a
+# card-vs-CPU difference would measure rounding, not the path.
+CONV_CHECKS = (("resnet18", 4, 64, True), ("resnet50", 2, 64, True),
+               ("vgg16", 2, 64, True), ("inception3", 2, 96, False))
+# the headline step: Horovod's ResNet-50 images/s benchmark
+RESNET_STEP = ("resnet50", "bf16", 128, 224)
+ZOO = (("vgg16", 224), ("inception3", 299))
+ZOO_BATCH, ZOO_STEPS, ZOO_WARMUP = 32, 3, 1
+
+
+def sgd_step_record(model, images, labels) -> dict:
+    """One SGD-momentum step of ``model`` on one batch: its logits, loss,
+    gradients, updated parameters and running statistics, copied to the
+    CPU."""
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.train import make_sgd
+
+    logits = model(images)
+    loss = F.cross_entropy(logits, labels)
+    loss.backward()
+    out = {"logits": logits.detach(), "loss": loss.detach()}
+    out.update({f"grad {n}": p.grad for n, p in model.named_parameters()})
+    make_sgd(model.parameters()).step()
+    out.update({f"param {n}": p.detach()
+                for n, p in model.named_parameters()})
+    out.update({f"stat {n}": b for n, b in model.named_buffers()})
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def conv_inputs(batch: int, size: int):
+    """The seeded batch of ``build_step``: NCHW (channels_last) images and
+    labels, fp32, on the CPU."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.models.layers import from_nhwc
+
+    images = from_nhwc(np.random.RandomState(0).randn(
+        batch, size, size, 3).astype(np.float32))
+    labels = torch.from_numpy(
+        np.random.RandomState(1).randint(0, 1000, size=(batch,)))
+    return images, labels
+
+
+def card_vs_cpu(name: str, batch: int, size: int, train: bool = True):
+    """One fp32 SGD step of conv model ``name`` on the card (TF32 off) and
+    on the CPU from the same weights and batch.  Returns the max abs error
+    by kind (logits, loss, grad, param, stat) and the failures outside
+    ``CONV_TOL``."""
+    import copy
+
+    import torch
+
+    from horovod_tpu_torch.train import conv_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = conv_model(name, "fp32", size).train(train)
+    card = copy.deepcopy(model).cuda()
+    images, labels = conv_inputs(batch, size)
+    want = sgd_step_record(model, images, labels)
+    got = sgd_step_record(card, images.cuda(), labels.cuda())
+    errs: dict = {}
+    failures = []
+    for key, w in want.items():
+        kind = key.split(" ")[0]
+        e = (got[key].double() - w.double()).abs().max().item()
+        errs[kind] = max(errs.get(kind, 0.0), e)
+        try:
+            check_close(f"{name} {key}", got[key], w, CONV_TOL)
+        except AssertionError as exc:
+            failures.append(str(exc))
+    return errs, failures
+
+
+def conv_check() -> None:
+    errs, failures = {}, []
+    for name, batch, size, train in CONV_CHECKS:
+        errs[name], bad = card_vs_cpu(name, batch, size, train)
+        failures += bad
+    release()
+    emit("conv_check", dtype="fp32", tf32=False,
+         models=[{"model": n, "batch": b, "image_size": s,
+                  "mode": "train" if t else "eval"}
+                 for n, b, s, t in CONV_CHECKS],
+         tolerance={"atol": CONV_TOL[0], "rtol": CONV_TOL[1]},
+         max_abs_err=errs, failures=failures[:20])
+    if failures:
+        raise AssertionError(f"{len(failures)} tensors of the card's conv "
+                             f"step outside {CONV_TOL}: {failures[:3]}")
+
+
+def run_carry(step, state, carry: int, n: int):
+    """``n`` steps of a step whose first ``carry`` state entries come back
+    updated; the new state and the losses (device tensors)."""
+    losses = []
+    for _ in range(n):
+        *out, loss = step(*state)
+        state = tuple(out) + state[carry:]
+        losses.append(loss)
+    return state, losses
+
+
+def drive_conv(fa, model_name, step, state, static, warmup: int,
+               steps: int):
+    """``warmup`` then ``steps`` timed steps of a conv-zoo step: every
+    loss finite and no flash kernel launched (the counts are set to 0
+    just before and read just after).  Returns the state and the run's
+    record."""
+    import torch
+
+    from horovod_tpu_torch.bench import conv_flops_per_image
+
+    carry = static["carry_len"]
+    images = state[carry]
+    batch, size = images.shape[0], images.shape[-1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    fa.reset_launch_counts()
+    state, losses = run_carry(step, state, carry, warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, timed = run_carry(step, state, carry, steps)
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / steps
+    launches = {n: k for n, k in fa.LAUNCHES.items() if k}
+    losses = [float(x) for x in losses + timed]
+    if launches:
+        raise AssertionError(f"flash kernels launched on a conv step: "
+                             f"{launches}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    flops = conv_flops_per_image(model_name, size)
+    return state, {
+        "model": model_name, "batch_per_gpu": batch, "image_size": size,
+        "world": static["n_chips"], "steps_timed": steps, "warmup": warmup,
+        "losses": losses, "step_ms": secs * 1e3,
+        "images_per_s_per_gpu": batch / secs, "flops_per_image": flops,
+        "mfu": flops * batch / secs / H100_BF16_PEAK,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "resident_mem_gib": resident, "flash_launches": launches}
+
+
+def bn_costs(model) -> dict:
+    """What BatchNorm's flax bookkeeping costs on the step, apart from the
+    normalisation itself: the biased-variance read-back and the running
+    update of every BatchNorm of ``model`` (device ms, and host ms per
+    step), and which implementation ``F.batch_norm`` picks for the bf16
+    channels_last input (0 native, 1 cuDNN)."""
+    import torch
+
+    from horovod_tpu_torch.models.layers import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    stats = [(torch.zeros_like(m.running_mean), torch.ones_like(
+        m.running_var)) for m in bns]
+
+    def update():
+        with torch.no_grad():
+            for m, (mean, invstd) in zip(bns, stats):
+                m.update_running(mean, invstd.pow(-2).sub_(m.eps))
+
+    # two updates a batch: ~640 launches, which the host issues within
+    # cuda_ms's device sleep, so the time is the device's
+    device_ms = cuda_ms(update, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        update()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    dev = bns[0].running_mean.device
+    x = torch.randn(8, 64, 56, 56, device=dev, dtype=torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.ones(64, device=dev)
+    impl = torch.ops.aten._batch_norm_impl_index(
+        x, w, w, None, None, True, 0.0, 1e-5, True)[4]
+    return {"batch_norms": len(bns), "update_device_ms": device_ms,
+            "update_host_ms": host_ms, "bf16_channels_last_impl": impl}
+
+
+def resnet(fa) -> None:
+    """ResNet-50, bf16, 224, batch 128: ``off`` and ``bucket`` against
+    each other and the first loss against fp32 (TF32 off)."""
+    from horovod_tpu_torch.train import build_step
+
+    name, _, batch, size = RESNET_STEP
+    step, state, static = build_step(name, "fp32", batch, size)
+    fp32_first = float(step(*state)[-1])
+    costs = bn_costs(state[0])
+    del step, state
+    release()
+    runs, issues = {}, []
+    for mode in ("off", "bucket"):
+        step, state, static = build_step(*RESNET_STEP, overlap_mode=mode,
+                                         grad_bucket_mb=16)
+        plan = state[2]
+        if mode != "off":
+            plan.on_issue = issues.append
+        state, run = drive_conv(fa, name, step, state, static, WARMUP, STEPS)
+        if mode != "off":
+            plan.on_issue = None
+            n = len(plan.layout.buckets)
+            run.update(buckets=n, bucket_bytes=[b.nbytes for b in
+                                                plan.layout.buckets],
+                       issue_order_step_1=issues[:n])
+            per_step = [sorted(issues[i:i + n])
+                        for i in range(0, len(issues), n)]
+            if len(issues) != n * (WARMUP + STEPS) or \
+                    any(p != list(range(n)) for p in per_step):
+                raise AssertionError(f"bucket issues {issues} are not each "
+                                     f"of {n} buckets once per step")
+        run["profile"] = profile_step(state, step, run["step_ms"], top=8)
+        runs[mode] = run
+        del step, state, plan
+        release()
+    off, bucket = runs["off"]["losses"], runs["bucket"]["losses"]
+    rel_bucket = max_rel(bucket, off)
+    rel_bf16 = abs(off[0] - fp32_first) / abs(fp32_first)
+    emit("resnet", model=name, dtype="bf16", mfu_peak_flops=H100_BF16_PEAK,
+         modes=runs, batch_norm_bookkeeping=costs,
+         max_rel_loss_diff_bucket_vs_off=rel_bucket,
+         bitwise_equal_bucket_vs_off=bucket == off,
+         bucket_loss_rtol=OVERLAP_LOSS_RTOL, fp32_first_loss=fp32_first,
+         rel_diff_bf16_vs_fp32_first_loss=rel_bf16, bf16_loss_rtol=LOSS_RTOL)
+    if rel_bucket > OVERLAP_LOSS_RTOL:
+        raise AssertionError(f"bucket losses {bucket} differ from off's "
+                             f"{off} by {rel_bucket:.2e}")
+    if rel_bf16 > LOSS_RTOL:
+        raise AssertionError(f"bf16 first loss {off[0]} differs from fp32's "
+                             f"{fp32_first} by {rel_bf16:.4f}")
+
+
+def zoo(fa) -> None:
+    """VGG-16 (224) and Inception V3 (299), bf16, batch ``ZOO_BATCH``."""
+    from horovod_tpu_torch.train import build_step
+
+    runs = {}
+    for name, size in ZOO:
+        step, state, static = build_step(name, "bf16", ZOO_BATCH, size)
+        state, runs[name] = drive_conv(fa, name, step, state, static,
+                                       ZOO_WARMUP, ZOO_STEPS)
+        runs[name]["profile"] = profile_step(state, step,
+                                             runs[name]["step_ms"], top=4)
+        del step, state
+        release()
+    emit("zoo", dtype="bf16", mfu_peak_flops=H100_BF16_PEAK, models=runs)
+
+
+def conv(fa) -> None:
+    """Phase ``conv``: ``conv_check``, ``resnet``, ``zoo``."""
+    conv_check()
+    resnet(fa)
+    zoo(fa)
+
+
+# cuDNN's NCHW <-> NHWC conversion kernels: device time in them means a
+# tensor reached a convolution in the other layout
+LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+# device time by family of kernel: the first family whose any substring is
+# in the kernel's name (cuDNN's and cuBLAS's sm90 kernels: "xmma", "gemm")
+FAMILIES = (("flash", ("flash_",)), ("batch_norm", ("batch_norm",)),
+            ("conv_matmul", ("xmma", "gemm", "conv", "cudnn", "cutlass")),
+            ("pool", ("pool",)), ("concat", ("CatArray",)),
+            ("optimizer", ("multi_tensor",)), ("nccl", ("nccl",)),
+            ("reduce", ("reduce",)),
+            ("elementwise", ("elementwise", "copy", "fill")))
+
+
 def profile_step(state, step, step_ms: float, top: int = 12) -> dict:
     """One more step under torch.profiler: device time by kernel, the
-    share of the timed (unprofiled) step the device was busy, and the
-    host's busy time by op (the profiler's own overhead included)."""
+    share of the timed (unprofiled) step the device was busy, the share of
+    device time in layout conversions, and the host's busy time by op (the
+    profiler's own overhead included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -706,8 +1001,18 @@ def profile_step(state, step, step_ms: float, top: int = 12) -> dict:
                  reverse=True)
     busy_ms = sum(r[0] for r in rows)
     flash_ms = sum(r[0] for r in rows if "flash_" in r[1])
+    layout_ms = sum(r[0] for r in rows
+                    if any(k in r[1] for k in LAYOUT_KERNELS))
+    families: dict = {}
+    for ms, name, _ in rows:
+        fam = next((f for f, keys in FAMILIES
+                    if any(k in name for k in keys)), "other")
+        families[fam] = families.get(fam, 0.0) + ms
     return dict(device_busy_ms=busy_ms, step_ms=step_ms,
                 device_busy_share=busy_ms / step_ms,
+                layout_conversion_ms=layout_ms,
+                layout_conversion_share=layout_ms / busy_ms if busy_ms else 0,
+                device_ms_by_family=families,
                 flash_kernels_ms=flash_ms, kernels=len(rows),
                 flash=[{"name": n[:60], "ms": ms, "calls": c}
                        for ms, n, c in rows if "flash_" in n],
@@ -759,6 +1064,7 @@ def main() -> int:
     release()
     overlap(fa, run["losses"])
     rope_remat(fa)
+    conv(fa)
 
     summary = [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],

@@ -17,7 +17,9 @@ collectives, ``DistributedOptimizer`` with ``broadcast_parameters``, the
 backward-overlap / ZeRO-1 plane (``optim.overlap``), the GPT model with
 learned or rotary positions and remat, flash attention, whose three
 kernels are hand-written CUDA for Hopper (``csrc/``), and the bench entry
-``python -m horovod_tpu_torch.bench``.
+``python -m horovod_tpu_torch.bench``; then the conv zoo (ResNet, VGG,
+Inception V3, the MNIST nets) with ``SyncBatchNorm`` and its training
+step, ``train.build_step``, whose convolutions are cuDNN's.
 """
 
 from .basics import (

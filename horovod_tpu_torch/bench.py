@@ -1,20 +1,25 @@
-"""Training-throughput bench of the port: the GPT path of the root
-``bench.py`` (its CLI, ``bench.py:1236-1290``, and its record,
+"""Training-throughput bench of the port: the root ``bench.py``'s GPT and
+conv-zoo paths (its CLI, ``bench.py:1236-1290``, and its record,
 ``:1551-1575``).
 
-    python -m horovod_tpu_torch.bench --model gpt-small          # one GPU
+    python -m horovod_tpu_torch.bench --model resnet50           # one GPU
+    python -m horovod_tpu_torch.bench --model gpt-small
     torchrun --nproc-per-node 4 -m horovod_tpu_torch.bench ...   # four
     python -m horovod_tpu_torch.bench --cpu --model gpt-nano     # CPU check
 
-Builds ``train.build_gpt_step`` with the flags' values, runs ``--warmup``
-steps, then times ``--iters`` steps with the host clock around work that
-ends in a device synchronise, and prints one JSON line (rank 0's): ``metric``,
-``value`` (tokens/s per GPU), ``unit``, ``mfu`` (model FLOPs, no remat
-recompute, over the card's dense peak for the dtype; null where the
-device has no entry in :data:`PEAK_FLOPS`, e.g. the CPU), ``device``,
-``overlap_mode``, the torch and CUDA versions, and the flash kernels that
-launched with their counts (``attention`` says ``kernels`` only if some
-did: the CPU runs their plain versions).  Every number is this run's.
+Builds ``train.build_step`` (conv models) or ``train.build_gpt_step``
+with the flags' values, runs ``--warmup`` steps, then times ``--iters``
+steps with the host clock around work that ends in a device synchronise,
+and prints one JSON line (rank 0's): ``metric``, ``value`` (images/s or
+tokens/s per GPU), ``unit``, ``mfu`` (model FLOPs over the card's dense
+peak for the dtype; null where the device has no entry in
+:data:`PEAK_FLOPS`, e.g. the CPU), ``device``, ``overlap_mode``, the
+torch and CUDA versions, peak memory, and the flash kernels that launched
+with their counts (``attention`` says ``kernels`` only if some did: the
+CPU runs their plain versions).  Conv records also carry
+``flops_per_image`` (:func:`conv_flops_per_image`) and ``vs_baseline``,
+the value over Horovod's published 103.55 images/s per GPU
+(``bench.py:7-14``).  Every number is this run's.
 """
 
 from __future__ import annotations
@@ -30,12 +35,19 @@ import torch
 from .optim.overlap import MODES
 from .utils import env as envmod
 
-__all__ = ["PEAK_FLOPS", "model_flops_per_step", "peak_flops", "main"]
+__all__ = ["PEAK_FLOPS", "BASELINE_IMAGES_PER_SEC", "conv_flops_per_image",
+           "model_flops_per_step", "peak_flops", "main"]
 
 # Dense peak FLOP/s by device-name substring and compute dtype: NVIDIA's
-# H100 SXM data sheet (bf16 tensor cores; fp32 outside them, which is
-# where PyTorch's fp32 matmuls run with TF32 off, its default).
+# H100 SXM data sheet (bf16 tensor cores; fp32 outside them).  fp32 runs
+# there only with TF32 off: PyTorch's default is off for matmuls but ON
+# for cuDNN convolutions, so ``train.build_step`` turns it off for fp32.
 PEAK_FLOPS = {"H100": {"bf16": 989e12, "fp32": 67e12}}
+
+# Horovod's published per-GPU figure the reference's ``vs_baseline`` divides
+# by: tf_cnn_benchmarks ResNet-101, 1656.82 images/s over 16 Pascal GPUs
+# (docs/benchmarks.rst:29-43, root bench.py:7-14)
+BASELINE_IMAGES_PER_SEC = 103.55
 
 _GPT_MODELS = ("gpt-nano", "gpt-small", "gpt-medium", "gpt-large")
 _CONV_MODELS = ("resnet50", "resnet101", "resnet18", "vgg16", "vgg19",
@@ -55,6 +67,36 @@ def model_flops_per_step(cfg, batch: int, seq: int) -> float:
     return 6 * n_mm * batch * seq + 3 * L * 4 * e * pairs * batch
 
 
+def conv_flops_per_image(model: str, image_size: int = 224,
+                         s2d_stem: bool = False) -> int:
+    """Training FLOPs per image of conv-zoo model ``model``, counted from
+    its layers' shapes: 3 (forward, and the backward's two products) x 2 x
+    the multiply-adds of every convolution and Dense layer, found by one
+    forward of a single image on the ``meta`` device (shapes only).
+    BatchNorm, pools, activations, the loss and the optimizer are left
+    out.  The root ``bench.py`` takes XLA's compiled cost analysis
+    instead, which counts other work, so the two records'
+    ``flops_per_image`` are not to be compared."""
+    from .models.layers import Conv2d, Dense
+    from .train import conv_model
+
+    with torch.device("meta"):
+        net = conv_model(model, "fp32", image_size, s2d_stem)
+    macs = []
+
+    def count(mod, inputs, out):
+        if isinstance(mod, Conv2d):
+            macs.append(out.numel() * mod.weight[0].numel())
+        else:
+            macs.append(out.numel() * mod.in_features)
+
+    for mod in net.modules():
+        if isinstance(mod, (Conv2d, Dense)):
+            mod.register_forward_hook(count)
+    net.eval()(torch.empty(1, 3, image_size, image_size, device="meta"))
+    return 6 * sum(macs)
+
+
 def peak_flops(device_name: str, dtype: str):
     """The dense peak for ``dtype`` on the named device, or None."""
     for key, peaks in PEAK_FLOPS.items():
@@ -69,7 +111,11 @@ def _parser() -> argparse.ArgumentParser:
                    choices=_GPT_MODELS + _CONV_MODELS)
     p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32", "fp8"],
                    help="compute dtype (params and optimizer state fp32)")
-    p.add_argument("--batch-size", type=int, default=8, help="per GPU")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="per GPU (default: 128 for conv models, 8 for GPT)")
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--s2d-stem", action="store_true",
+                   help="ResNet's space-to-depth stem")
     p.add_argument("--seq-len", type=int, default=1024)
     p.add_argument("--attention", default="flash",
                    choices=["flash", "reference"])
@@ -97,9 +143,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    if args.model in _CONV_MODELS:
-        raise NotImplementedError(
-            f"--model {args.model} is not ported yet (ROADMAP A8)")
     if args.serve:
         raise NotImplementedError("--serve is not ported yet (ROADMAP A12)")
     if args.moe_experts:
@@ -115,29 +158,41 @@ def run(args) -> dict:
     """Build, warm up and time the step; the record."""
     from . import basics
     from .ops import flash_attention as fa
-    from .train import build_gpt_step
+    from .train import build_gpt_step, build_step
 
-    step, state, static = build_gpt_step(
-        args.model[len("gpt-"):], args.dtype, args.batch_size, args.seq_len,
-        attention=args.attention, remat=args.remat, kv_heads=args.kv_heads,
-        pos_embedding=args.pos_embedding,
-        attention_window=args.attention_window, overlap_mode=args.overlap,
-        grad_bucket_mb=args.grad_bucket_mb,
-        device="cpu" if args.cpu else None)
+    gpt = args.model.startswith("gpt-")
+    device = "cpu" if args.cpu else None
+    if gpt:
+        step, state, static = build_gpt_step(
+            args.model[len("gpt-"):], args.dtype, args.batch_size,
+            args.seq_len, attention=args.attention, remat=args.remat,
+            kv_heads=args.kv_heads, pos_embedding=args.pos_embedding,
+            attention_window=args.attention_window,
+            overlap_mode=args.overlap, grad_bucket_mb=args.grad_bucket_mb,
+            device=device)
+    else:
+        step, state, static = build_step(
+            args.model, args.dtype, args.batch_size, args.image_size,
+            args.s2d_stem, args.overlap, args.grad_bucket_mb, device=device)
     dev = basics.device()
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    model, opt, toks = state
+    carry = static["carry_len"]
+
+    def steps(n, state):
+        loss = None
+        for _ in range(n):
+            *out, loss = step(*state)
+            state = tuple(out) + state[carry:]
+        return state, loss
+
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    loss = None
-    for _ in range(args.warmup):
-        model, opt, loss = step(model, opt, toks)
+    state, _ = steps(args.warmup, state)
     sync()
     t0 = time.perf_counter()
-    for _ in range(args.iters):
-        model, opt, loss = step(model, opt, toks)
+    state, loss = steps(args.iters, state)
     final_loss = float(loss)  # waits for the device
     sync()
     step_s = (time.perf_counter() - t0) / args.iters
@@ -145,31 +200,46 @@ def run(args) -> dict:
         raise RuntimeError(f"non-finite loss {final_loss}")
 
     name = torch.cuda.get_device_name(dev) if cuda else "cpu"
-    per_gpu = args.batch_size * args.seq_len / step_s
     peak = peak_flops(name, args.dtype) if cuda else None
-    flops = model_flops_per_step(model.cfg, args.batch_size, args.seq_len)
     launched = {k: v for k, v in fa.LAUNCHES.items() if v}
-    unit = "tokens/sec/gpu"
+    if gpt:
+        unit = "tokens/sec/gpu"
+        per_gpu = args.batch_size * args.seq_len / step_s
+        flops = model_flops_per_step(state[0].cfg, args.batch_size,
+                                     args.seq_len)
+        extra = {"model_flops_per_step": flops,
+                 "attention": (args.attention if args.attention != "flash"
+                               else "kernels" if launched else "plain")}
+    else:
+        unit = "images/sec/gpu"
+        per_gpu = args.batch_size / step_s
+        per_image = conv_flops_per_image(args.model, args.image_size,
+                                         args.s2d_stem)
+        flops = per_image * args.batch_size
+        # a GPU figure: no CPU number is held against it
+        extra = {"flops_per_image": per_image,
+                 "vs_baseline": (round(per_gpu / BASELINE_IMAGES_PER_SEC, 4)
+                                 if cuda else None),
+                 "image_size": args.image_size}
     record = {
         "metric": f"{args.model}_{args.dtype}_{unit.replace('/', '_per_')}",
         "value": round(per_gpu, 2),
         "unit": unit,
         "mfu": round(flops / step_s / peak, 4) if peak else None,
+        **extra,
         "device": name,
         "n_gpus": static["n_chips"],
+        "batch_size": args.batch_size,
         "overlap_mode": args.overlap,
         "step_ms": step_s * 1e3,
         "final_loss": final_loss,
-        "model_flops_per_step": flops,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
-        "attention": (args.attention if args.attention != "flash"
-                      else "kernels" if launched else "plain"),
         "flash_launches": launched,
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                          if cuda else None),
     }
-    layout = getattr(opt, "layout", None)
+    layout = getattr(state[carry - 1], "layout", None)
     if layout is not None:
         record["buckets"] = len(layout.buckets)
         record["bucket_bytes"] = [b.nbytes for b in layout.buckets]
@@ -183,6 +253,8 @@ def main(argv=None) -> int:
         if args.overlap not in MODES:
             raise SystemExit(f"{envmod.OVERLAP}={args.overlap!r}: choices "
                              f"are {', '.join(MODES)}")
+    if args.batch_size is None:
+        args.batch_size = 8 if args.model.startswith("gpt-") else 128
     _check_ported(args)
     from . import basics
 

@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.rope import apply_rope_tables, rope_tables
+from .layers import Dense
 
 __all__ = ["TransformerConfig", "Block", "GPT", "GPT_CONFIGS", "gpt",
            "block_math"]
@@ -162,20 +163,6 @@ def block_math(cfg: TransformerConfig, x, rope_tabs, *, ln1, qkv, proj,
     return x + mlp(ln2(x))
 
 
-class _Dense(nn.Linear):
-    """``flax.linen.Dense(dtype=...)``: input and fp32 weights cast to the
-    compute dtype before the product."""
-
-    def __init__(self, d_in, d_out, dtype, bias=True):
-        super().__init__(d_in, d_out, bias=bias)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        b = self.bias.to(dt) if self.bias is not None else None
-        return F.linear(x.to(dt), self.weight.to(dt), b)
-
-
 class _LayerNorm(nn.LayerNorm):
     """``flax.linen.LayerNorm(dtype=float32)``: fp32 math, eps 1e-6."""
 
@@ -196,11 +183,11 @@ class Block(nn.Module):
         e, dt = cfg.emb_dim, cfg.dtype
         kv_dim = cfg.kv_heads * cfg.head_dim
         self.ln1 = _LayerNorm(e)
-        self.qkv = _Dense(e, e + 2 * kv_dim, dt)
-        self.proj = _Dense(e, e, dt)
+        self.qkv = Dense(e, e + 2 * kv_dim, dt)
+        self.proj = Dense(e, e, dt)
         self.ln2 = _LayerNorm(e)
-        self.fc1 = _Dense(e, cfg.mlp_ratio * e, dt)
-        self.fc2 = _Dense(cfg.mlp_ratio * e, e, dt)
+        self.fc1 = Dense(e, cfg.mlp_ratio * e, dt)
+        self.fc2 = Dense(cfg.mlp_ratio * e, e, dt)
 
     def forward(self, x, rope_tabs=None):
         return block_math(
@@ -256,13 +243,13 @@ class GPT(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"block{i}", Block(cfg))
         self.lnf = _LayerNorm(e)
-        self.head = _Dense(e, cfg.vocab_size, cfg.dtype, bias=False)
+        self.head = Dense(e, cfg.vocab_size, cfg.dtype, bias=False)
         self._init_params(generator or torch.Generator().manual_seed(0))
 
     @torch.no_grad()
     def _init_params(self, g: torch.Generator) -> None:
         for mod in self.modules():
-            if isinstance(mod, _Dense):
+            if isinstance(mod, Dense):
                 mod.weight.normal_(0.0, mod.in_features ** -0.5, generator=g)
                 if mod.bias is not None:
                     mod.bias.zero_()

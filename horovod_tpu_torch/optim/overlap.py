@@ -91,6 +91,9 @@ class Bucket:
     sizes: Tuple[int, ...]
     dtype: torch.dtype
     pad: int                        # zeros appended so shard_ways divides
+    # leaves laid out channels_last (NHWC memory): their bucket slices are
+    # in that order, so views of the bucket keep the leaf's strides
+    channels_last: Tuple[bool, ...]
 
     @property
     def size(self) -> int:
@@ -148,6 +151,7 @@ def build_layout(params: Sequence[torch.Tensor], bucket_bytes: int, *,
     shapes = [tuple(leaf.shape) for leaf in leaves]
     sizes = [leaf.numel() for leaf in leaves]
     dtypes = [leaf.dtype for leaf in leaves]
+    nhwc = [_is_channels_last(leaf) for leaf in leaves]
 
     buckets: List[Bucket] = []
 
@@ -162,6 +166,7 @@ def build_layout(params: Sequence[torch.Tensor], bucket_bytes: int, *,
             sizes=tuple(sizes[i] for i in run),
             dtype=dtypes[run[0]],
             pad=(-total) % shard_ways,
+            channels_last=tuple(nhwc[i] for i in run),
         ))
 
     run: List[int] = []
@@ -180,21 +185,35 @@ def build_layout(params: Sequence[torch.Tensor], bucket_bytes: int, *,
                         shard_ways=int(shard_ways))
 
 
+def _is_channels_last(t: torch.Tensor) -> bool:
+    return (t.dim() == 4 and not t.is_contiguous()
+            and t.is_contiguous(memory_format=torch.channels_last))
+
+
 def _bucket_concat(pieces: Sequence[torch.Tensor],
                    bucket: Bucket) -> torch.Tensor:
-    """Flatten and concatenate a bucket's leaves (bucket order), zero
-    padded: a new buffer."""
-    flat = torch.cat([p.reshape(-1) for p in pieces])
+    """Flatten and concatenate a bucket's leaves (bucket order; a
+    channels_last leaf in its NHWC memory order), zero padded: a new
+    buffer."""
+    flat = torch.cat([(p.permute(0, 2, 3, 1) if cl else p).reshape(-1)
+                      for p, cl in zip(pieces, bucket.channels_last)])
     if bucket.pad:
         flat = torch.cat([flat, flat.new_zeros(bucket.pad)])
     return flat
 
 
 def _bucket_split(flat: torch.Tensor, bucket: Bucket) -> List[torch.Tensor]:
-    """Inverse of :func:`_bucket_concat`: views of ``flat``, one per leaf."""
+    """Inverse of :func:`_bucket_concat`: views of ``flat``, one per leaf,
+    with the leaf's layout."""
     out, off = [], 0
-    for shape, size in zip(bucket.shapes, bucket.sizes):
-        out.append(flat[off:off + size].view(shape))
+    for shape, size, cl in zip(bucket.shapes, bucket.sizes,
+                               bucket.channels_last):
+        piece = flat[off:off + size]
+        if cl:
+            n, c, h, w = shape
+            out.append(piece.view(n, h, w, c).permute(0, 3, 1, 2))
+        else:
+            out.append(piece.view(shape))
         off += size
     return out
 

@@ -1,5 +1,6 @@
-"""Parallel attention schedules of horovod_tpu_torch."""
+"""Parallel schedules and layers of horovod_tpu_torch."""
 
 from .ring_attention import local_attention
+from .sync_batch_norm import SyncBatchNorm, sync_batch_stats
 
-__all__ = ["local_attention"]
+__all__ = ["local_attention", "SyncBatchNorm", "sync_batch_stats"]

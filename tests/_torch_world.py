@@ -419,3 +419,84 @@ def dropped_plan_worker(mode):
     plan = plan_for(model)  # the dead plan's hooks stand aside
     return {"plan_freed": freed, "plan_freed_model_kept": freed_kept,
             "steps_after": all(p.grad is not None for p in plan.params)}
+
+
+def sync_bn_worker(xs, ws, scale, bias, momentum):
+    """``SyncBatchNorm`` in training mode on this rank's NHWC batch
+    ``xs[rank]``, loss ``sum(y * ws[rank])``: the output (NHWC), the
+    gradients of x, scale and bias, and the running statistics; at world 1
+    also ``layers.BatchNorm``'s on the same batch."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.layers import BatchNorm, from_nhwc
+    from horovod_tpu_torch.parallel import SyncBatchNorm
+
+    def run(cls):
+        bn = cls(scale.shape[0], momentum=momentum)
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(scale))
+            bn.bias.copy_(torch.from_numpy(bias))
+        x = from_nhwc(xs[hvd.rank()].copy()).requires_grad_()
+        y = bn(x)
+        (y * from_nhwc(ws[hvd.rank()])).sum().backward()
+        return {"y": y.detach().permute(0, 2, 3, 1).numpy(),
+                "dx": x.grad.permute(0, 2, 3, 1).numpy(),
+                "dscale": bn.weight.grad.numpy(),
+                "dbias": bn.bias.grad.numpy(),
+                "mean": bn.running_mean.numpy(),
+                "var": bn.running_var.numpy()}
+
+    out = {"sync": run(SyncBatchNorm)}
+    if hvd.size() == 1:
+        out["local"] = run(BatchNorm)
+    return out
+
+
+def conv_step_worker(steps, batch, size, modes):
+    """``build_step("resnet18", "fp32", batch, size)`` on the CPU, ``steps``
+    steps in each overlap mode: per mode the world-mean losses, whether
+    the parameters, running statistics and losses equal ``off``'s bit for
+    bit, and a digest of the parameters (replicas must agree); for
+    ``off`` also the parameters, statistics, this rank's images and
+    labels, and ``static``."""
+    import hashlib
+
+    import torch
+
+    from horovod_tpu_torch.train import build_step
+
+    out, ref = {}, None
+    for mode in modes:
+        step, state, static = build_step("resnet18", "fp32", batch, size,
+                                         overlap_mode=mode, grad_bucket_mb=4,
+                                         device="cpu")
+        images, labels = state[3].clone(), state[4].clone()
+        losses = []
+        for _ in range(steps):
+            *carry, loss = step(*state)
+            state = tuple(carry) + state[3:]
+            losses.append(loss.item())
+        model = state[0]
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        stats = {n: b.clone() for n, b in model.named_buffers()}
+        digest = hashlib.sha256()
+        for n in sorted(params):
+            digest.update(params[n].contiguous().numpy().tobytes())
+        res = {"losses": losses, "digest": digest.hexdigest()}
+        if ref is None:
+            ref = (params, stats, losses)
+            res.update(params={n: t.numpy() for n, t in params.items()},
+                       stats={n: t.numpy() for n, t in stats.items()},
+                       images=images.permute(0, 2, 3, 1).numpy(),
+                       labels=labels.numpy(), static=static,
+                       channels_last=images.is_contiguous(
+                           memory_format=torch.channels_last))
+        else:
+            res["bitwise_equal_to_first"] = (
+                losses == ref[2]
+                and all(torch.equal(params[n], t)
+                        for n, t in ref[0].items())
+                and all(torch.equal(stats[n], t) for n, t in ref[1].items()))
+        out[mode] = res
+    return out

@@ -13,12 +13,18 @@ tensor-core kernels also round P and dS to bf16 before their second
 product).  bf16 at head_dim 64 runs the tensor-core forward, dK/dV and dQ
 (``fa.kernel_for``); fp32 and head_dims 16/32 the scalar kernels.
 
-The last tests drive gpt-nano at head_dim 64 (2 heads, bf16) through the
+The next tests drive gpt-nano at head_dim 64 (2 heads, bf16) through the
 training path on the card, in a one-GPU NCCL world: the overlap plane's
 ``bucket`` and ``bucket+zero1`` steps against ``off`` (losses within
 ``chip_smoke.OVERLAP_LOSS_RTOL``, exact launch counts, the buckets issued
 during the backward), and remat, whose recompute launches the forward
 kernel a second time per layer.
+
+The last ones hold the conv zoo's CUDA path (cuDNN, channels_last, the
+BatchNorm statistics) against its CPU path, which the CPU tests hold
+against JAX: one fp32 SGD step of ResNet-18 with TF32 off within
+``chip_smoke.CONV_TOL``, and a bf16 step whose profile has no cuDNN
+layout-conversion kernel in any overlap mode.
 """
 
 from __future__ import annotations
@@ -264,3 +270,51 @@ def test_remat_recomputes_the_forward_kernel(world):
                 if n in chip_smoke.MAIN_PATH else 0 for n in fa.LAUNCHES}
     for name, g in grads[True].items():
         _close(g, grads[False][name], torch.bfloat16, name)
+
+
+@pytest.mark.parametrize("pool", ["avg_same", "max_padded", "max_valid"])
+def test_conv_pools_match_the_cpu(cuda, pool):
+    """The pools' forward and backward on channels_last input, card
+    against CPU: ``layers.avg_pool`` pads its zeros itself because
+    torch's CUDA ``avg_pool2d`` backward with ``padding`` > 0 on a
+    channels_last input disagrees with the CPU (see its docstring)."""
+    from horovod_tpu_torch.models import layers
+
+    fn = {"avg_same": lambda x: layers.avg_pool(x, 3, 1, "SAME"),
+          "max_padded": lambda x: layers.max_pool(x, 3, 2, [(1, 1), (1, 1)]),
+          "max_valid": lambda x: layers.max_pool(x, 3, 2)}[pool]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 64, 9, 9, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(fn(x).shape, generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xd = x.detach().to(dev).requires_grad_()
+        y = fn(xd)
+        (y * w.to(dev)).sum().backward()
+        out[dev] = (y.detach().cpu(), xd.grad.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        _close(got, want, torch.float32, pool)
+
+
+def test_conv_step_on_the_card_matches_the_cpu(world):
+    """Logits, loss, every gradient, the updated parameters and running
+    statistics (``card_vs_cpu`` raises outside ``CONV_TOL``)."""
+    errs, failures = chip_smoke.card_vs_cpu("resnet18", 4, 64)
+    assert not failures, failures
+    assert set(errs) == {"logits", "loss", "grad", "param", "stat"}
+
+
+@pytest.mark.parametrize("mode", ["off", "bucket", "bucket+zero1"])
+def test_conv_step_stays_channels_last(world, mode):
+    """No NCHW <-> NHWC conversion on the card: the images, activations
+    and weights stay channels_last through the step, ZeRO-1's re-pointed
+    weights included."""
+    from horovod_tpu_torch.train import build_step
+
+    step, state, static = build_step("resnet18", "bf16", 8, 64,
+                                     overlap_mode=mode, grad_bucket_mb=4)
+    state, losses = chip_smoke.run_carry(step, state, static["carry_len"], 2)
+    prof = chip_smoke.profile_step(state, step, step_ms=1.0)
+    assert prof["layout_conversion_ms"] == 0, prof["top"]
+    assert all(np.isfinite(float(x)) for x in losses)
