@@ -63,6 +63,23 @@ dQ (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``: fp32 and head_dims
    layout conversions (0 if channels_last holds end to end).  ``zoo``:
    VGG-16 at 224 and Inception V3 at 299, bf16, batch 32, 1 warm-up and
    3 steps: finite losses, images/s/GPU.
+9. ``reductions``: ``train``'s 7 steps from its weights and tokens through
+   ``DistributedOptimizer(op=Adasum)`` and ``OverlapPlan`` with
+   ``hierarchical_axes=(LOCAL_AXIS, CROSS_AXIS)`` in ``bucket``,
+   ``bucket+zero1`` and ``bucket`` with a bf16 cross leg: exact launches,
+   finite losses, the first three bit for bit ``train``'s (at world 1
+   Adasum is the identity on fp32 gradients and both group legs reduce
+   nothing), the bf16 one within ``LOSS_RTOL``; step time, busy share,
+   peak memory.  Then an ``nn.Embedding(sparse=True)`` trained by SGD
+   under ``sparse_as_dense`` True and False: the same weights.
+10. ``fp8``: gpt-small ``--dtype fp8`` (e4m3 storage of the attention
+   context, the branch deltas and the GELU output; 12 launches of each
+   flash kernel a step) from ``train``'s weights and tokens, and ResNet-50
+   fp8 (every ReLU output) from the ``resnet`` phase's, each against its
+   bf16 run with the reference's ``test_fp8.py`` gates (first loss within
+   2%, later ones within 15% + 0.05, finite); step time, rate, MFU, peak
+   memory beside bf16's.  Then ``act_store`` on the card against the CPU
+   on ``act_store_grid``, values and gradients, NaN where NaN.
 
 Then the ``kernels`` summary, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line.  Any failure raises and exits
@@ -111,6 +128,34 @@ SCALAR_TWIN = {"flash_fwd_tc": "flash_fwd",
                "flash_bwd_dkdv_tc": "flash_bwd_dkdv",
                "flash_bwd_dq_tc": "flash_bwd_dq"}
 MIN_SPEEDUP = 3.0
+
+
+def act_store_grid(dtype):
+    """The inputs ``act_store`` is held on (a CPU tensor of ``dtype``):
+    in bf16 every value of magnitude up to 1024, subnormals included; in
+    another dtype every e4m3 value, every midpoint between two neighbours
+    (the rounding boundaries), the neighbours of each in ``dtype``, and
+    448..1024 around 464, where XLA's conversion turns to NaN; both signs
+    of each, then +-inf and nan."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        # bf16 bit patterns 0 .. 0x4480 (= 1024.0) in order of magnitude
+        pos = torch.arange(0, 0x4481, dtype=torch.int16).view(torch.bfloat16)
+    else:
+        e4m3 = torch.arange(0, 256, dtype=torch.int32).to(torch.uint8).view(
+            torch.float8_e4m3fn).float()
+        vals = torch.unique(e4m3[torch.isfinite(e4m3) & (e4m3 >= 0)])
+        mids = (vals[1:] + vals[:-1]) / 2
+        edge = torch.tensor([448.0, 456.0, 464.0, 472.0, 480.0, 1024.0])
+        base = torch.cat([vals, mids, edge]).to(dtype)
+        inf = torch.tensor(float("inf"), dtype=dtype)
+        pos = torch.unique(torch.cat([base, torch.nextafter(base, inf),
+                                      torch.nextafter(base, -inf)]))
+        pos = pos[pos >= 0]
+    special = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                           dtype=dtype)
+    return torch.cat([pos, -pos, special])
 
 
 def emit(phase: str, **fields) -> None:
@@ -886,9 +931,10 @@ def bn_costs(model) -> dict:
             "update_host_ms": host_ms, "bf16_channels_last_impl": impl}
 
 
-def resnet(fa) -> None:
+def resnet(fa) -> dict:
     """ResNet-50, bf16, 224, batch 128: ``off`` and ``bucket`` against
-    each other and the first loss against fp32 (TF32 off)."""
+    each other and the first loss against fp32 (TF32 off).  Returns the
+    ``off`` run's record."""
     from horovod_tpu_torch.train import build_step
 
     name, _, batch, size = RESNET_STEP
@@ -936,6 +982,7 @@ def resnet(fa) -> None:
     if rel_bf16 > LOSS_RTOL:
         raise AssertionError(f"bf16 first loss {off[0]} differs from fp32's "
                              f"{fp32_first} by {rel_bf16:.4f}")
+    return runs["off"]
 
 
 def zoo(fa) -> None:
@@ -954,11 +1001,232 @@ def zoo(fa) -> None:
     emit("zoo", dtype="bf16", mfu_peak_flops=H100_BF16_PEAK, models=runs)
 
 
-def conv(fa) -> None:
-    """Phase ``conv``: ``conv_check``, ``resnet``, ``zoo``."""
+def conv(fa) -> dict:
+    """Phase ``conv``: ``conv_check``, ``resnet``, ``zoo``; returns the
+    ResNet-50 ``off`` run's record."""
     conv_check()
-    resnet(fa)
+    off = resnet(fa)
     zoo(fa)
+    return off
+
+
+# ---------------------------------------------------------------------------
+# reductions: Adasum, the two-level schedules, the sparse path
+# ---------------------------------------------------------------------------
+
+def gpt_with(build_opt):
+    """``train``'s gpt-small step, weights and tokens, its optimizer
+    replaced by ``build_opt(model)`` (AdamW with optax's constants inside
+    any plane)."""
+    from horovod_tpu_torch.train import build_gpt_step
+
+    step, state, _ = build_gpt_step(*GPT_STEP)
+    model = state[0]
+    return step, (model, build_opt(model), state[2])
+
+
+def reduction_runs(hvd):
+    """The four ways of phase ``reductions``: name -> (optimizer factory,
+    whether its losses must equal ``train``'s bit for bit)."""
+    from horovod_tpu_torch.optim.overlap import OverlapPlan
+    from horovod_tpu_torch.train import make_adamw
+
+    axes = (hvd.LOCAL_AXIS, hvd.CROSS_AXIS)
+    return {
+        "adasum": (lambda m: hvd.DistributedOptimizer(
+            make_adamw(m.parameters()), op=hvd.Adasum), True),
+        "hierarchical_bucket": (lambda m: OverlapPlan(
+            m.parameters(), make_adamw, mode="bucket",
+            hierarchical_axes=axes), True),
+        "hierarchical_bucket+zero1": (lambda m: OverlapPlan(
+            m.parameters(), make_adamw, mode="bucket+zero1",
+            hierarchical_axes=axes), True),
+        "hierarchical_bucket_bf16_cross": (lambda m: OverlapPlan(
+            m.parameters(), make_adamw, mode="bucket",
+            hierarchical_axes=axes, dcn_compression="bf16"), False),
+    }
+
+
+SPARSE_ROWS, SPARSE_DIM, SPARSE_LOOKUPS, SPARSE_STEPS = 64, 16, 32, 3
+
+
+def sparse_sgd(sparse_as_dense: bool, device: str = "cuda"):
+    """``SPARSE_STEPS`` SGD steps (lr 0.5) of an ``nn.Embedding(sparse=True)``
+    through ``DistributedOptimizer(sparse_as_dense=...)`` on ``device`` (a
+    world of one); the final weights on the CPU and the kind of gradient
+    SGD got at each step.  Weights and loss weights are multiples
+    of 2^-4 no larger than 4 and the lookups repeat rows, so every sum is
+    exact in any order: the paths may differ only in where the duplicate
+    rows are combined."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    rng = np.random.RandomState(3)
+    weight = torch.from_numpy(
+        (rng.randint(-32, 33, (SPARSE_ROWS, SPARSE_DIM)) / 16)
+        .astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, SPARSE_ROWS // 4,
+                                       (SPARSE_STEPS, SPARSE_LOOKUPS)))
+    w = torch.from_numpy((rng.randint(-8, 9, (SPARSE_STEPS, SPARSE_LOOKUPS,
+                                              SPARSE_DIM)) / 16)
+                         .astype(np.float32))
+    emb = torch.nn.Embedding(SPARSE_ROWS, SPARSE_DIM, sparse=True)
+    with torch.no_grad():
+        emb.weight.copy_(weight)
+    emb = emb.to(device)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(emb.parameters(), lr=0.5),
+                                   sparse_as_dense=sparse_as_dense)
+    kinds = []
+    for k in range(SPARSE_STEPS):
+        opt.zero_grad()
+        (emb(idx[k].to(device)) * w[k].to(device)).sum().backward()
+        opt.synchronize()
+        kinds.append("sparse" if emb.weight.grad.is_sparse else "dense")
+        opt.optimizer.step()
+    return emb.weight.detach().cpu(), kinds
+
+
+def reductions(hvd, fa, train_run) -> dict:
+    """Phase ``reductions``: gpt-small from ``train``'s weights and tokens
+    through Adasum and the two-level planes (exact launches, losses
+    against ``train``'s), then the sparse embedding path."""
+    import torch
+
+    out = {}
+    for name, (build_opt, bitwise) in reduction_runs(hvd).items():
+        step, state = gpt_with(build_opt)
+        state, run = drive(fa, step, state)
+        run["profile"] = profile_step(state, step, run["step_ms"], top=4)
+        rel = max_rel(run["losses"], train_run["losses"])
+        run.update(max_rel_loss_diff_vs_train=rel,
+                   bitwise_equal_to_train=run["losses"]
+                   == train_run["losses"])
+        out[name] = run
+        del step, state
+        release()
+        if bitwise and not run["bitwise_equal_to_train"]:
+            raise AssertionError(
+                f"{name}: losses {run['losses']} differ from train's "
+                f"{train_run['losses']} (at world 1 the reduce is the "
+                "identity)")
+        if rel > LOSS_RTOL:
+            raise AssertionError(f"{name}: losses {run['losses']} differ "
+                                 f"from train's by {rel:.4f} > {LOSS_RTOL}")
+    sparse = {d: sparse_sgd(d) for d in (True, False)}
+    same = torch.equal(sparse[True][0], sparse[False][0])
+    emit("reductions", model="gpt-small", dtype="bf16",
+         batch_per_gpu=GPT_STEP[2], seq=GPT_STEP[3], world=1,
+         train_losses=train_run["losses"], loss_rtol=LOSS_RTOL, runs=out,
+         sparse={"rows": SPARSE_ROWS, "dim": SPARSE_DIM,
+                 "lookups_per_step": SPARSE_LOOKUPS, "steps": SPARSE_STEPS,
+                 "grad_kinds": {str(d): sparse[d][1] for d in sparse},
+                 "dense_equals_sparse": same})
+    if not same or sparse[False][1] != ["sparse"] * SPARSE_STEPS:
+        raise AssertionError(f"sparse_as_dense=False left "
+                             f"{sparse[False][1]} gradients, or its weights "
+                             "differ from the densified path's")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fp8 activation storage
+# ---------------------------------------------------------------------------
+
+# the reference's tests/test_fp8.py contract: the first loss within 2% of
+# bf16's (same weights: pure storage rounding), every later one within
+# 15% + 0.05 (trajectories compound it)
+FP8_FIRST_RTOL, FP8_LATER = 0.02, (0.15, 0.05)
+
+
+def fp8_gates(name, fp8, bf16) -> None:
+    if not all(math.isfinite(x) for x in fp8):
+        raise AssertionError(f"{name} fp8: non-finite loss {fp8}")
+    if abs(fp8[0] - bf16[0]) > FP8_FIRST_RTOL * abs(bf16[0]):
+        raise AssertionError(f"{name} fp8 first loss {fp8[0]} vs bf16's "
+                             f"{bf16[0]}: over {FP8_FIRST_RTOL}")
+    rel, add = FP8_LATER
+    for f, b in zip(fp8[1:], bf16[1:]):
+        if abs(f - b) > rel * abs(b) + add:
+            raise AssertionError(f"{name} fp8 losses {fp8} left bf16's "
+                                 f"{bf16} by more than {rel} x + {add}")
+
+
+def act_store_check() -> dict:
+    """``act_store`` on the card against the CPU on ``act_store_grid`` (and
+    the gradient, the same grid as cotangent): equal element for element,
+    NaN where NaN."""
+    import torch
+
+    from horovod_tpu_torch.models.layers import act_store
+
+    def same(a, b):
+        a, b = a.double(), b.double()
+        nan = torch.isnan(a)
+        return bool(torch.equal(nan, torch.isnan(b))
+                    and torch.equal(a[~nan], b[~nan]))
+
+    out = {}
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        x = act_store_grid(dt)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            y = torch.linspace(-3, 3, x.numel()).to(dt).to(dev)
+            y.requires_grad_()
+            val = act_store(x.to(dev), torch.float8_e4m3fn, dt)
+            act_store(y, torch.float8_e4m3fn, dt).backward(x.to(dev))
+            res[dev] = (val.cpu(), y.grad.cpu())
+        ok = (same(res["cuda"][0], res["cpu"][0])
+              and same(res["cuda"][1], res["cpu"][1]))
+        out[str(dt)] = {"values": x.numel(), "card_equals_cpu": ok,
+                        "nans": int(torch.isnan(res["cpu"][0]).sum())}
+        if not ok:
+            raise AssertionError(f"act_store on the card differs from the "
+                                 f"CPU on the {dt} grid")
+    return out
+
+
+def fp8(fa, train_run, resnet_off) -> None:
+    """Phase ``fp8``: gpt-small ``--dtype fp8`` from ``train``'s weights and
+    tokens, ResNet-50 fp8 from the ``resnet`` phase's, each against its
+    bf16 run; then ``act_store`` card against CPU."""
+    from horovod_tpu_torch.train import build_gpt_step, build_step
+
+    step, state, _ = build_gpt_step(GPT_STEP[0], "fp8", *GPT_STEP[2:])
+    state, gpt_run = drive(fa, step, state)
+    gpt_run["profile"] = profile_step(state, step, gpt_run["step_ms"], top=4)
+    del step, state
+    release()
+    fp8_gates("gpt-small", gpt_run["losses"], train_run["losses"])
+
+    name, _, batch, size = RESNET_STEP
+    step, state, static = build_step(name, "fp8", batch, size)
+    state, res_run = drive_conv(fa, name, step, state, static, WARMUP, STEPS)
+    res_run["profile"] = profile_step(state, step, res_run["step_ms"], top=6)
+    del step, state
+    release()
+    fp8_gates(name, res_run["losses"], resnet_off["losses"])
+
+    def side_by_side(run, bf16, rate):
+        return {"fp8_losses": run["losses"], "bf16_losses": bf16["losses"],
+                "fp8_decreases": run["losses"][-1] < run["losses"][0],
+                "bf16_decreases": bf16["losses"][-1] < bf16["losses"][0],
+                "max_rel_loss_diff": max_rel(run["losses"], bf16["losses"]),
+                "step_ms": {"fp8": run["step_ms"], "bf16": bf16["step_ms"]},
+                rate: {"fp8": run[rate], "bf16": bf16[rate]},
+                "mfu": {"fp8": run["mfu"], "bf16": bf16["mfu"]},
+                "peak_mem_gib": {"fp8": run["peak_mem_gib"],
+                                 "bf16": bf16["peak_mem_gib"]},
+                "fp8_profile": run["profile"]}
+
+    emit("fp8", store_dtype="float8_e4m3fn", compute_dtype="bf16",
+         gates={"first_rtol": FP8_FIRST_RTOL, "later": FP8_LATER},
+         gpt_small=dict(side_by_side(gpt_run, train_run,
+                                     "tokens_per_s_per_gpu"),
+                        launches=gpt_run["launches"]),
+         resnet50=side_by_side(res_run, resnet_off, "images_per_s_per_gpu"),
+         act_store=act_store_check())
 
 
 # cuDNN's NCHW <-> NHWC conversion kernels: device time in them means a
@@ -1064,7 +1332,10 @@ def main() -> int:
     release()
     overlap(fa, run["losses"])
     rope_remat(fa)
-    conv(fa)
+    resnet_off = conv(fa)
+    reductions(hvd, fa, run)
+    release()
+    fp8(fa, run, resnet_off)
 
     summary = [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],

@@ -19,23 +19,50 @@ learned or rotary positions and remat, flash attention, whose three
 kernels are hand-written CUDA for Hopper (``csrc/``), and the bench entry
 ``python -m horovod_tpu_torch.bench``; then the conv zoo (ResNet, VGG,
 Inception V3, the MNIST nets) with ``SyncBatchNorm`` and its training
-step, ``train.build_step``, whose convolutions are cuDNN's.
+step, ``train.build_step``, whose convolutions are cuDNN's; then the rest
+of the reductions (Adasum, sparse gradients, the two-level schedules over
+the local and cross groups with a compressed cross leg), the topology API
+and fp8 activation storage.
+
+The names of the reference's top level that the port does not carry yet
+are in :data:`NOT_PORTED`, each with its ROADMAP item: reading one raises
+:class:`NotPortedError` naming it.
 """
 
 from .basics import (
+    CROSS_AXIS,
+    DP_AXIS,
+    LOCAL_AXIS,
+    SLICE_AXIS,
     NotInitializedError,
+    ccl_built,
     cross_rank,
     cross_size,
+    ddl_built,
     device,
+    device_rank,
     global_topology,
+    gloo_built,
+    gloo_enabled,
     init,
     is_homogeneous,
     is_initialized,
     local_rank,
     local_size,
+    mpi_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    native_engine_built,
+    nccl_built,
+    num_devices,
+    num_slices,
     rank,
     shutdown,
     size,
+    slice_id,
+    slice_of_rank,
+    slice_size,
+    xla_collectives_built,
 )
 from .ops.collectives import (
     Adasum,
@@ -47,28 +74,84 @@ from .ops.collectives import (
     all_gather_flat,
     allgather,
     allreduce,
+    allreduce_,
     alltoall,
     broadcast,
+    broadcast_,
     grouped_allreduce,
     reduce_scatter_flat,
     reducescatter,
 )
 from .ops.compression import Compression, ErrorFeedbackCompressor
+from .ops.sparse import IndexedSlices, allreduce_sparse
+from .ops.sparse import to_dense as sparse_to_dense
 from .optim import (
     DistributedOptimizer,
     broadcast_object,
     broadcast_optimizer_state,
     broadcast_parameters,
+    overlap,
 )
+from .optim.overlap import OverlapPlan
+from .parallel.sync_batch_norm import SyncBatchNorm
+
+__version__ = "0.1.0"
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "is_homogeneous", "device",
-    "global_topology", "NotInitializedError",
+    "global_topology", "NotInitializedError", "num_devices", "device_rank",
+    "slice_id", "num_slices", "slice_size", "slice_of_rank",
+    "xla_collectives_built", "native_engine_built", "mpi_built",
+    "mpi_enabled", "mpi_threads_supported", "gloo_built", "gloo_enabled",
+    "nccl_built", "ccl_built", "ddl_built",
+    "DP_AXIS", "CROSS_AXIS", "LOCAL_AXIS", "SLICE_AXIS",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max",
-    "allreduce", "grouped_allreduce", "broadcast", "allgather",
-    "alltoall", "reducescatter", "reduce_scatter_flat", "all_gather_flat",
+    "allreduce", "allreduce_", "grouped_allreduce", "broadcast",
+    "broadcast_", "allgather", "alltoall", "reducescatter",
+    "reduce_scatter_flat", "all_gather_flat",
     "Compression", "ErrorFeedbackCompressor",
+    "IndexedSlices", "allreduce_sparse", "sparse_to_dense",
     "DistributedOptimizer", "broadcast_parameters",
-    "broadcast_optimizer_state", "broadcast_object",
+    "broadcast_optimizer_state", "broadcast_object", "OverlapPlan",
+    "overlap", "SyncBatchNorm", "NOT_PORTED", "NotPortedError",
 ]
+
+
+class NotPortedError(NotImplementedError, AttributeError):
+    """A name of the reference's top level that the port does not carry
+    yet.  An ``AttributeError`` too, so ``hasattr`` answers False."""
+
+
+# Names of the reference's top level (horovod_tpu/__init__.py) still to
+# port: name -> (ROADMAP item, what it is).  Keep in step with ROADMAP's
+# table of the same names.
+NOT_PORTED = {
+    **{name: ("A9", "the eager named-tensor engine")
+       for name in ("allreduce_async", "allreduce_async_", "allgather_async",
+                    "broadcast_async", "broadcast_async_", "synchronize",
+                    "poll", "join")},
+    **{name: ("A10", "checkpoints and the stores")
+       for name in ("Store", "LocalStore", "save_checkpoint",
+                    "save_checkpoint_async", "restore_checkpoint",
+                    "latest_checkpoint_step")},
+    "callbacks": ("A10", "the training callbacks"),
+    "Estimator": ("A13", "the estimator frontend"),
+    "Model": ("A13", "the estimator frontend"),
+    "obs": ("A13", "the observability planes"),
+    **{name: ("A14", "a JAX SPMD object: the port runs one process per GPU "
+              "and reduces through DistributedOptimizer / OverlapPlan over "
+              "process groups (basics.group_of_axis)")
+       for name in ("mesh", "distribute", "DistributedGradientTransform",
+                    "sync_gradients")},
+}
+
+
+def __getattr__(name):
+    if name in NOT_PORTED:
+        item, what = NOT_PORTED[name]
+        raise NotPortedError(
+            f"horovod_tpu_torch.{name} is not ported yet (ROADMAP {item}: "
+            f"{what})")
+    raise AttributeError(
+        f"module 'horovod_tpu_torch' has no attribute {name!r}")

@@ -12,15 +12,23 @@ The world comes from, in order:
 * ``torchrun``'s: ``RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT`` and
   ``LOCAL_RANK/LOCAL_WORLD_SIZE/GROUP_RANK``;
 * neither: a world of 1 on a TCP store on ``127.0.0.1`` (a free port).
+
+Ranks are cross-major, as torchrun numbers them and as the reference's
+``mesh("hierarchical")`` lays out its devices: global rank = ``cross_rank
+x local_size + local_rank``.  ``init`` builds the two subgroups of the
+two-level schedules (``parallel/hierarchical.py``) once: this rank's
+*local* group (the ranks of its host, ``LOCAL_AXIS``) and its *cross*
+group (the ranks of its local index on every host, ``CROSS_AXIS``).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -42,7 +50,40 @@ __all__ = [
     "device",
     "global_topology",
     "NotInitializedError",
+    "num_devices",
+    "device_rank",
+    "slice_id",
+    "num_slices",
+    "slice_size",
+    "slice_of_rank",
+    "local_group",
+    "cross_group",
+    "group_of_axis",
+    "xla_collectives_built",
+    "native_engine_built",
+    "mpi_built",
+    "mpi_enabled",
+    "mpi_threads_supported",
+    "gloo_built",
+    "gloo_enabled",
+    "nccl_built",
+    "ccl_built",
+    "ddl_built",
+    "DP_AXIS",
+    "CROSS_AXIS",
+    "LOCAL_AXIS",
+    "SLICE_AXIS",
 ]
+
+# The reference's axis names (horovod_tpu/basics.py:76-84).  Here they name
+# process groups, not mesh axes: DP_AXIS the world, LOCAL_AXIS the ranks of
+# one host, CROSS_AXIS the ranks of one local index across hosts.
+DP_AXIS = "hvd"
+CROSS_AXIS = "hvd_cross"
+LOCAL_AXIS = "hvd_local"
+SLICE_AXIS = "hvd_slice"
+
+_log = logging.getLogger(__name__)
 
 
 @dataclass(frozen=True)
@@ -58,6 +99,18 @@ class Topology:
     device: torch.device
     backend: str
     homogeneous: bool = True
+    # the forced slice partition (contiguous equal blocks of processes)
+    num_slices: int = 1
+    slice_id: int = 0
+    # this rank's subgroups (torch.distributed process groups); None when
+    # the world is not local_size x cross_size cross-major
+    local_group: Any = field(default=None, repr=False, compare=False)
+    cross_group: Any = field(default=None, repr=False, compare=False)
+
+    @property
+    def num_devices(self) -> int:
+        """GPUs in the job: one per process."""
+        return self.process_count
 
 
 class _World(NamedTuple):
@@ -100,6 +153,65 @@ def _world_from_env(environ) -> _World:
             f"{addr}:{port}" if addr and port else None,
         )
     return _World(0, 1, 0, 1, 0, 1, None)
+
+
+def resolve_slice_partition(world: int, proc: int, env=None) -> tuple:
+    """``(num_slices, slice_id)`` of process ``proc`` in a world of
+    ``world`` (the reference's ``resolve_slice_partition``,
+    horovod_tpu/basics.py:133-220, for one GPU per process):
+    ``HVDTPU_NUM_SLICES`` forces a count of contiguous process blocks, else
+    ``HVDTPU_SLICE_SIZE`` the processes per slice; a value that does not
+    divide the world is ignored with a warning.  GPUs report no slice of
+    their own, so with neither set the job is one slice."""
+    e = os.environ if env is None else env
+
+    def val(name):
+        raw = e.get(name)
+        try:
+            return int(raw) if raw not in (None, "") else 0
+        except ValueError:
+            _log.warning("%s=%r is not an integer; ignoring", name, raw)
+            return 0
+
+    n = val(envmod.NUM_SLICES)
+    if n <= 0:
+        ssize = val(envmod.SLICE_SIZE)
+        if ssize > 0:
+            if world % ssize:
+                _log.warning("%s=%d does not divide the %d-process world; "
+                             "running single-slice", envmod.SLICE_SIZE,
+                             ssize, world)
+            else:
+                n = world // ssize
+    if n > 1:
+        if world % n:
+            _log.warning("forced slice count %d does not divide the "
+                         "%d-process world; running single-slice", n, world)
+            return 1, 0
+        return n, proc // (world // n)
+    return 1, 0
+
+
+def _subgroups(w: _World, layouts) -> tuple:
+    """``(local_group, cross_group)`` of this rank.  ``layouts`` holds every
+    rank's ``(local_rank, local_size, cross_rank, cross_size)``; the groups
+    exist only when every rank sits at ``cross_rank x local_size +
+    local_rank`` of a ``local_size x cross_size`` world (else ``(None,
+    None)``, decided alike on every rank).  Every rank creates every group,
+    in one order, as ``new_group`` requires; at world 1 both are the
+    world."""
+    if w.size == 1:
+        return dist.group.WORLD, dist.group.WORLD
+    local_n, cross_n = w.local_size, w.cross_size
+    if local_n * cross_n != w.size or any(
+            lay != (r % local_n, local_n, r // local_n, cross_n)
+            for r, lay in enumerate(layouts)):
+        return None, None
+    local = [dist.new_group([c * local_n + l for l in range(local_n)])
+             for c in range(cross_n)]
+    cross = [dist.new_group([c * local_n + l for c in range(cross_n)])
+             for l in range(local_n)]
+    return local[w.cross_rank], cross[w.local_rank]
 
 
 def _resolve_device(device, local_rank: int) -> torch.device:
@@ -157,18 +269,23 @@ def init(comm=None, device=None) -> Topology:
             store = dist.TCPStore("127.0.0.1", 0, 1, True)
             dist.init_process_group(backend, store=store, rank=0,
                                     world_size=1)
-        homogeneous = True
+        mine = (w.local_rank, w.local_size, w.cross_rank, w.cross_size)
+        layouts = [mine]
         if w.size > 1:
-            # the reference compares local sizes across ranks
-            # (mpi_controller.cc:46-81)
-            sizes = [None] * w.size
-            dist.all_gather_object(sizes, w.local_size)
-            homogeneous = len(set(sizes)) <= 1
+            layouts = [None] * w.size
+            dist.all_gather_object(layouts, mine)
+        # the reference compares local sizes across ranks
+        # (mpi_controller.cc:46-81)
+        homogeneous = len({lay[1] for lay in layouts}) <= 1
+        local, cross = _subgroups(w, layouts)
+        n_slices, slice_i = resolve_slice_partition(w.size, w.rank)
         _topology = Topology(
             process_rank=w.rank, process_count=w.size,
             local_rank=w.local_rank, local_size=w.local_size,
             cross_rank=w.cross_rank, cross_size=w.cross_size,
             device=dev, backend=backend, homogeneous=homogeneous,
+            num_slices=n_slices, slice_id=slice_i,
+            local_group=local, cross_group=cross,
         )
         return _topology
 
@@ -226,3 +343,133 @@ def is_homogeneous() -> bool:
 def device() -> torch.device:
     """This process's device, fixed at init()."""
     return global_topology().device
+
+
+def num_devices() -> int:
+    """GPUs in the job, the width of the data-parallel world: one per
+    process, so ``size()``."""
+    return global_topology().num_devices
+
+
+def device_rank() -> int:
+    """Global index of this process's GPU: ``rank()``, one GPU per
+    process."""
+    return global_topology().process_rank
+
+
+def slice_id() -> int:
+    """The slice this process belongs to (0 in a single-slice job)."""
+    return global_topology().slice_id
+
+
+def num_slices() -> int:
+    """Slices of the job (1 unless ``HVDTPU_NUM_SLICES`` /
+    ``HVDTPU_SLICE_SIZE`` force a partition)."""
+    return global_topology().num_slices
+
+
+def slice_size() -> int:
+    """Processes per slice (the whole world when there is one slice)."""
+    topo = global_topology()
+    if topo.num_slices <= 1:
+        return topo.process_count
+    return topo.process_count // topo.num_slices
+
+
+def slice_of_rank(rank: int) -> int:
+    """The slice of process ``rank``: contiguous equal blocks."""
+    topo = global_topology()
+    if topo.num_slices <= 1:
+        return 0
+    return int(rank) // (topo.process_count // topo.num_slices)
+
+
+def _group(kind: str):
+    topo = global_topology()
+    group = topo.local_group if kind == "local" else topo.cross_group
+    if group is None:
+        raise ValueError(
+            f"no {kind} group: the two-level groups need a world of "
+            f"local_size x cross_size ranks numbered cross-major (rank = "
+            f"cross_rank x local_size + local_rank); this world has size "
+            f"{topo.process_count}, local_size {topo.local_size}, "
+            f"cross_size {topo.cross_size}")
+    return group
+
+
+def local_group():
+    """This rank's local group: the ``local_size`` ranks of its host, in
+    local-rank order (the reference's ``LOCAL_AXIS``)."""
+    return _group("local")
+
+
+def cross_group():
+    """This rank's cross group: the ``cross_size`` ranks of its local
+    index on every host, in cross-rank order (``CROSS_AXIS``)."""
+    return _group("cross")
+
+
+def group_of_axis(axis: str):
+    """The process group an axis name of the two-level schedules stands
+    for: ``LOCAL_AXIS`` / ``CROSS_AXIS`` this rank's local / cross
+    group."""
+    if axis == LOCAL_AXIS:
+        return local_group()
+    if axis == CROSS_AXIS:
+        return cross_group()
+    raise ValueError(f"unknown axis {axis!r}; the two-level axes are "
+                     f"{LOCAL_AXIS!r} and {CROSS_AXIS!r}")
+
+
+# -- feature probes (the reference's horovod_{mpi,gloo,nccl,...}_built,
+# horovod_tpu/basics.py:510-566), answered for the port's transports:
+# torch.distributed's NCCL on CUDA and gloo on the CPU. --
+
+
+def xla_collectives_built() -> bool:
+    """Whether collectives compile through XLA: never in the port, whose
+    collectives are torch.distributed's."""
+    return False
+
+
+def native_engine_built() -> bool:
+    """Whether the eager engine's native library is in the port: not yet
+    (ROADMAP A9)."""
+    return False
+
+
+def mpi_built() -> bool:
+    """Whether the port runs on MPI: no, its rendezvous and collectives are
+    torch.distributed's NCCL and gloo."""
+    return False
+
+
+mpi_enabled = mpi_built
+
+
+def mpi_threads_supported() -> bool:
+    """MPI's thread support: False, as the port uses no MPI."""
+    return False
+
+
+def gloo_built() -> bool:
+    """Whether torch.distributed has gloo, the port's CPU transport."""
+    return dist.is_gloo_available()
+
+
+gloo_enabled = gloo_built
+
+
+def nccl_built() -> bool:
+    """Whether torch.distributed has NCCL, the port's GPU transport."""
+    return dist.is_nccl_available()
+
+
+def ccl_built() -> bool:
+    """oneCCL: not a transport of the port."""
+    return False
+
+
+def ddl_built() -> bool:
+    """IBM DDL: not a transport of the port."""
+    return False

@@ -42,7 +42,8 @@ __all__ = ["PEAK_FLOPS", "BASELINE_IMAGES_PER_SEC", "conv_flops_per_image",
 # H100 SXM data sheet (bf16 tensor cores; fp32 outside them).  fp32 runs
 # there only with TF32 off: PyTorch's default is off for matmuls but ON
 # for cuDNN convolutions, so ``train.build_step`` turns it off for fp32.
-PEAK_FLOPS = {"H100": {"bf16": 989e12, "fp32": 67e12}}
+# fp8 computes in bf16 (e4m3 is only the activations' storage).
+PEAK_FLOPS = {"H100": {"bf16": 989e12, "fp32": 67e12, "fp8": 989e12}}
 
 # Horovod's published per-GPU figure the reference's ``vs_baseline`` divides
 # by: tf_cnn_benchmarks ResNet-101, 1656.82 images/s over 16 Pascal GPUs
@@ -110,7 +111,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="gpt-small",
                    choices=_GPT_MODELS + _CONV_MODELS)
     p.add_argument("--dtype", default="bf16", choices=["bf16", "fp32", "fp8"],
-                   help="compute dtype (params and optimizer state fp32)")
+                   help="compute dtype (params and optimizer state fp32); "
+                   "fp8 = bf16 compute with e4m3 activation storage (GPT, "
+                   "ResNet)")
     p.add_argument("--batch-size", type=int, default=None,
                    help="per GPU (default: 128 for conv models, 8 for GPT)")
     p.add_argument("--image-size", type=int, default=224)
@@ -148,10 +151,6 @@ def _check_ported(args) -> None:
     if args.moe_experts:
         raise NotImplementedError(
             "--moe-experts is not ported yet (ROADMAP A11)")
-    if args.dtype == "fp8":
-        raise NotImplementedError(
-            "--dtype fp8 (fp8 activation storage) is not ported yet "
-            "(ROADMAP A4)")
 
 
 def run(args) -> dict:

@@ -25,6 +25,9 @@
 
 :func:`init_flax_` gives the flax initializers' variances: conv and Dense
 weights N(0, 1/fan_in), biases 0, BatchNorm scale 1 and bias 0.
+
+:func:`act_store` is the fp8 activation storage of the GPT and ResNet: a
+round trip through e4m3 with XLA's rounding (below).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Conv2d", "Dense", "BatchNorm", "max_pool", "avg_pool",
+__all__ = ["act_store", "Conv2d", "Dense", "BatchNorm", "max_pool",
+           "avg_pool",
            "same_pads", "resolve_padding", "from_nhwc", "init_flax_"]
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -69,6 +73,50 @@ def resolve_padding(padding: Padding, hw, kernel, strides) -> Pads:
                          f"{padding!r}")
     (lh, hh), (lw, hw_) = padding
     return ((lh, hh), (lw, hw_))
+
+
+# XLA converts to e4m3 (no infinity) by rounding to nearest even and gives
+# NaN where that rounds past 448, the largest finite value: above 464, the
+# midpoint to the next step (480), which a tie at 464 rounds down to 448.
+# torch's cast saturates to +-448 there instead, so the magnitude decides.
+E4M3_NAN_ABOVE = 464.0
+
+
+def _e4m3_round(x: torch.Tensor, store_dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``store_dtype`` and widened back to ``x``'s dtype,
+    NaN where XLA's conversion gives NaN (|x| > 464, infinities, NaN)."""
+    q = x.to(store_dtype).to(x.dtype)
+    return torch.where(x.abs() > E4M3_NAN_ABOVE, torch.nan, q)
+
+
+class _ActStore(torch.autograd.Function):
+    """The round trip; its backward rounds the cotangent the same way, as
+    the transpose of XLA's ``convert_element_type`` pair does."""
+
+    @staticmethod
+    def forward(ctx, y, store_dtype):
+        ctx.store_dtype = store_dtype
+        return _e4m3_round(y, store_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _e4m3_round(g, ctx.store_dtype), None
+
+
+def act_store(y: torch.Tensor, store_dtype, compute_dtype) -> torch.Tensor:
+    """The opt-in lossy activation storage of the reference (its
+    ``act_store``, horovod_tpu/models/transformer.py:181-188, and ResNet's
+    quantized ReLU, resnet.py:154-165): ``y`` rounded to ``store_dtype``
+    (``torch.float8_e4m3fn``: 1 byte an element) and widened back to
+    ``compute_dtype``, with XLA's values, NaN out of range included; ``y``
+    itself when ``store_dtype`` is None.  Only e4m3 is taken."""
+    if store_dtype is None:
+        return y
+    if store_dtype != torch.float8_e4m3fn:
+        raise ValueError(f"act_store takes torch.float8_e4m3fn, got "
+                         f"{store_dtype}")
+    # e4m3 widens exactly into any compute dtype
+    return _ActStore.apply(y, store_dtype).to(compute_dtype)
 
 
 def _apply_pads(x, pads: Pads, value: float = 0.0):

@@ -16,7 +16,9 @@ Module names are flax's (``conv_init``, ``bn_init``,
 tree onto the other by renaming.  ``axis_name`` (any value) replaces
 BatchNorm by the world's :class:`~horovod_tpu_torch.parallel.
 sync_batch_norm.SyncBatchNorm`; training mode is the module's
-``train()`` / ``eval()``.
+``train()`` / ``eval()``.  ``act_store_dtype=torch.float8_e4m3fn`` stores
+every ReLU output, of the stem and the blocks, through e4m3 and back
+(:func:`.layers.act_store`, the reference's quantized ReLU).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, Conv2d, Dense, init_flax_, max_pool
+from .layers import BatchNorm, Conv2d, Dense, act_store, init_flax_, \
+    max_pool
 
 __all__ = ["BottleneckBlock", "BasicBlock", "space_to_depth", "ResNet",
            "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152"]
@@ -42,8 +45,9 @@ class BottleneckBlock(nn.Module):
     zero_init = "bn3"  # the BatchNorm whose scale starts at 0
 
     def __init__(self, in_features: int, features: int, strides: int,
-                 conv, norm):
+                 conv, norm, act=F.relu):
         super().__init__()
+        self.act = act
         out = features * self.expansion
         self.conv1 = conv(in_features, features, 1, use_bias=False)
         self.bn1 = norm(features)
@@ -58,12 +62,12 @@ class BottleneckBlock(nn.Module):
             self.proj_bn = norm(out)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.act(self.bn1(self.conv1(x)))
+        y = self.act(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         if self.project:
             x = self.proj_bn(self.proj_conv(x))
-        return F.relu(x + y)
+        return self.act(x + y)
 
 
 class BasicBlock(nn.Module):
@@ -73,8 +77,9 @@ class BasicBlock(nn.Module):
     zero_init = "bn2"
 
     def __init__(self, in_features: int, features: int, strides: int,
-                 conv, norm):
+                 conv, norm, act=F.relu):
         super().__init__()
+        self.act = act
         self.conv1 = conv(in_features, features, 3, strides, use_bias=False)
         self.bn1 = norm(features)
         self.conv2 = conv(features, features, 3, use_bias=False)
@@ -86,11 +91,17 @@ class BasicBlock(nn.Module):
             self.proj_bn = norm(features)
 
     def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.act(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         if self.project:
             x = self.proj_bn(self.proj_conv(x))
-        return F.relu(x + y)
+        return self.act(x + y)
+
+
+def _stored_relu(y, store_dtype, compute_dtype):
+    """ReLU whose output is stored through ``store_dtype`` (the
+    reference's quantized ReLU)."""
+    return act_store(F.relu(y), store_dtype, compute_dtype)
 
 
 def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
@@ -120,11 +131,12 @@ class ResNet(nn.Module):
                  act_store_dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if act_store_dtype is not None:
-            raise NotImplementedError(
-                "act_store_dtype (fp8 activation storage) is not ported yet "
-                "(ROADMAP A4)")
         self.compute_dtype = compute_dtype
+        if act_store_dtype is None:
+            self.act = F.relu
+        else:
+            self.act = partial(_stored_relu, store_dtype=act_store_dtype,
+                               compute_dtype=compute_dtype)
         self.s2d_stem = s2d_stem
         conv = partial(Conv2d, dtype=compute_dtype)
         if axis_name is not None:
@@ -148,7 +160,8 @@ class ResNet(nn.Module):
             for j in range(count):
                 strides = 2 if i > 0 and j == 0 else 1
                 self.add_module(f"stage{i + 1}_block{j + 1}",
-                                block(width, features, strides, conv, norm))
+                                block(width, features, strides, conv, norm,
+                                      self.act))
                 width = features * block.expansion
         self.head = Dense(width, num_classes, torch.float32)
         self._init_params(generator or torch.Generator().manual_seed(0))
@@ -164,7 +177,7 @@ class ResNet(nn.Module):
         x = x.to(self.compute_dtype)
         if self.s2d_stem:
             x = space_to_depth(x, 2)
-        x = F.relu(self.bn_init(self.conv_init(x)))
+        x = self.act(self.bn_init(self.conv_init(x)))
         x = max_pool(x, 3, 2, padding=[(1, 1), (1, 1)])
         for name, mod in self.named_children():
             if name.startswith("stage"):

@@ -22,6 +22,11 @@ Positions: ``pos_embedding="learned"`` (the ``wpe`` table) or ``"rope"``
 tables are computed once per forward for positions ``0..S-1`` and handed
 to every block.
 
+``act_store_dtype=torch.float8_e4m3fn`` stores the attention context, both
+branch deltas and the GELU intermediate through e4m3 and back
+(:func:`.layers.act_store`, the reference's ``act_store`` at the same
+places).
+
 ``remat=True`` checkpoints each block as the reference's
 ``nn.remat(Block, policy=dots_with_no_batch_dims_saveable)``: non-reentrant
 ``torch.utils.checkpoint`` with a selective policy that saves the outputs
@@ -41,7 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.rope import apply_rope_tables, rope_tables
-from .layers import Dense
+from .layers import Dense, act_store
 
 __all__ = ["TransformerConfig", "Block", "GPT", "GPT_CONFIGS", "gpt",
            "block_math"]
@@ -69,10 +74,12 @@ class TransformerConfig:
     # own tiles); the reference's defaults.
     flash_block_q: int = 512
     flash_block_k: int = 256
-    # Options of the reference model not ported yet: each raises
+    # Activation storage dtype (torch.float8_e4m3fn) of the saved
+    # activations; None stores them in the compute dtype
+    act_store_dtype: Optional[torch.dtype] = None
+    # An option of the reference model not ported yet: raises
     # NotImplementedError naming its ROADMAP item when set.
     moe_experts: int = 0
-    act_store_dtype: Optional[torch.dtype] = None
 
     def __post_init__(self):
         if self.num_kv_heads is not None:
@@ -112,10 +119,6 @@ def _check_ported(cfg: TransformerConfig) -> None:
     if cfg.moe_experts > 0:
         raise NotImplementedError(
             "moe_experts > 0 is not ported yet (ROADMAP A11)")
-    if cfg.act_store_dtype is not None:
-        raise NotImplementedError(
-            "act_store_dtype (fp8 activation storage) is not ported yet "
-            "(ROADMAP A4)")
 
 
 def _attend(cfg: TransformerConfig, q, k, v):
@@ -148,6 +151,9 @@ def block_math(cfg: TransformerConfig, x, rope_tabs, *, ln1, qkv, proj,
     attend -> proj (+res) -> LN -> mlp (+res)``; ``proj`` and ``mlp``
     return the residual delta; ``rope_tabs`` is ``(cos, sin)`` or
     ``None``."""
+    def store(y):
+        return act_store(y, cfg.act_store_dtype, cfg.dtype)
+
     b, s, _ = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     q_dim, kv_dim = nh * hd, nkv * hd
@@ -158,9 +164,9 @@ def block_math(cfg: TransformerConfig, x, rope_tabs, *, ln1, qkv, proj,
     if rope_tabs is not None:
         q = apply_rope_tables(q, *rope_tabs)
         k = apply_rope_tables(k, *rope_tabs)
-    att = _attend(cfg, q, k, v).reshape(b, s, q_dim)
-    x = x + proj(att)
-    return x + mlp(ln2(x))
+    att = store(_attend(cfg, q, k, v).reshape(b, s, q_dim))
+    x = x + store(proj(att))
+    return x + store(mlp(ln2(x)))
 
 
 class _LayerNorm(nn.LayerNorm):
@@ -193,7 +199,9 @@ class Block(nn.Module):
         return block_math(
             self.cfg, x, rope_tabs, ln1=self.ln1, qkv=self.qkv, proj=self.proj,
             ln2=self.ln2,
-            mlp=lambda h: self.fc2(F.gelu(self.fc1(h), approximate="tanh")),
+            mlp=lambda h: self.fc2(act_store(
+                F.gelu(self.fc1(h), approximate="tanh"),
+                self.cfg.act_store_dtype, self.cfg.dtype)),
         )
 
 

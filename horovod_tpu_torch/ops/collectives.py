@@ -22,7 +22,17 @@ in the reference.  The ops run eagerly, so allgather takes a ragged dim 0
 (the sizes are exchanged, the rows padded, gathered and sliced) and
 reducescatter a dim 0 the world does not divide (the first
 ``dim0 % world`` ranks get one row more), as the reference's eager path
-does.  Adasum is ROADMAP A5.
+does.
+
+``op=Adasum`` reduces each tensor on its own through ``ops/adasum.py``
+(never a fused buffer: its projection coefficients are per tensor).  An
+:class:`~horovod_tpu_torch.ops.sparse.IndexedSlices` takes the sparse path
+(``ops/sparse.py``).  ``allreduce_`` and ``broadcast_`` write the result
+into their argument, as Horovod's torch API does.
+
+The flat pair and the row helpers take a ``group`` (a subgroup of the
+world: the two-level schedules of ``parallel/hierarchical.py``); inside a
+group, ranks are the group's.
 """
 
 from __future__ import annotations
@@ -44,8 +54,10 @@ __all__ = [
     "Min",
     "Max",
     "allreduce",
+    "allreduce_",
     "grouped_allreduce",
     "broadcast",
+    "broadcast_",
     "allgather",
     "alltoall",
     "reducescatter",
@@ -71,30 +83,39 @@ Min = ReduceOp.MIN
 Max = ReduceOp.MAX
 
 
-def _sum_across(x: torch.Tensor, average: bool,
-                fresh: bool = False) -> torch.Tensor:
-    """The sum (or mean) over the world; reduces ``x`` itself when it is a
-    ``fresh`` contiguous buffer no one else holds, else a copy."""
+def _group_size(group) -> int:
+    return _size() if group is None else dist.get_world_size(group)
+
+
+def _group_rank(group) -> int:
+    return _rank() if group is None else dist.get_rank(group)
+
+
+def _sum_across(x: torch.Tensor, average: bool, fresh: bool = False,
+                group=None) -> torch.Tensor:
+    """The sum (or mean) over the world, or over ``group``; reduces ``x``
+    itself when it is a ``fresh`` contiguous buffer no one else holds, else
+    a copy."""
     y = x if fresh else x.detach().clone(
         memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=dist.ReduceOp.SUM)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
     if average:
-        y.div_(_size())
+        y.div_(_group_size(group))
     return y
 
 
 class _AllreduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, average, fresh):
-        ctx.average = average
+    def forward(ctx, x, average, fresh, group=None):
+        ctx.average, ctx.group = average, group
         if fresh:
             ctx.mark_dirty(x)
-        return _sum_across(x, average, fresh)
+        return _sum_across(x, average, fresh, group)
 
     @staticmethod
     def backward(ctx, g):
         # reference rule: backward of allreduce is allreduce with the same op
-        return _sum_across(g, ctx.average), None, None
+        return _sum_across(g, ctx.average, group=ctx.group), None, None, None
 
 
 class _AllreduceExtreme(torch.autograd.Function):
@@ -135,31 +156,47 @@ class _Broadcast(torch.autograd.Function):
 
 
 def allreduce(
-    tensor: torch.Tensor,
+    tensor,
     op: ReduceOp = Average,
     *,
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
     name: Optional[str] = None,
-) -> torch.Tensor:
+):
     """Allreduce across the world (reference: hvd.allreduce).  Returns a
-    new tensor; differentiable."""
+    new tensor; differentiable.  An ``IndexedSlices`` is allgathered
+    (:func:`~horovod_tpu_torch.ops.sparse.allreduce_sparse`)."""
+    from .sparse import IndexedSlices, allreduce_sparse  # noqa: PLC0415
+
+    if isinstance(tensor, IndexedSlices):
+        return allreduce_sparse(tensor, op, prescale_factor=prescale_factor,
+                                postscale_factor=postscale_factor)
     del name  # the world reduces in program order; no negotiation by name
     return _allreduce(tensor, op, prescale_factor, postscale_factor,
                       fresh=False)
 
 
+def allreduce_(tensor: torch.Tensor, op: ReduceOp = Average,
+               **kwargs) -> torch.Tensor:
+    """:func:`allreduce` written into ``tensor`` itself, which it returns
+    (Horovod's torch ``allreduce_``); not differentiable."""
+    with torch.no_grad():
+        tensor.copy_(allreduce(tensor, op, **kwargs))
+    return tensor
+
+
 def _allreduce(tensor, op, prescale_factor, postscale_factor, fresh):
     """:func:`allreduce`; ``fresh`` says ``tensor`` is a contiguous buffer
     the caller built for this reduce, which may be reduced in place."""
-    if op not in (Average, Sum, Min, Max):
-        raise NotImplementedError(
-            f"allreduce op {op!r} is not ported yet (ROADMAP A5); "
-            "Average, Sum, Min and Max are"
-        )
+    if op not in (Average, Sum, Min, Max, Adasum):
+        raise ValueError(f"unsupported reduce op {op!r}")
     if prescale_factor != 1.0:
         tensor, fresh = tensor * prescale_factor, True
-    if op in (Min, Max):
+    if op == Adasum:
+        from .adasum import adasum_allreduce  # noqa: PLC0415
+
+        y = adasum_allreduce(tensor)
+    elif op in (Min, Max):
         y = _AllreduceExtreme.apply(tensor, op)
     else:
         y = _AllreduceSum.apply(tensor, op == Average, fresh)
@@ -180,7 +217,8 @@ def grouped_allreduce(
     of their dtype, into bins of at most ``fusion_threshold_bytes``
     (``HVDTPU_FUSION_THRESHOLD``, default 64 MB); a tensor larger than the
     threshold gets a bin of its own.  One allreduce per bin, in the order
-    of the list.  Differentiable.
+    of the list.  Adasum fuses nothing: each tensor is reduced on its own,
+    with its own projection coefficients.  Differentiable.
     """
     tensors = list(tensors)
     if not tensors:
@@ -206,6 +244,8 @@ def grouped_allreduce(
         for i, part in zip(idxs, parts):
             out[i] = part.view(tensors[i].shape)
 
+    if op == Adasum:
+        return [_allreduce(t, op, *scales, fresh=False) for t in tensors]
     for dtype, idxs in by_dtype.items():
         itemsize = torch.empty((), dtype=dtype).element_size()
         bin_idxs: list = []
@@ -228,6 +268,15 @@ def broadcast(tensor: torch.Tensor, root_rank: int, *,
     a new tensor; differentiable."""
     del name
     return _Broadcast.apply(tensor, root_rank)
+
+
+def broadcast_(tensor: torch.Tensor, root_rank: int, *,
+               name: Optional[str] = None) -> torch.Tensor:
+    """:func:`broadcast` written into ``tensor`` itself, which it returns
+    (Horovod's torch ``broadcast_``); not differentiable."""
+    with torch.no_grad():
+        tensor.copy_(broadcast(tensor, root_rank, name=name))
+    return tensor
 
 
 # ---------------------------------------------------------------------------
@@ -258,20 +307,20 @@ def _padded(x: torch.Tensor, rows: int) -> torch.Tensor:
     return out
 
 
-def _gather_rows(x: torch.Tensor, sizes) -> torch.Tensor:
-    """Every rank's rows (``sizes[r]`` of them from rank r), concatenated in
-    rank order."""
+def _gather_rows(x: torch.Tensor, sizes, group=None) -> torch.Tensor:
+    """Every rank's rows (``sizes[r]`` of them from rank r of ``group``, the
+    world by default), concatenated in rank order."""
     m = max(sizes)
     buf = x.new_empty((len(sizes) * m,) + tuple(x.shape[1:]))
-    _all_gather_single(buf, _padded(x, m))
+    _all_gather_single(buf, _padded(x, m), group=group)
     if all(n == m for n in sizes):
         return buf
     return torch.cat([buf[r * m:r * m + n] for r, n in enumerate(sizes)])
 
 
-def _scatter_rows(x: torch.Tensor, sizes) -> torch.Tensor:
-    """The sum over the world of ``x``'s rows, split ``sizes`` by rank;
-    this rank's part."""
+def _scatter_rows(x: torch.Tensor, sizes, group=None) -> torch.Tensor:
+    """The sum over ``group`` (the world by default) of ``x``'s rows, split
+    ``sizes`` by rank of the group; this rank's part."""
     m = max(sizes)
     if all(n == m for n in sizes):
         buf = x.contiguous()
@@ -282,32 +331,32 @@ def _scatter_rows(x: torch.Tensor, sizes) -> torch.Tensor:
             buf[r * m:r * m + n] = x[off:off + n]
             off += n
     out = x.new_empty((m,) + tuple(x.shape[1:]))
-    _reduce_scatter_single(out, buf)
-    return out[:sizes[_rank()]]
+    _reduce_scatter_single(out, buf, group=group)
+    return out[:sizes[_group_rank(group)]]
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, sizes):
-        ctx.sizes = sizes
-        return _gather_rows(x.detach(), sizes)
+    def forward(ctx, x, sizes, group=None):
+        ctx.sizes, ctx.group = sizes, group
+        return _gather_rows(x.detach(), sizes, group)
 
     @staticmethod
     def backward(ctx, g):
         # reference rule: reduce the gathered cotangent, keep own rows
-        return _scatter_rows(g, ctx.sizes), None
+        return _scatter_rows(g, ctx.sizes, ctx.group), None, None
 
 
 class _ScatterRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, sizes):
-        ctx.sizes = sizes
-        return _scatter_rows(x.detach(), sizes)
+    def forward(ctx, x, sizes, group=None):
+        ctx.sizes, ctx.group = sizes, group
+        return _scatter_rows(x.detach(), sizes, group)
 
     @staticmethod
     def backward(ctx, g):
         # every rank's rows weigh 1 in every sum: gather the cotangents
-        return _gather_rows(g, ctx.sizes), None
+        return _gather_rows(g, ctx.sizes, ctx.group), None, None
 
 
 def _check_sum_or_average(op: ReduceOp, what: str) -> None:
@@ -315,9 +364,10 @@ def _check_sum_or_average(op: ReduceOp, what: str) -> None:
         raise ValueError(f"{what} supports Sum/Average, got {op!r}")
 
 
-def _average_after(y: torch.Tensor, op: ReduceOp) -> torch.Tensor:
+def _average_after(y: torch.Tensor, op: ReduceOp,
+                   group=None) -> torch.Tensor:
     """Average divides after the collective, as the reference does."""
-    return y / _size() if op == Average else y
+    return y / _group_size(group) if op == Average else y
 
 
 def allgather(tensor: torch.Tensor, *,
@@ -383,20 +433,30 @@ def _flat_rows(flat: torch.Tensor, world: int, what: str) -> list:
     return [flat.shape[0] // world] * world
 
 
-def reduce_scatter_flat(flat: torch.Tensor, op: ReduceOp = Sum) -> torch.Tensor:
-    """Reduce a 1-D buffer across the world and keep this rank's tiled
-    chunk (the length must divide the world size).  Its backward is
-    :func:`all_gather_flat` of the cotangent."""
+def reduce_scatter_flat(flat: torch.Tensor, op: ReduceOp = Sum, *,
+                        group=None) -> torch.Tensor:
+    """Reduce a 1-D buffer across the world (or ``group``) and keep this
+    rank's tiled chunk (the length must divide the group's size).  Its
+    backward is :func:`all_gather_flat` of the cotangent."""
     _check_sum_or_average(op, "reduce_scatter_flat")
-    sizes = _flat_rows(flat, _size(), "reduce_scatter_flat")
-    return _average_after(_ScatterRows.apply(flat, sizes), op)
+    sizes = _flat_rows(flat, _group_size(group), "reduce_scatter_flat")
+    return _average_after(_ScatterRows.apply(flat, sizes, group), op, group)
 
 
-def all_gather_flat(shard: torch.Tensor) -> torch.Tensor:
-    """Concatenate every rank's 1-D shard (the inverse of
-    :func:`reduce_scatter_flat`'s slicing).  Its backward is the
-    reduce-scatter (sum) of the cotangent."""
+def all_gather_flat(shard: torch.Tensor, *, group=None) -> torch.Tensor:
+    """Concatenate every rank's 1-D shard, in rank order of the world (or
+    ``group``): the inverse of :func:`reduce_scatter_flat`'s slicing.  Its
+    backward is the reduce-scatter (sum) of the cotangent."""
     if shard.dim() != 1:
         raise ValueError(
             f"all_gather_flat takes a 1-D shard, got {tuple(shard.shape)}")
-    return _GatherRows.apply(shard, [shard.shape[0]] * _size())
+    return _GatherRows.apply(shard, [shard.shape[0]] * _group_size(group),
+                             group)
+
+
+def allreduce_group(tensor: torch.Tensor, op: ReduceOp = Sum, *,
+                    group=None) -> torch.Tensor:
+    """Sum (or mean) over ``group`` (the world by default); its backward is
+    the same reduce of the cotangent."""
+    _check_sum_or_average(op, "allreduce_group")
+    return _AllreduceSum.apply(tensor, op == Average, False, group)

@@ -7,8 +7,10 @@ horovod/torch/__init__.py).
 the optimizer's parameters, through one :func:`grouped_allreduce` that
 fuses them per dtype — and then steps the wrapped optimizer.  Every rank
 steps with the same averaged gradients, so replicas stay identical.  The
-hierarchical, Adasum and sparse reduction paths of the reference are
-ROADMAP A5.
+reference transform's other paths (``DistributedGradientTransform``,
+horovod_tpu/optim/__init__.py:59-220) are here too: ``op=Adasum`` (each
+gradient on its own), sparse gradients (``sparse_as_dense``) and the
+two-level schedule (``hierarchical_axes``, ``dcn_compression``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..basics import global_topology
 from ..ops.collectives import Adasum, Average, ReduceOp, Sum, \
     grouped_allreduce
 from ..ops.compression import Compression
+from ..ops.sparse import allreduce_sparse, from_coo, to_coo, to_dense
 
 __all__ = [
     "DistributedOptimizer",
@@ -36,11 +39,24 @@ class DistributedOptimizer:
 
     ``compression`` casts each gradient to its wire dtype around the
     reduce.  ``gradient_predivide_factor`` f splits averaging into a
-    pre-scale 1/f and a post-scale f/N.  ``backward_passes_per_step`` k
-    accumulates k micro-batches before one reduce and one update, like
-    the reference's ``optax.MultiSteps``: ``step()`` counts calls and acts
-    on every k-th, using the mean of the k accumulated gradients, and
-    ``zero_grad()`` keeps the gradients while an accumulation is open.
+    pre-scale 1/f and a post-scale f/N (Average only).
+    ``backward_passes_per_step`` k accumulates k micro-batches before one
+    reduce and one update, like the reference's ``optax.MultiSteps``:
+    ``step()`` counts calls and acts on every k-th, using the mean of the k
+    accumulated gradients, and ``zero_grad()`` keeps the gradients while an
+    accumulation is open.
+
+    ``op=Adasum`` reduces each gradient on its own (after compression),
+    never a fused buffer.  A sparse gradient (the COO ``.grad`` of
+    ``nn.Embedding(sparse=True)``) is made dense before the reduce when
+    ``sparse_as_dense`` (the default); otherwise its rows are allgathered
+    and it stays a sparse, uncoalesced ``.grad`` for the optimizer's
+    scatter-add (``torch.optim.SGD`` takes one, ``AdamW`` does not), which
+    Adasum refuses.  ``hierarchical_axes=(LOCAL_AXIS, CROSS_AXIS)`` reduces
+    each gradient by the two-level schedule (Adasum across the cross group
+    with ``op=Adasum``), ``dcn_compression`` casting its cross leg; a
+    ``gradient_predivide_factor`` other than 1 then raises at the first
+    step, where the schedule is used, as the reference's transform does.
     """
 
     def __init__(
@@ -51,20 +67,29 @@ class DistributedOptimizer:
         compression=Compression.none,
         backward_passes_per_step: int = 1,
         gradient_predivide_factor: float = 1.0,
+        sparse_as_dense: bool = True,
+        hierarchical_axes=None,
+        dcn_compression=None,
     ):
-        if op == Adasum:
-            raise NotImplementedError(
-                "Adasum is not ported yet (ROADMAP A5); Average and Sum are")
-        if op not in (Average, Sum):
+        if op not in (Average, Sum, Adasum):
             raise ValueError(
-                f"DistributedOptimizer supports Average/Sum, got {op!r}")
+                f"DistributedOptimizer supports Average/Sum/Adasum, got "
+                f"{op!r}")
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
+        if hierarchical_axes is not None and len(hierarchical_axes) != 2:
+            raise ValueError(
+                "hierarchical_axes must be (local_axis, cross_axis), got "
+                f"{hierarchical_axes!r}")
         self.optimizer = optimizer
         self.op = op
         self.compression = compression
         self.backward_passes_per_step = backward_passes_per_step
         self.gradient_predivide_factor = gradient_predivide_factor
+        self.sparse_as_dense = sparse_as_dense
+        self.hierarchical_axes = (tuple(hierarchical_axes)
+                                  if hierarchical_axes else None)
+        self.dcn_compression = dcn_compression
         self._passes = 0
 
     @property
@@ -92,18 +117,69 @@ class DistributedOptimizer:
                   for p in g["params"] if p.grad is not None]
         if not params:
             return
+        k = self.backward_passes_per_step
+        dense, grads = [], []
+        for p in params:
+            if not p.grad.is_sparse:
+                dense.append(p)
+                grads.append(p.grad)
+            elif self.sparse_as_dense:
+                dense.append(p)
+                grads.append(to_dense(from_coo(p.grad)))
+            elif self.op == Adasum:
+                # reference parity: horovod/torch/mpi_ops.py refuses it
+                raise ValueError(
+                    "Adasum does not support sparse (IndexedSlices) "
+                    "gradients; use sparse_as_dense=True or op=Average/Sum.")
+            else:
+                # the mean over the micro-batches, then the rows of all ranks
+                p.grad = to_coo(allreduce_sparse(
+                    from_coo(p.grad), self.op, prescale_factor=1.0 / k))
+        if not dense:
+            return
+        wire, ctxs = zip(*(self.compression.compress(g) for g in grads))
+        reduced = [self.compression.decompress(r, c)
+                   for r, c in zip(self._reduce(wire, k), ctxs)]
+        for p, g, r in zip(dense, grads, reduced):
+            if g is p.grad:
+                p.grad.copy_(r)
+            else:
+                p.grad = r
+
+    def _reduce(self, wire, k: int) -> list:
+        """The reduction of the wire tensors, the mean over ``k``
+        accumulated micro-batches (every reduction here is homogeneous of
+        degree 1, so the scale goes first)."""
+        if self.hierarchical_axes is not None:
+            if self.gradient_predivide_factor != 1.0:
+                raise ValueError(
+                    "gradient_predivide_factor is a flat-psum knob; the "
+                    "hierarchical schedule applies its averaging once after "
+                    "the cross-fabric phase")
+            from ..parallel.hierarchical import (  # noqa: PLC0415
+                hierarchical_adasum,
+                hierarchical_allreduce,
+            )
+
+            local_ax, cross_ax = self.hierarchical_axes
+            if k != 1:
+                wire = [w / k for w in wire]
+            if self.op == Adasum:
+                return [hierarchical_adasum(w, local_axis=local_ax,
+                                            cross_axis=cross_ax)
+                        for w in wire]
+            return [hierarchical_allreduce(
+                w, self.op, local_axis=local_ax, cross_axis=cross_ax,
+                compression=self.dcn_compression) for w in wire]
         op, pre, post = self.op, 1.0, 1.0
         if self.op == Average and self.gradient_predivide_factor != 1.0:
             op = Sum
             pre = 1.0 / self.gradient_predivide_factor
             post = self.gradient_predivide_factor / global_topology().process_count
         # mean over the accumulated micro-batches (allreduce is linear)
-        pre /= self.backward_passes_per_step
-        wire, ctxs = zip(*(self.compression.compress(p.grad) for p in params))
-        reduced = grouped_allreduce(wire, op, prescale_factor=pre,
-                                    postscale_factor=post)
-        for p, r, c in zip(params, reduced, ctxs):
-            p.grad.copy_(self.compression.decompress(r, c))
+        pre /= k
+        return grouped_allreduce(wire, op, prescale_factor=pre,
+                                 postscale_factor=post)
 
     def step(self, closure=None):
         self._passes += 1

@@ -36,11 +36,20 @@ order it is given.  The plan hands it ``model.parameters()``, registration
 order, so the first bucket holds the last layer, whose gradients the
 backward produces first.
 
-Not ported (each raises ``NotImplementedError``): ``hierarchical_axes`` and
-``dcn_compression`` (ROADMAP A10: they need A1's local/cross subgroups),
-``health=True`` and the metrics gauges (A13), and ``inspect_schedule`` /
-``donated_params`` / ``audit_donation``, which read XLA's HLO and have no
-PyTorch counterpart (the on-card proof of the overlap is the issue order,
+Two-level schedule.  ``hierarchical_axes=(LOCAL_AXIS, CROSS_AXIS)`` reduces
+each bucket by ``parallel/hierarchical.py`` (``bucket``:
+``hierarchical_allreduce``; ``bucket+zero1``: ``hierarchical_reduce_scatter``
+and ``hierarchical_all_gather``, rank (c, l) owning shard
+``l x cross_size + c`` of every bucket, as in the reference), with
+``dcn_compression`` on the cross leg.  Its collectives chain on one
+another; on CUDA the hook issues them on the plan's side stream, which
+waits for the bucket's gradients and which ``step()`` waits for, so the
+backward is not held up behind them.
+
+Not ported (each raises ``NotImplementedError``): ``health=True`` and the
+metrics gauges (A13), and ``inspect_schedule`` / ``donated_params`` /
+``audit_donation``, which read XLA's HLO and have no PyTorch counterpart
+(the on-card proof of the overlap is the issue order,
 ``OverlapPlan.on_issue``).
 """
 
@@ -55,6 +64,13 @@ import torch.distributed as dist
 from torch import nn
 
 from ..basics import global_topology
+from ..parallel.hierarchical import (
+    _resolve_compressor,
+    hierarchical_all_gather,
+    hierarchical_allreduce,
+    hierarchical_reduce_scatter,
+    hierarchical_shard_index,
+)
 from ..ops.collectives import (
     Average,
     ReduceOp,
@@ -240,6 +256,8 @@ class OverlapPlan:
     copied into its bucket by the hook.  One backward per ``step()``.
     ``on_issue``, when set, is called on the host with each bucket's index
     right after its collective is issued (measurement only).
+    ``hierarchical_axes`` / ``dcn_compression``: the two-level schedule
+    (module docstring).
     """
 
     def __init__(
@@ -258,18 +276,26 @@ class OverlapPlan:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if op not in (Average, Sum):
             raise ValueError(f"OverlapPlan supports Average/Sum, got {op!r}")
-        if hierarchical_axes is not None or dcn_compression is not None:
-            raise NotImplementedError(
-                "hierarchical_axes / dcn_compression are not ported yet "
-                "(ROADMAP A10; they need A1's local/cross subgroups)")
+        if hierarchical_axes is not None and len(hierarchical_axes) != 2:
+            raise ValueError(
+                "hierarchical_axes must be (local_axis, cross_axis), got "
+                f"{hierarchical_axes!r}")
         if health:
             raise NotImplementedError(
                 "health=True is not ported yet (ROADMAP A13)")
         self.mode = mode
         self.op = op
+        self.hierarchical_axes = (tuple(hierarchical_axes)
+                                  if hierarchical_axes else None)
+        self.dcn_compression = dcn_compression
+        _resolve_compressor(dcn_compression)  # an unknown name fails here
         self.params: List[nn.Parameter] = list(params)
         topo = global_topology()
         self.world, self.rank = topo.process_count, topo.process_rank
+        # the shard of every bucket this rank owns under ZeRO-1
+        self.shard_index = self.rank if self.hierarchical_axes is None else \
+            hierarchical_shard_index(topo.local_rank, topo.cross_rank,
+                                     topo.cross_size)
         zero1 = mode == "bucket+zero1"
         self.layout = build_layout(
             self.params, resolve_grad_bucket_bytes(bucket_mb),
@@ -280,7 +306,9 @@ class OverlapPlan:
             from . import DistributedOptimizer  # noqa: PLC0415
 
             self.optimizer = DistributedOptimizer(
-                make_optimizer(self.params), op=op)
+                make_optimizer(self.params), op=op,
+                hierarchical_axes=self.hierarchical_axes,
+                dcn_compression=dcn_compression)
             return
         devices = {p.device for p in self.params}
         if len(devices) != 1:
@@ -299,8 +327,8 @@ class OverlapPlan:
                         self.params[i].data = view
                     chunk = b.padded_size // self.world
                     shard = nn.Parameter(
-                        flat[self.rank * chunk:(self.rank + 1) * chunk]
-                        .clone())
+                        flat[self.shard_index * chunk:
+                             (self.shard_index + 1) * chunk].clone())
                     shard.grad = torch.zeros_like(shard)
                     self.shards.append(shard)
         for b, grad in zip(buckets, self._grads):
@@ -311,6 +339,9 @@ class OverlapPlan:
                                        self._hook(b.index, view)))
         self._pending = [len(b.leaf_indices) for b in buckets]
         self._work: list = [None] * len(buckets)
+        cuda = next(iter(devices)).type == "cuda"
+        self._side = (torch.cuda.Stream() if cuda and self.hierarchical_axes
+                      else None)
         self.optimizer = make_optimizer(self.shards if zero1 else self.params)
 
     # ------------------------------------------------------------ optimizer
@@ -373,7 +404,11 @@ class OverlapPlan:
 
     def _issue(self, index: int) -> None:
         grad = self._grads[index]
-        if self.mode == "bucket+zero1":
+        zero1 = self.mode == "bucket+zero1"
+        if self.hierarchical_axes is not None:
+            out = self.shards[index].grad if zero1 else grad
+            work = self._issue_two_level(grad, out)
+        elif zero1:
             work = _reduce_scatter_single(self.shards[index].grad, grad,
                                           async_op=True)
         else:
@@ -381,6 +416,42 @@ class OverlapPlan:
         self._work[index] = work
         if self.on_issue is not None:
             self.on_issue(index)
+
+    @torch.no_grad()
+    def _reduce_two_level(self, grad: torch.Tensor,
+                          out: torch.Tensor) -> None:
+        """The sum of a bucket's gradients over both groups into ``out``:
+        the whole bucket (``bucket``) or this rank's shard of it (ZeRO-1).
+        ``step()`` divides for Average."""
+        local_ax, cross_ax = self.hierarchical_axes
+        fn = (hierarchical_reduce_scatter if self.mode == "bucket+zero1"
+              else hierarchical_allreduce)
+        out.copy_(fn(grad, Sum, local_axis=local_ax, cross_axis=cross_ax,
+                     compression=self.dcn_compression))
+
+    def _issue_two_level(self, grad: torch.Tensor, out: torch.Tensor):
+        """:meth:`_reduce_two_level`, whose collectives chain on one
+        another: on CUDA on the plan's side stream, after the work queued so
+        far on the current one, with a handle whose ``wait()`` makes the
+        current stream wait for it; on the CPU it runs to its end here."""
+        if self._side is None:
+            self._reduce_two_level(grad, out)
+            return _Done()
+        self._side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self._side):
+            self._reduce_two_level(grad, out)
+            done = torch.cuda.Event()
+            done.record()
+        return _StreamDone(done)
+
+    def _gather_shard(self, shard: torch.Tensor, out: torch.Tensor) -> None:
+        """Every rank's shard of a bucket, in shard order, into ``out``."""
+        if self.hierarchical_axes is None:
+            _all_gather_single(out, shard.contiguous())
+            return
+        local_ax, cross_ax = self.hierarchical_axes
+        out.copy_(hierarchical_all_gather(shard.detach(), local_axis=local_ax,
+                                          cross_axis=cross_ax))
 
     # ---------------------------------------------------------------- step
 
@@ -403,7 +474,10 @@ class OverlapPlan:
         self._work = [None] * len(self._work)
         self._pending = [len(b.leaf_indices) for b in self.layout.buckets]
         loss = self.optimizer.step(closure)
-        if self.mode == "bucket+zero1":
+        if self.mode == "bucket+zero1" and self.hierarchical_axes is not None:
+            for flat, shard in zip(self._flat, self.shards):
+                self._gather_shard(shard, flat)
+        elif self.mode == "bucket+zero1":
             works = [_all_gather_single(flat, shard.detach(), async_op=True)
                      for flat, shard in zip(self._flat, self.shards)]
             for work in works:
@@ -471,16 +545,35 @@ class OverlapPlan:
         leaves: List[torch.Tensor] = [None] * self.layout.num_leaves
         for b, shard in zip(self.layout.buckets, shards):
             full = shard.new_empty(b.padded_size)
-            _all_gather_single(full, shard.contiguous())
+            self._gather_shard(shard, full)
             for i, piece in zip(b.leaf_indices, _bucket_split(full, b)):
                 leaves[i] = piece
         out = []
         for b in new_plan.layout.buckets:
             flat = _bucket_concat([leaves[i] for i in b.leaf_indices], b)
             chunk = b.padded_size // new_plan.world
-            out.append(flat[new_plan.rank * chunk:
-                            (new_plan.rank + 1) * chunk].clone())
+            first = new_plan.shard_index * chunk
+            out.append(flat[first:first + chunk].clone())
         return out
+
+
+class _Done:
+    """The handle of collectives that ran to their end when issued."""
+
+    @staticmethod
+    def wait() -> None:
+        pass
+
+
+class _StreamDone:
+    """The handle of collectives queued on a side stream: ``wait()`` makes
+    the current stream wait for them."""
+
+    def __init__(self, event):
+        self.event = event
+
+    def wait(self) -> None:
+        torch.cuda.current_stream().wait_event(self.event)
 
 
 def _same_value(a, b) -> bool:

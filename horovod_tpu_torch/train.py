@@ -10,6 +10,9 @@ replicas stay identical.  ``overlap_mode`` picks how: ``"off"`` is
 ``optim/overlap.py`` (per-bucket collectives issued during the backward;
 ZeRO-1 also shards the optimizer state).
 
+``dtype`` is ``"bf16"``, ``"fp32"`` or ``"fp8"``: bf16 compute with the
+activations stored through e4m3 (the GPT, and ResNet of the conv zoo).
+
 A step is ``step(*state) -> carry + (loss,)``: the first
 ``static["carry_len"]`` entries of ``state`` come back updated, the rest
 (the batch) stay.
@@ -32,7 +35,17 @@ from .ops.collectives import allreduce
 __all__ = ["build_gpt_step", "build_step", "conv_model", "lm_loss",
            "make_adamw", "make_sgd", "CONV_MODELS"]
 
-_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# the compute dtype of each --dtype, and the activation storage dtype of
+# those that store through another
+_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32,
+           "fp8": torch.bfloat16}
+_ACT_STORE = {"fp8": torch.float8_e4m3fn}
+
+
+def _check_dtype(dtype: str) -> None:
+    if dtype not in _DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got "
+                         f"{dtype!r}")
 
 
 def lm_loss(model, toks: torch.Tensor) -> torch.Tensor:
@@ -70,10 +83,7 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
     with buckets of ``grad_bucket_mb`` (None: ``HVDTPU_GRAD_BUCKET_MB`` or
     16).
     """
-    if dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"dtype {dtype!r} is not ported yet (ROADMAP A4); "
-            f"use one of {sorted(_DTYPES)}")
+    _check_dtype(dtype)
     if overlap_mode not in MODES:
         raise ValueError(
             f"overlap_mode must be one of {MODES}, got {overlap_mode!r}")
@@ -85,6 +95,7 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
                 flash_block_q=flash_block_q, flash_block_k=flash_block_k,
                 num_kv_heads=kv_heads or None, pos_embedding=pos_embedding,
                 moe_experts=moe_experts,
+                act_store_dtype=_ACT_STORE.get(dtype),
                 attention_window=attention_window or None)
     vocab = model.cfg.vocab_size
 
@@ -125,17 +136,20 @@ def conv_model(name: str, dtype: str = "bf16", image_size: int = 224,
     """The conv-zoo model ``name`` (a key of :data:`CONV_MODELS`), 1000
     classes, in the compute dtype ``dtype``, seeded weights on the CPU.
     ``image_size`` sizes VGG's classifier; ``s2d_stem`` is ResNet's (the
-    others ignore it, as the reference does)."""
+    others ignore it, as the reference does).  ``"fp8"`` is ResNet's only
+    (its stored ReLU outputs), as in the reference."""
     if name not in CONV_MODELS:
         raise ValueError(f"model must be one of {sorted(CONV_MODELS)}, got "
                          f"{name!r}")
-    if dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"dtype {dtype!r} is not ported yet (ROADMAP A4: fp8 activation "
-            f"storage); use one of {sorted(_DTYPES)}")
+    _check_dtype(dtype)
     kw = {"num_classes": 1000, "compute_dtype": _DTYPES[dtype]}
     if name.startswith("resnet"):
         kw["s2d_stem"] = s2d_stem
+        kw["act_store_dtype"] = _ACT_STORE.get(dtype)
+    elif dtype in _ACT_STORE:
+        raise ValueError(
+            f"--dtype {dtype} is resnet-only (e4m3 activation storage); "
+            f"{name!r} takes bf16 or fp32")
     if name.startswith("vgg"):
         kw["image_size"] = image_size
     return CONV_MODELS[name](**kw)

@@ -20,6 +20,13 @@ CROSS_SIZE = "HVDTPU_CROSS_SIZE"
 COORDINATOR = "HVDTPU_COORDINATOR"  # host:port of the rendezvous store
 START_TIMEOUT = "HVDTPU_START_TIMEOUT"
 
+# A forced slice partition (horovod_tpu/utils/env.py:26-31): NUM_SLICES
+# splits the world into that many contiguous equal blocks of processes;
+# SLICE_SIZE is the same knob as processes per slice.  NUM_SLICES wins when
+# both are set.
+NUM_SLICES = "HVDTPU_NUM_SLICES"
+SLICE_SIZE = "HVDTPU_SLICE_SIZE"
+
 # torchrun's per-rank environment
 TORCHRUN_RANK = "RANK"
 TORCHRUN_WORLD_SIZE = "WORLD_SIZE"

@@ -3,8 +3,11 @@
 :func:`run_world` spawns ``world`` fresh processes (``spawn``: no JAX and
 no state of the test process carried over), gives each the hvdrun
 rendezvous environment, calls ``horovod_tpu_torch.init(device="cpu")``,
-runs ``fn(*args)`` and returns the per-rank results in rank order.  The
-worker functions below import only torch and the port.
+runs ``fn(*args)`` and returns the per-rank results in rank order.
+``local_size`` lays the world out as ``world / local_size`` hosts of
+``local_size`` ranks, numbered cross-major (rank = cross_rank x local_size
++ local_rank), as the two-level schedules need.  The worker functions below
+import only torch and the port.
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(fn, rank, world, port, args, out):
+def _entry(fn, rank, world, port, args, out, local_size):
     os.environ.update({
         "HVDTPU_RANK": str(rank), "HVDTPU_SIZE": str(world),
-        "HVDTPU_LOCAL_RANK": str(rank), "HVDTPU_LOCAL_SIZE": str(world),
-        "HVDTPU_CROSS_RANK": "0", "HVDTPU_CROSS_SIZE": "1",
+        "HVDTPU_LOCAL_RANK": str(rank % local_size),
+        "HVDTPU_LOCAL_SIZE": str(local_size),
+        "HVDTPU_CROSS_RANK": str(rank // local_size),
+        "HVDTPU_CROSS_SIZE": str(world // local_size),
         "HVDTPU_COORDINATOR": f"127.0.0.1:{port}",
     })
     import torch
@@ -44,13 +49,20 @@ def _entry(fn, rank, world, port, args, out):
         hvd.shutdown()
 
 
-def run_world(fn, args=(), world: int = 2, timeout: float = 60.0) -> list:
-    """Run ``fn(*args)`` on every rank of a fresh gloo world; results in
-    rank order.  Raises with the failing rank's traceback, or on timeout."""
+def run_world(fn, args=(), world: int = 2, timeout: float = 60.0,
+              local_size=None) -> list:
+    """Run ``fn(*args)`` on every rank of a fresh gloo world (one host of
+    ``world`` ranks, or hosts of ``local_size``); results in rank order.
+    Raises with the failing rank's traceback, or on timeout."""
+    local_size = local_size or world
+    if world % local_size:
+        raise ValueError(f"local_size {local_size} does not divide the "
+                         f"world {world}")
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_entry, args=(fn, r, world, port, args, out),
+    procs = [ctx.Process(target=_entry,
+                         args=(fn, r, world, port, args, out, local_size),
                          daemon=True)
              for r in range(world)]
     for p in procs:
@@ -500,3 +512,266 @@ def conv_step_worker(steps, batch, size, modes):
                 and all(torch.equal(stats[n], t) for n, t in ref[1].items()))
         out[mode] = res
     return out
+
+
+def _nano_train(hvd, torch, state_np, tokens, steps, make_plan):
+    """``steps`` AdamW steps of gpt-nano (fp32) from ``state_np`` on this
+    rank's rows of ``tokens`` through ``make_plan(model)`` (used like an
+    optimizer); the world-mean losses and the final parameters."""
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.train import lm_loss
+
+    r, n = hvd.rank(), hvd.size()
+    model = gpt("nano", device="cpu", dtype=torch.float32,
+                flash_block_q=16, flash_block_k=16)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in state_np.items()})
+    plan = make_plan(model)
+    rows = tokens.shape[0] // n
+    mine = torch.from_numpy(tokens[r * rows:(r + 1) * rows])
+    losses = []
+    for _ in range(steps):
+        plan.zero_grad()
+        loss = lm_loss(model, mine)
+        loss.backward()
+        plan.step()
+        losses.append(hvd.allreduce(loss.detach()).item())
+    return {"losses": losses,
+            "params": {k: v.detach().numpy().copy()
+                       for k, v in model.state_dict().items()}}
+
+
+def adasum_worker(xs, ws, leaves, state_np, tokens, steps):
+    """Adasum on a 4-rank world laid out as 2 hosts of 2: ``allreduce(x,
+    Adasum)`` over the world and over this rank's local pair (values and
+    the gradient of ``sum(y * w)``), a bf16 input, the refusal of a 3-rank
+    group, two leaves reduced by ``grouped_allreduce`` against each alone
+    and against their concatenation, and ``DistributedOptimizer(op=Adasum)``
+    steps of gpt-nano."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.basics import local_group
+    from horovod_tpu_torch.ops.adasum import adasum_allreduce
+    from horovod_tpu_torch.train import make_adamw
+
+    r = hvd.rank()
+    res = {}
+    for case, reduce in (("world", lambda x: hvd.allreduce(x, hvd.Adasum)),
+                         ("pair", lambda x: adasum_allreduce(
+                             x, group=local_group()))):
+        x = torch.from_numpy(xs[r]).requires_grad_()
+        y = reduce(x)
+        (y * torch.from_numpy(ws[r])).sum().backward()
+        res[case] = (y.detach().numpy(), x.grad.numpy())
+    y = hvd.allreduce(torch.from_numpy(xs[r]).to(torch.bfloat16), hvd.Adasum)
+    res["bf16"] = (str(y.dtype), y.float().numpy())
+    three = dist.new_group([0, 1, 2])  # every rank creates every group
+    if r < 3:
+        try:
+            adasum_allreduce(torch.ones(2), group=three)
+            res["three"] = None
+        except ValueError as e:
+            res["three"] = str(e)
+    a, b = (torch.from_numpy(leaf[r]) for leaf in leaves)
+    res["grouped"] = [t.numpy() for t in hvd.grouped_allreduce(
+        [a, b], hvd.Adasum)]
+    res["alone"] = [hvd.allreduce(t, hvd.Adasum).numpy() for t in (a, b)]
+    res["fused"] = hvd.allreduce(torch.cat([a, b]), hvd.Adasum).numpy()
+    res["optimizer"] = _nano_train(
+        hvd, torch, state_np, tokens, steps,
+        lambda m: hvd.DistributedOptimizer(make_adamw(m.parameters()),
+                                           op=hvd.Adasum))
+    return res
+
+
+def sparse_worker(cases, rows, dim, state, emb_idx, emb_w, steps):
+    """The sparse path on a 2-rank world with ragged row counts:
+    ``allreduce`` of IndexedSlices (Average, Sum, inside a mixed list),
+    ``DistributedOptimizer`` with a sparse gradient densified or kept
+    sparse (and Adasum's refusal of the latter), the COO round trip, and
+    ``steps`` SGD steps of an ``nn.Embedding(sparse=True)`` under each
+    ``sparse_as_dense``."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.sparse import (IndexedSlices, from_coo,
+                                              to_coo, to_dense)
+
+    r = hvd.rank()
+    res = {}
+    values, indices = (torch.from_numpy(a) for a in cases[r])
+    slices = IndexedSlices(values, indices, (rows, dim))
+    for name, op in (("average", hvd.Average), ("sum", hvd.Sum)):
+        out = hvd.allreduce(slices, op)
+        res[name] = (out.values.numpy(), out.indices.numpy(),
+                     out.dense_shape, to_dense(out).numpy())
+    out = hvd.allreduce_sparse(slices, hvd.Sum)
+    res["mixed_w"] = hvd.allreduce(torch.ones(dim), hvd.Sum).numpy()
+    res["mixed_dense"] = to_dense(out).numpy()
+
+    def grad_after(sparse_as_dense, op=hvd.Average):
+        p = torch.nn.Parameter(torch.zeros(rows, dim))
+        p.grad = to_coo(slices)
+        opt = hvd.DistributedOptimizer(torch.optim.SGD([p], lr=1.0), op=op,
+                                       sparse_as_dense=sparse_as_dense)
+        opt.synchronize()
+        return p.grad
+
+    res["as_dense"] = grad_after(True).numpy()
+    kept = grad_after(False)
+    res["kept"] = (kept.is_sparse, kept.is_coalesced(),
+                   tuple(kept._values().shape), kept.to_dense().numpy())
+    try:
+        grad_after(False, hvd.Adasum)
+        res["adasum_sparse"] = None
+    except ValueError as e:
+        res["adasum_sparse"] = str(e)
+    coo = to_coo(slices)
+    back = from_coo(coo)
+    res["coo"] = (coo.is_coalesced(), back.values.numpy(),
+                  back.indices.numpy(), back.dense_shape)
+
+    for sparse_as_dense in (True, False):
+        emb = torch.nn.Embedding(rows, dim, sparse=True)
+        with torch.no_grad():
+            emb.weight.copy_(torch.from_numpy(state))
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(emb.parameters(),
+                                                       lr=0.5),
+                                       sparse_as_dense=sparse_as_dense)
+        idx, w = torch.from_numpy(emb_idx[r]), torch.from_numpy(emb_w[r])
+        for _ in range(steps):
+            opt.zero_grad()
+            (emb(idx) * w).sum().backward()
+            opt.step()
+        res[f"embedding_{sparse_as_dense}"] = emb.weight.detach().numpy()
+    return res
+
+
+def hierarchical_worker(xs, wire_xs, flat, state_np, tokens, steps,
+                        bucket_mb):
+    """The two-level schedules on a 2 x 2 world (2 hosts of 2 ranks):
+    the four functions (values, the allreduce's gradient, the bf16 and
+    fp16 wires, the uneven pad), the shard a rank keeps, ZeRO-1's shard
+    index, and gpt-nano AdamW steps through ``OverlapPlan`` with
+    ``hierarchical_axes`` in ``bucket`` and ``bucket+zero1`` (and through
+    the flat plan, which they must match)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.optim.overlap import OverlapPlan
+    from horovod_tpu_torch.parallel import hierarchical as hier
+    from horovod_tpu_torch.train import make_adamw
+
+    r = hvd.rank()
+    res = {"layout": (hvd.local_rank(), hvd.cross_rank()),
+           "topology": (hvd.num_devices(), hvd.device_rank(),
+                        hvd.num_slices(), hvd.slice_id(), hvd.slice_size(),
+                        hvd.slice_of_rank(3))}
+    for name, x_np in xs.items():
+        for op_name, op in (("sum", hvd.Sum), ("average", hvd.Average)):
+            x = torch.from_numpy(x_np[r]).requires_grad_()
+            y = hier.hierarchical_allreduce(x, op)
+            y.sum().backward()
+            res[f"allreduce_{name}_{op_name}"] = (y.detach().numpy(),
+                                                  x.grad.numpy())
+        res[f"adasum_{name}"] = hier.hierarchical_adasum(
+            torch.from_numpy(x_np[r])).numpy()
+    for wire in ("bf16", "fp16"):
+        res[f"wire_{wire}"] = hier.hierarchical_allreduce(
+            torch.from_numpy(wire_xs[r]), hvd.Average,
+            compression=wire).numpy()
+    shard = hier.hierarchical_reduce_scatter(torch.from_numpy(flat[r]))
+    res["scatter"] = shard.numpy()
+    res["scatter_bf16"] = hier.hierarchical_reduce_scatter(
+        torch.from_numpy(flat[r]), hvd.Average, compression="bf16").numpy()
+    res["gather"] = hier.hierarchical_all_gather(shard).numpy()
+    for bad in ("ef_bf16", hvd.ErrorFeedbackCompressor()):
+        try:
+            hier.hierarchical_allreduce(torch.ones(2), compression=bad)
+            res.setdefault("refused", []).append(None)
+        except ValueError as e:
+            res.setdefault("refused", []).append(str(e))
+
+    axes = (hvd.LOCAL_AXIS, hvd.CROSS_AXIS)
+    for mode in ("bucket", "bucket+zero1"):
+        for hier_axes, tag in ((axes, "hier"), (None, "flat")):
+            plans = []
+
+            def make(model, mode=mode, hier_axes=hier_axes):
+                plans.append(OverlapPlan(model.parameters(), make_adamw,
+                                         mode=mode, bucket_mb=bucket_mb,
+                                         hierarchical_axes=hier_axes))
+                return plans[-1]
+
+            out = _nano_train(hvd, torch, state_np, tokens, steps, make)
+            if mode == "bucket+zero1":
+                plan = plans[-1]
+                out["shard_index"] = plan.shard_index
+                b = plan.layout.buckets[0]
+                chunk = b.padded_size // plan.world
+                out["shard_is_own"] = torch.equal(
+                    plan.shards[0].detach(),
+                    plan._flat[0][plan.shard_index * chunk:
+                                  (plan.shard_index + 1) * chunk])
+            res[f"{mode}_{tag}"] = out
+    res["bucket_bf16"] = _nano_train(
+        hvd, torch, state_np, tokens, steps,
+        lambda m: OverlapPlan(m.parameters(), make_adamw, mode="bucket",
+                              bucket_mb=bucket_mb, hierarchical_axes=axes,
+                              dcn_compression="bf16"))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD([torch.nn.Parameter(torch.ones(3))], lr=1.0),
+        hierarchical_axes=axes, gradient_predivide_factor=2.0)
+    opt.param_groups[0]["params"][0].grad = torch.ones(3)
+    try:
+        opt.step()
+        res["predivide"] = None
+    except ValueError as e:
+        res["predivide"] = str(e)
+    return res
+
+
+def fp8_contract_worker(steps, conv_batch):
+    """The losses of ``steps`` steps of the port's ``build_gpt_step("nano",
+    ...)`` (reference attention, batch 2, seq 64) and ``build_step(
+    "resnet18", ..., conv_batch, 32)`` in bf16 and fp8, the reference's
+    ``test_fp8.py`` runs; and VGG's refusal of fp8."""
+    from horovod_tpu_torch.train import build_gpt_step, build_step
+
+    def run(step, state, carry):
+        losses = []
+        for _ in range(steps):
+            *out, loss = step(*state)
+            state = tuple(out) + state[carry:]
+            losses.append(loss.item())
+        return losses
+
+    res = {}
+    for dtype in ("bf16", "fp8"):
+        step, state, static = build_gpt_step(
+            "nano", dtype, 2, 64, attention="reference", device="cpu")
+        res[f"gpt_{dtype}"] = run(step, state, static["carry_len"])
+        step, state, static = build_step("resnet18", dtype, conv_batch, 32,
+                                         device="cpu")
+        res[f"resnet_{dtype}"] = run(step, state, static["carry_len"])
+    try:
+        build_step("vgg16", "fp8", 2, 32, device="cpu")
+        res["vgg"] = None
+    except ValueError as e:
+        res["vgg"] = str(e)
+    return res
+
+
+def adasum_odd_world_worker():
+    """``allreduce(op=Adasum)`` on this world: the error it raises."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    try:
+        hvd.allreduce(torch.ones(3), hvd.Adasum)
+        return None
+    except ValueError as e:
+        return str(e)

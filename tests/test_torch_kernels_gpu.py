@@ -20,11 +20,12 @@ training path on the card, in a one-GPU NCCL world: the overlap plane's
 during the backward), and remat, whose recompute launches the forward
 kernel a second time per layer.
 
-The last ones hold the conv zoo's CUDA path (cuDNN, channels_last, the
-BatchNorm statistics) against its CPU path, which the CPU tests hold
-against JAX: one fp32 SGD step of ResNet-18 with TF32 off within
-``chip_smoke.CONV_TOL``, and a bf16 step whose profile has no cuDNN
-layout-conversion kernel in any overlap mode.
+Then the conv zoo's CUDA path (cuDNN, channels_last, the BatchNorm
+statistics) against its CPU path, which the CPU tests hold against JAX: one
+fp32 SGD step of ResNet-18 with TF32 off within ``chip_smoke.CONV_TOL``,
+and a bf16 step whose profile has no cuDNN layout-conversion kernel in any
+overlap mode.  Last, fp8 storage's ``act_store`` card against CPU and the
+sparse embedding path's SGD steps on the card.
 """
 
 from __future__ import annotations
@@ -318,3 +319,24 @@ def test_conv_step_stays_channels_last(world, mode):
     prof = chip_smoke.profile_step(state, step, step_ms=1.0)
     assert prof["layout_conversion_ms"] == 0, prof["top"]
     assert all(np.isfinite(float(x)) for x in losses)
+
+
+def test_act_store_on_the_card_equals_the_cpu(world):
+    """fp8 storage: the card's e4m3 round trip (values and the rounded
+    cotangent) equals the CPU's on ``act_store_grid`` in bf16, fp16 and
+    fp32, NaN where NaN; the CPU's is held against JAX by the CPU tests."""
+    res = chip_smoke.act_store_check()
+    assert all(r["card_equals_cpu"] and r["nans"] > 0 for r in res.values())
+
+
+def test_sparse_embedding_sgd_on_the_card(world):
+    """``nn.Embedding(sparse=True)`` trained by SGD through
+    ``DistributedOptimizer``: the sparse gradient kept sparse (an
+    uncoalesced COO that SGD scatter-adds) and densified give the same
+    weights, and the weights moved."""
+    dense, kinds_dense = chip_smoke.sparse_sgd(True)
+    sparse, kinds_sparse = chip_smoke.sparse_sgd(False)
+    assert kinds_dense == ["dense"] * chip_smoke.SPARSE_STEPS
+    assert kinds_sparse == ["sparse"] * chip_smoke.SPARSE_STEPS
+    assert torch.equal(dense, sparse)
+    assert dense.abs().sum() > 0

@@ -1,0 +1,109 @@
+"""The port's top level against the reference's: every name
+``horovod_tpu/__init__.py`` exports, or resolves in its ``__getattr__``,
+is either present in ``horovod_tpu_torch`` or in its ``NOT_PORTED`` table
+with the ROADMAP item that will port it; reading a name of the table
+raises ``NotPortedError`` naming that item.
+"""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import horovod_tpu_torch as hvd
+
+REPO = Path(__file__).resolve().parent.parent
+REFERENCE_INIT = REPO / "horovod_tpu" / "__init__.py"
+
+
+def _reference_names() -> list:
+    """The names the reference's top level imports, and the string
+    constants its ``__getattr__`` compares a name against."""
+    tree = ast.parse(REFERENCE_INIT.read_text())
+    names = {"__version__"}
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+        if isinstance(node, ast.FunctionDef) and node.name == "__getattr__":
+            for sub in ast.walk(node):
+                if isinstance(sub, ast.Compare) and isinstance(
+                        sub.left, ast.Name) and sub.left.id == "name":
+                    for comp in sub.comparators:
+                        for c in ast.walk(comp):
+                            if isinstance(c, ast.Constant) and isinstance(
+                                    c.value, str):
+                                names.add(c.value)
+    return sorted(names)
+
+
+REFERENCE_NAMES = _reference_names()
+
+
+def test_the_reference_surface_was_read():
+    assert len(REFERENCE_NAMES) > 70
+    assert {"allreduce_", "SyncBatchNorm", "join", "mesh",
+            "IndexedSlices", "callbacks"} <= set(REFERENCE_NAMES)
+
+
+@pytest.mark.parametrize("name", REFERENCE_NAMES)
+def test_every_reference_name_is_ported_or_tabled(name):
+    if name in hvd.NOT_PORTED:
+        item, _ = hvd.NOT_PORTED[name]
+        assert not hasattr(hvd, name)
+        with pytest.raises(hvd.NotPortedError, match=f"ROADMAP {item}"):
+            getattr(hvd, name)
+        with pytest.raises(NotImplementedError, match=name):
+            getattr(hvd, name)
+    else:
+        assert getattr(hvd, name) is not None
+
+
+def test_the_table_holds_only_reference_names():
+    assert set(hvd.NOT_PORTED) <= set(REFERENCE_NAMES)
+
+
+def test_unknown_names_are_plain_attribute_errors():
+    with pytest.raises(AttributeError) as info:
+        hvd.no_such_name  # noqa: B018
+    assert not isinstance(info.value, NotImplementedError)
+
+
+def test_feature_probes_answer_for_the_ports_transports():
+    assert hvd.xla_collectives_built() is False
+    assert hvd.native_engine_built() is False
+    assert hvd.mpi_built() is hvd.mpi_enabled() is False
+    assert hvd.mpi_threads_supported() is False
+    assert hvd.gloo_built() is torch.distributed.is_gloo_available()
+    assert hvd.gloo_enabled() is hvd.gloo_built()
+    assert hvd.nccl_built() is torch.distributed.is_nccl_available()
+    assert hvd.ccl_built() is hvd.ddl_built() is False
+
+
+def test_axis_names_are_the_references():
+    import horovod_tpu as jhvd
+
+    for name in ("DP_AXIS", "CROSS_AXIS", "LOCAL_AXIS", "SLICE_AXIS"):
+        assert getattr(hvd, name) == getattr(jhvd, name)
+
+
+@pytest.mark.parametrize("env,world,rank,want", [
+    ({}, 4, 3, (1, 0)),
+    ({"HVDTPU_NUM_SLICES": "2"}, 4, 3, (2, 1)),
+    ({"HVDTPU_SLICE_SIZE": "2"}, 4, 1, (2, 0)),
+    ({"HVDTPU_NUM_SLICES": "2", "HVDTPU_SLICE_SIZE": "1"}, 4, 2, (2, 1)),
+    ({"HVDTPU_NUM_SLICES": "3"}, 4, 3, (1, 0)),
+    ({"HVDTPU_SLICE_SIZE": "3"}, 4, 3, (1, 0)),
+    ({"HVDTPU_NUM_SLICES": "x"}, 4, 3, (1, 0)),
+    ({"HVDTPU_NUM_SLICES": "2"}, 1, 0, (1, 0)),
+])
+def test_slice_partition_matches_the_reference(env, world, rank, want):
+    """The forced partition of the reference's ``resolve_slice_partition``
+    on a world of processes (one device each)."""
+    from horovod_tpu.basics import resolve_slice_partition as jax_resolve
+    from horovod_tpu_torch.basics import resolve_slice_partition
+
+    assert resolve_slice_partition(world, rank, env) == want
+    assert jax_resolve(world, rank, [object()] * world, env) == want

@@ -136,7 +136,6 @@ def test_named_sizes_match_the_reference():
 @pytest.mark.parametrize("overrides,item", [
     ({"attention_impl": "ring"}, "A11"),
     ({"moe_experts": 4}, "A11"),
-    ({"act_store_dtype": torch.float8_e4m3fn}, "A4"),
 ])
 def test_unported_options_raise(overrides, item):
     with pytest.raises(NotImplementedError, match=item):
