@@ -72,7 +72,22 @@ dQ (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``: fp32 and head_dims
    nothing), the bf16 one within ``LOSS_RTOL``; step time, busy share,
    peak memory.  Then an ``nn.Embedding(sparse=True)`` trained by SGD
    under ``sparse_as_dense`` True and False: the same weights.
-10. ``fp8``: gpt-small ``--dtype fp8`` (e4m3 storage of the attention
+10. ``eager``: ``train``'s 7 steps from its weights and tokens through the
+   ``horovod.torch`` script's optimizer, ``interop.torch.
+   DistributedOptimizer(named_parameters=...)``: each parameter's
+   post-accumulate-grad hook enqueues ``allreduce_async`` on the eager
+   engine under ``allreduce.<name>`` (149 a step), ``step()`` synchronizes
+   and writes the results back; exact launches, losses bit for bit
+   ``train``'s (the world-1 engine resolves every allreduce to its input,
+   scale 1), gradients on the card; step time, busy share, peak memory.
+   Then every eager op on CUDA tensors (result on the card, the input's
+   dtype), and the engine's data plane on a 1-rank NCCL group: one fused,
+   pre- and post-scaled allreduce of a block's gradients run as the engine
+   runs it, against its plain version (bit for bit), with the payloads
+   written late on the caller's stream (the engine's stream waits on their
+   ready events) and ``synchronize`` returning while the caller's stream
+   is still busy (the result is ordered on the stream, not the host).
+11. ``fp8``: gpt-small ``--dtype fp8`` (e4m3 storage of the attention
    context, the branch deltas and the GELU output; 12 launches of each
    flash kernel a step) from ``train``'s weights and tokens, and ResNet-50
    fp8 (every ReLU output) from the ``resnet`` phase's, each against its
@@ -1131,6 +1146,238 @@ def reductions(hvd, fa, train_run) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the eager named-tensor engine
+# ---------------------------------------------------------------------------
+
+# the data plane's check: one fused response of a transformer block's
+# gradients at gpt-small's width (fp32 and bf16), pre- and post-scaled
+PLANE_SHAPES = ((2304, 768), (2304,), (768, 768), (768,), (768,), (768,),
+                (3072, 768), (3072,), (768, 3072), (768,), (768,), (768,))
+PLANE_SCALES = (0.5, 3.0)
+# device cycles the producer's stream sleeps before it writes the payloads
+# (~0.5 s at the H100's clock): an engine that read them without waiting on
+# their ready events would reduce stale memory
+PLANE_SLEEP = 1_000_000_000
+
+
+def eager_ops_check(device: str = "cuda") -> dict:
+    """Every eager op on ``device`` tensors in a world of one: the result
+    on the caller's device with the input's dtype, equal to the input (the
+    scales applied), in place where asked.  Returns name -> (device,
+    dtype); raises on a mismatch."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.interop.torch as ht
+    from horovod_tpu_torch.ops import eager
+
+    x = torch.arange(12, dtype=torch.float32, device=device).reshape(4, 3)
+    cases = {
+        "allreduce_average": (x, lambda t: eager.allreduce(t), x),
+        "allreduce_sum_bf16": (x.bfloat16(), lambda t: eager.allreduce(
+            t, hvd.Sum), x.bfloat16()),
+        "allreduce_min_int32": (x.int(), lambda t: eager.allreduce(
+            t, hvd.Min), x.int()),
+        "allreduce_max": (x, lambda t: eager.allreduce(t, hvd.Max), x),
+        "allreduce_scaled": (x, lambda t: eager.allreduce(
+            t, hvd.Sum, prescale_factor=2.0, postscale_factor=3.0), x * 6),
+        "allreduce_adasum": (x, lambda t: eager.allreduce(t, hvd.Adasum), x),
+        "allreduce_inplace": (x.clone(), lambda t: eager.allreduce_(
+            t, hvd.Sum), x),
+        "allgather": (x, eager.allgather, x),
+        "broadcast": (x, lambda t: eager.broadcast(t, 0), x),
+        "broadcast_inplace": (x.clone(), lambda t: eager.broadcast_(t, 0), x),
+        "alltoall": (x, eager.alltoall, x),
+        "reducescatter": (x, eager.reducescatter, x),
+        "interop_allreduce_fp16_wire": (x, lambda t: ht.allreduce(
+            t, op=ht.Sum, compression=ht.Compression.fp16), x),
+    }
+    out = {}
+    for name, (t, fn, want) in cases.items():
+        got = fn(t)
+        out[name] = (str(got.device), str(got.dtype))
+        if got.device != t.device or got.dtype != t.dtype \
+                or not torch.equal(got, want):
+            raise AssertionError(f"eager {name}: {got.dtype} on {got.device}"
+                                 f" {got.flatten()[:4].tolist()}, want "
+                                 f"{want.dtype} on {t.device} "
+                                 f"{want.flatten()[:4].tolist()}")
+    return out
+
+
+def eager_plane_check(shapes=PLANE_SHAPES, scales=PLANE_SCALES) -> dict:
+    """The engine's device data plane on a 1-rank NCCL group of its own:
+    one fused response (pack into the fusion buffer, one NCCL allreduce,
+    unpack), pre- and post-scaled, in fp32 and bf16, run on a background
+    thread with the engine's stream current, as the engine's loop runs it.
+    The payloads are written on the caller's stream behind a device sleep,
+    so only an engine stream that waits on their ready events reads them.
+    ``synchronize`` must return while the caller's stream is still busy
+    (it orders the result on the stream, it does not block the host), and
+    the results are read on the caller's stream right after it, before
+    anything drains the card: only a caller's stream that waits on the
+    results' completion events reads them written.  Held against the
+    plain version (scale, reduce over one rank, scale) on the same inputs:
+    equal, bit for bit (the same elementwise operations in the same
+    order).  Each dtype runs twice, the first time on the negated values
+    to warm the communicator and the allocator up (so memory the second
+    pass reuses holds other numbers).  Returns the record."""
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.ops import eager
+    from horovod_tpu_torch.ops.collectives import ReduceOp
+    from horovod_tpu_torch.runtime.device_plane import DataPlane
+    from horovod_tpu_torch.runtime.engine import EagerEngine, \
+        TensorTableEntry, dtype_name
+    from horovod_tpu_torch.runtime.messages import Request, RequestType, \
+        Response, ResponseType
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    eng = EagerEngine()  # a world of one: no thread, no planes of its own
+    eng._device_plane = DataPlane(dist.new_group([0], backend="nccl"), dev,
+                                  1)
+    eng._stream = torch.cuda.Stream(dev)
+    pre, post = scales
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def fused_pass(dtype, values):
+        """One engine cycle's worth of the response; the results, the host
+        time to the last synchronize, and whether the caller's stream was
+        still busy then."""
+        names = [f"plane.{dtype_name(dtype)}.{i}" for i in range(len(shapes))]
+        srcs = [torch.empty_like(v) for v in values]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(PLANE_SLEEP)
+        futures = []
+        for name, src, v, shape in zip(names, srcs, values, shapes):
+            src.copy_(v)  # the late write, then enqueue's snapshot of it
+            copy, ready = eng._snapshot(src)
+            req = Request(0, RequestType.ALLREDUCE, name, dtype_name(dtype),
+                          tuple(shape), int(ReduceOp.AVERAGE), -1, pre, post,
+                          True)
+            entry = TensorTableEntry(request=req, tensor=copy, ready=ready)
+            eng._table[name] = entry
+            futures.append(entry.future)
+        resp = Response(ResponseType.ALLREDUCE, list(names))
+        resp._shapes = [tuple(s) for s in shapes]
+        resp._dtype = dtype_name(dtype)
+        resp._fuse_meta = (dtype_name(dtype), int(ReduceOp.AVERAGE), pre,
+                           post)
+        resp._device = True
+
+        def cycle():
+            torch.cuda.set_device(dev)
+            with torch.cuda.stream(eng._stream):
+                eng._perform_operation(resp)
+
+        thread = threading.Thread(target=cycle)
+        thread.start()
+        thread.join(timeout=120)
+        outs = [eager.synchronize(f) for f in futures]
+        host_ms = (time.perf_counter() - t0) * 1e3
+        busy = not torch.cuda.current_stream().query()
+        # read on the caller's stream, queued behind synchronize's wait
+        reads = [o.clone() for o in outs]
+        torch.cuda.synchronize()
+        return outs, reads, host_ms, busy
+
+    record = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        values = [torch.randn(s, generator=gen, device=dev).to(dtype)
+                  for s in shapes]
+        fused_pass(dtype, [-v for v in values])  # warm-up
+        outs, reads, host_ms, busy = fused_pass(dtype, values)
+        plain = [(((v.float() * pre).to(dtype).float()) / 1 * post).to(dtype)
+                 for v in values]
+        err = max(float((o.float() - w.float()).abs().max())
+                  for o, w in zip(reads, plain))
+        on_card = all(o.is_cuda and o.dtype == dtype for o in outs)
+        record[dtype_name(dtype)] = dict(
+            tensors=len(shapes),
+            bytes=sum(v.numel() * v.element_size() for v in values),
+            on_card=on_card, max_abs_err=err, tolerance=0.0,
+            synchronize_left_stream_busy=busy,
+            host_ms_to_synchronized=host_ms)
+        if err != 0.0 or not on_card:
+            raise AssertionError(f"data plane {dtype}: max |engine - plain| "
+                                 f"{err}, results on the card {on_card}")
+        if not busy:
+            raise AssertionError(
+                "synchronize returned after the caller's stream drained: it "
+                "blocked the host instead of ordering the stream")
+    record["device_data_ops"] = eng.stats["device_data_ops"]
+    # the fused allreduce (pack, NCCL, scales) and its plain version at these
+    # shapes, device time
+    x = [torch.randn(s, device=dev) for s in shapes]
+    entries = [TensorTableEntry(None, t) for t in x]
+
+    def fused():
+        buf = eng._pack(entries, shapes, torch.float32, dev, None)
+        eng._device_plane.allreduce(buf, int(ReduceOp.AVERAGE), pre, post,
+                                    torch.float32, False)
+
+    record["fused_allreduce_ms"] = cuda_ms(fused, 20)
+    record["plain_ms"] = cuda_ms(lambda: [t * pre * post for t in x], 20)
+    return record
+
+
+def eager(hvd, fa, train_run) -> dict:
+    """Phase ``eager``: ``train``'s gpt-small steps from its weights and
+    tokens through ``interop.torch.DistributedOptimizer`` (per-parameter
+    hooks -> ``allreduce_async`` named ``allreduce.<param>`` ->
+    ``synchronize`` in ``step()``): exact launches, losses bit for bit
+    ``train``'s (at world 1 every allreduce is the identity, scale 1), one
+    handle per parameter and step (149); then every eager op's result on the card and the data
+    plane's fused allreduce on a 1-rank NCCL group against its plain
+    version."""
+    import horovod_tpu_torch.interop.torch as ht
+    from horovod_tpu_torch._obs import get_registry
+    from horovod_tpu_torch.train import make_adamw
+
+    step, state = gpt_with(lambda m: ht.DistributedOptimizer(
+        make_adamw(m.parameters()), named_parameters=m.named_parameters()))
+    names = set(state[1]._names.values())
+    # one named allreduce per parameter and step: 149 for gpt-small (12
+    # blocks of 12, wpe, wte, the final LayerNorm's 2, the head)
+    n_params = len(list(state[0].parameters()))
+    completed = get_registry().counter("engine.collectives_completed")
+    before = completed.value
+    state, run = drive(fa, step, state)
+    handles = (completed.value - before) / (STEPS + WARMUP)
+    run["profile"] = profile_step(state, step, run["step_ms"], top=6)
+    grads_on_card = all(p.grad is None or p.grad.is_cuda
+                        for p in state[0].parameters())
+    run.update(handles_per_step=handles, named_tensors=len(names),
+               parameters=n_params,
+               grads_on_card=grads_on_card,
+               bitwise_equal_to_train=run["losses"] == train_run["losses"],
+               max_rel_loss_diff_vs_train=max_rel(run["losses"],
+                                                  train_run["losses"]))
+    del step, state
+    release()
+    ops = eager_ops_check()
+    plane = eager_plane_check()
+    emit("eager", model="gpt-small", dtype="bf16", batch_per_gpu=GPT_STEP[2],
+         seq=GPT_STEP[3], world=1, train_losses=train_run["losses"],
+         run=run, ops=ops, plane=plane)
+    if not run["bitwise_equal_to_train"]:
+        raise AssertionError(
+            f"eager: losses {run['losses']} differ from train's "
+            f"{train_run['losses']} (at world 1 every allreduce is the "
+            "identity)")
+    if handles != n_params or len(names) != n_params:
+        raise AssertionError(f"eager: {handles} handles a step over "
+                             f"{len(names)} names, want {n_params}")
+    if not grads_on_card:
+        raise AssertionError("eager: a gradient left the card")
+    return run
+
+
+# ---------------------------------------------------------------------------
 # fp8 activation storage
 # ---------------------------------------------------------------------------
 
@@ -1334,6 +1581,8 @@ def main() -> int:
     rope_remat(fa)
     resnet_off = conv(fa)
     reductions(hvd, fa, run)
+    release()
+    eager(hvd, fa, run)
     release()
     fp8(fa, run, resnet_off)
 

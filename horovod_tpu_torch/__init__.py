@@ -22,7 +22,11 @@ Inception V3, the MNIST nets) with ``SyncBatchNorm`` and its training
 step, ``train.build_step``, whose convolutions are cuDNN's; then the rest
 of the reductions (Adasum, sparse gradients, the two-level schedules over
 the local and cross groups with a compressed cross leg), the topology API
-and fp8 activation storage.
+and fp8 activation storage; then the eager named-tensor engine
+(``runtime/``: negotiation, tensor fusion, the response cache, schedule
+replay, ``join``) behind the asynchronous named API (``allreduce_async``,
+``synchronize``, ...) and the ``horovod.torch``-compatible surface
+(``interop.torch``, whose hook ``DistributedOptimizer`` rides the engine).
 
 The names of the reference's top level that the port does not carry yet
 are in :data:`NOT_PORTED`, each with its ROADMAP item: reading one raises
@@ -83,6 +87,16 @@ from .ops.collectives import (
     reducescatter,
 )
 from .ops.compression import Compression, ErrorFeedbackCompressor
+from .ops.eager import (
+    allgather_async,
+    allreduce_async,
+    allreduce_async_,
+    broadcast_async,
+    broadcast_async_,
+    join,
+    poll,
+    synchronize,
+)
 from .ops.sparse import IndexedSlices, allreduce_sparse
 from .ops.sparse import to_dense as sparse_to_dense
 from .optim import (
@@ -110,6 +124,8 @@ __all__ = [
     "allreduce", "allreduce_", "grouped_allreduce", "broadcast",
     "broadcast_", "allgather", "alltoall", "reducescatter",
     "reduce_scatter_flat", "all_gather_flat",
+    "allreduce_async", "allreduce_async_", "allgather_async",
+    "broadcast_async", "broadcast_async_", "synchronize", "poll", "join",
     "Compression", "ErrorFeedbackCompressor",
     "IndexedSlices", "allreduce_sparse", "sparse_to_dense",
     "DistributedOptimizer", "broadcast_parameters",
@@ -127,10 +143,6 @@ class NotPortedError(NotImplementedError, AttributeError):
 # port: name -> (ROADMAP item, what it is).  Keep in step with ROADMAP's
 # table of the same names.
 NOT_PORTED = {
-    **{name: ("A9", "the eager named-tensor engine")
-       for name in ("allreduce_async", "allreduce_async_", "allgather_async",
-                    "broadcast_async", "broadcast_async_", "synchronize",
-                    "poll", "join")},
     **{name: ("A10", "checkpoints and the stores")
        for name in ("Store", "LocalStore", "save_checkpoint",
                     "save_checkpoint_async", "restore_checkpoint",
@@ -138,7 +150,8 @@ NOT_PORTED = {
     "callbacks": ("A10", "the training callbacks"),
     "Estimator": ("A13", "the estimator frontend"),
     "Model": ("A13", "the estimator frontend"),
-    "obs": ("A13", "the observability planes"),
+    "obs": ("A13", "the observability planes (the runtime calls their "
+            "hooks in the private _obs, whose bodies are stubs)"),
     **{name: ("A14", "a JAX SPMD object: the port runs one process per GPU "
               "and reduces through DistributedOptimizer / OverlapPlan over "
               "process groups (basics.group_of_axis)")

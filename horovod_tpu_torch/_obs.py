@@ -1,0 +1,155 @@
+"""Observability hooks of the eager runtime, as stubs (counterpart of
+``horovod_tpu/obs``, ROADMAP A13).  Private: the top level's ``obs``
+raises ``NotPortedError`` until A13 ports the planes and this module
+becomes ``obs``.
+
+The runtime modules call the reference's hooks under the reference's
+names — ``get_registry()`` counters, gauges and histograms,
+``flightrec.record`` / ``record_exception``, ``progress.tick``,
+``trace.enabled`` / ``add_span``, ``straggler.record`` — so that porting
+the planes replaces the bodies here and no call site.  Until then:
+
+* the registry is in memory only (no dump, no scrape, no live stream):
+  its instruments hold their values, which the engine's tests read;
+* the flight recorder, progress beat, tracer and straggler attribution
+  record nothing;
+* ``pathspec`` carries the two path rules the timeline and the autotune
+  log need (copies of ``horovod_tpu/obs/pathspec.py``'s ``resolve`` and
+  ``epoch_tag``).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from types import SimpleNamespace
+from typing import Callable, Dict, List, Optional, Tuple
+
+__all__ = ["get_registry", "CollectorRetired",
+           "flightrec", "progress", "trace", "straggler", "pathspec"]
+
+
+class Counter:
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        self.value += n
+
+
+class Gauge:
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = v
+
+
+class Histogram:
+    def __init__(self) -> None:
+        self.count = 0
+        self.sum = 0.0
+
+    def observe(self, v: float) -> None:
+        self.count += 1
+        self.sum += v
+
+
+class CollectorRetired(Exception):
+    """Raised by a snapshot collector whose owner is gone: the registry
+    drops it."""
+
+
+class Registry:
+    """Tagged instruments by name, created on first use."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._items: Dict[Tuple, object] = {}
+        self._collectors: List[Callable] = []
+
+    def _get(self, cls, name: str, tags: dict):
+        key = (cls.__name__, name, tuple(sorted(tags.items())))
+        with self._lock:
+            item = self._items.get(key)
+            if item is None:
+                item = self._items[key] = cls()
+            return item
+
+    def counter(self, name: str, **tags) -> Counter:
+        return self._get(Counter, name, tags)
+
+    def gauge(self, name: str, **tags) -> Gauge:
+        return self._get(Gauge, name, tags)
+
+    def histogram(self, name: str, **tags) -> Histogram:
+        return self._get(Histogram, name, tags)
+
+    def register_collector(self, fn: Callable) -> None:
+        with self._lock:
+            self._collectors.append(fn)
+
+    def snapshot(self) -> None:
+        """Run the collectors (which publish, e.g., the engine's stats as
+        gauges); a retired one is dropped."""
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn(self)
+            except CollectorRetired:
+                with self._lock:
+                    self._collectors.remove(fn)
+
+
+_registry = Registry()
+
+
+def get_registry() -> Registry:
+    return _registry
+
+
+def _noop(*args, **kwargs) -> None:
+    return None
+
+
+flightrec = SimpleNamespace(record=_noop, record_exception=_noop)
+progress = SimpleNamespace(tick=_noop)
+trace = SimpleNamespace(enabled=lambda: False, add_span=_noop)
+straggler = SimpleNamespace(record=_noop)
+
+
+def _resolve(raw: str, stem: str, rank, epoch: Optional[str] = None) -> str:
+    """This rank's file for the env value ``raw``: a ``{rank}`` template,
+    a directory (``<stem>.rank.<k>.json`` inside), or a plain path with
+    ``.rank.<k>`` before the extension; epoch-tagged under the elastic
+    launcher (``HVDTPU_ELASTIC_EPOCH``)."""
+    rank = str(rank)
+    if epoch is None:
+        epoch = os.environ.get("HVDTPU_ELASTIC_EPOCH")
+    tag = (f"e{epoch}.rank.{rank}" if epoch not in (None, "")
+           else f"rank.{rank}")
+    if "{rank}" in raw:
+        path = raw.replace("{rank}", rank)
+        if epoch not in (None, ""):
+            base, ext = os.path.splitext(path)
+            path = f"{base}.e{epoch}{ext}"
+        return path
+    if raw.endswith(os.sep) or os.path.isdir(raw):
+        return os.path.join(raw, f"{stem}.{tag}.json")
+    base, ext = os.path.splitext(raw)
+    return f"{base}.{tag}{ext or '.json'}"
+
+
+def _epoch_tag(path: str, epoch: Optional[str] = None) -> str:
+    """``path`` with ``.e<E>`` before the extension when an elastic epoch
+    is active; ``path`` otherwise."""
+    if epoch is None:
+        epoch = os.environ.get("HVDTPU_ELASTIC_EPOCH")
+    if epoch in (None, ""):
+        return path
+    base, ext = os.path.splitext(path)
+    return f"{base}.e{epoch}{ext}"
+
+
+pathspec = SimpleNamespace(resolve=_resolve, epoch_tag=_epoch_tag)

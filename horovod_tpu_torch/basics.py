@@ -19,6 +19,9 @@ x local_size + local_rank``.  ``init`` builds the two subgroups of the
 two-level schedules (``parallel/hierarchical.py``) once: this rank's
 *local* group (the ranks of its host, ``LOCAL_AXIS``) and its *cross*
 group (the ranks of its local index on every host, ``CROSS_AXIS``).
+After them it builds the eager engine's own groups (:class:`EngineGroups`),
+which no other code issues collectives on, and :func:`shutdown` stops the
+engine before it destroys any group.
 """
 
 from __future__ import annotations
@@ -106,11 +109,30 @@ class Topology:
     # the world is not local_size x cross_size cross-major
     local_group: Any = field(default=None, repr=False, compare=False)
     cross_group: Any = field(default=None, repr=False, compare=False)
+    # the eager engine's own groups (None in a world of one)
+    engine_groups: Any = field(default=None, repr=False, compare=False)
 
     @property
     def num_devices(self) -> int:
         """GPUs in the job: one per process."""
         return self.process_count
+
+
+class EngineGroups(NamedTuple):
+    """The process groups only the eager engine's background thread uses
+    (``runtime/engine.py``): two threads issuing collectives on one
+    communicator could interleave differently on two ranks and hang.
+
+    ``control``: gloo, the negotiation's allgathers and the host data
+    plane.  ``data``: NCCL for CUDA payloads (None on a CPU world).
+    ``local`` / ``cross``: NCCL copies of this rank's two-level groups for
+    the engine's hierarchical allreduce (None unless the world is hosts x
+    local ranks with both larger than 1)."""
+
+    control: Any
+    data: Any
+    local: Any
+    cross: Any
 
 
 class _World(NamedTuple):
@@ -214,6 +236,28 @@ def _subgroups(w: _World, layouts) -> tuple:
     return local[w.cross_rank], cross[w.local_rank]
 
 
+def _engine_groups(w: _World, backend: str, local) -> Optional[EngineGroups]:
+    """The eager engine's groups, built by every rank in one order (after
+    the two-level groups: ``new_group`` is collective and order-sensitive,
+    so it runs here in ``init``, never lazily on a first eager call that
+    ranks reach at different times)."""
+    if w.size == 1:
+        return None
+    control = dist.new_group(backend="gloo")
+    if backend != "nccl":
+        return EngineGroups(control, None, None, None)
+    data = dist.new_group(backend="nccl")
+    local_n, cross_n = w.local_size, w.cross_size
+    if local is None or local_n == 1 or cross_n == 1:
+        return EngineGroups(control, data, None, None)
+    locals_ = [dist.new_group([c * local_n + l for l in range(local_n)],
+                              backend="nccl") for c in range(cross_n)]
+    crosses = [dist.new_group([c * local_n + l for c in range(cross_n)],
+                              backend="nccl") for l in range(local_n)]
+    return EngineGroups(control, data, locals_[w.cross_rank],
+                        crosses[w.local_rank])
+
+
 def _resolve_device(device, local_rank: int) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -278,6 +322,7 @@ def init(comm=None, device=None) -> Topology:
         # (mpi_controller.cc:46-81)
         homogeneous = len({lay[1] for lay in layouts}) <= 1
         local, cross = _subgroups(w, layouts)
+        engine_groups = _engine_groups(w, backend, local)
         n_slices, slice_i = resolve_slice_partition(w.size, w.rank)
         _topology = Topology(
             process_rank=w.rank, process_count=w.size,
@@ -286,14 +331,22 @@ def init(comm=None, device=None) -> Topology:
             device=dev, backend=backend, homogeneous=homogeneous,
             num_slices=n_slices, slice_id=slice_i,
             local_group=local, cross_group=cross,
+            engine_groups=engine_groups,
         )
         return _topology
 
 
 def shutdown() -> None:
     """Tear down state and the process group init() created (reference:
-    horovod_shutdown)."""
+    horovod_shutdown).  The eager engine stops first: its background
+    thread may be blocked in a collective on its own groups, and
+    destroying them under it would hang or crash the peers.  Its
+    coordinated shutdown fails every pending handle, here and on the
+    peers, with ``HorovodShutdownError``."""
     global _topology
+    from ._engine_registry import shutdown_engine  # noqa: PLC0415
+
+    shutdown_engine()
     with _state_lock:
         if _topology is not None:
             dist.destroy_process_group()
@@ -433,8 +486,8 @@ def xla_collectives_built() -> bool:
 
 
 def native_engine_built() -> bool:
-    """Whether the eager engine's native library is in the port: not yet
-    (ROADMAP A9)."""
+    """Whether the eager engine's native (C++) library is in the port: not
+    yet (ROADMAP A15); the port's engine is the Python one."""
     return False
 
 

@@ -1,6 +1,7 @@
 """Ops of horovod_tpu_torch: collectives, compression, RoPE
-(``ops.rope``) and flash attention (``ops.flash_attention``; neither
-re-exported here, so the names stay the modules')."""
+(``ops.rope``), flash attention (``ops.flash_attention``) and the eager
+named-tensor API (``ops.eager``); the last three are not re-exported
+here, so the names stay the modules'."""
 
 from .collectives import (
     Adasum,

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["adasum_allreduce", "adasum_combine"]
+__all__ = ["adasum_allreduce", "adasum_combine", "adasum_rows"]
 
 
 def _numpy_adasum_rows(rows):
@@ -53,6 +53,35 @@ def _numpy_adasum_rows(rows):
         combine(vecs[j], vecs[p + j]) if j < extras else vecs[j]
         for j in range(p)
     ]
+
+    def rec(vs):
+        if len(vs) == 1:
+            return vs[0]
+        half = len(vs) // 2
+        return combine(rec(vs[:half]), rec(vs[half:]))
+
+    return rec(vecs)
+
+
+def adasum_rows(rows: torch.Tensor) -> torch.Tensor:
+    """:func:`_numpy_adasum_rows` on a ``(world, n)`` tensor, on its
+    device: the same folding of the extra ranks, the same tree and the
+    same arithmetic, in the tensor's dtype (the eager engine passes fp64,
+    so a CUDA payload's Adasum never leaves the card)."""
+    vecs = list(rows.unbind(0))
+
+    def combine(a, b):
+        dot = torch.dot(a, b)
+        na2 = torch.clamp(torch.dot(a, a), min=1e-30)
+        nb2 = torch.clamp(torch.dot(b, b), min=1e-30)
+        return (1.0 - dot / (2 * na2)) * a + (1.0 - dot / (2 * nb2)) * b
+
+    p = 1
+    while p * 2 <= len(vecs):
+        p *= 2
+    extras = len(vecs) - p
+    vecs = [combine(vecs[j], vecs[p + j]) if j < extras else vecs[j]
+            for j in range(p)]
 
     def rec(vs):
         if len(vs) == 1:

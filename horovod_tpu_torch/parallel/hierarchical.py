@@ -88,14 +88,16 @@ def _padded_flat(x: torch.Tensor, ways: int):
 def hierarchical_allreduce(tensor: torch.Tensor, op: ReduceOp = Average, *,
                            local_axis: str = LOCAL_AXIS,
                            cross_axis: str = CROSS_AXIS,
-                           compression=None) -> torch.Tensor:
+                           compression=None, groups=None) -> torch.Tensor:
     """Allreduce over both groups, scattering over the local group so the
     cross leg moves 1/local_size of the bytes.  A length the local size
     does not divide is zero-padded and cut back.  ``compression`` casts
-    only the cross leg."""
+    only the cross leg.  ``groups``, a ``(local, cross)`` pair of process
+    groups, replaces the axes' groups (the eager engine passes its own)."""
     _check_op(op, "hierarchical_allreduce")
     comp = _resolve_compressor(compression)
-    local, cross = group_of_axis(local_axis), group_of_axis(cross_axis)
+    local, cross = groups or (group_of_axis(local_axis),
+                              group_of_axis(cross_axis))
     local_n = _group_size(local)
     flat, pad = _padded_flat(tensor, local_n)
     shard = reduce_scatter_flat(flat, Sum, group=local)

@@ -36,10 +36,38 @@ TORCHRUN_GROUP_RANK = "GROUP_RANK"
 TORCHRUN_MASTER_ADDR = "MASTER_ADDR"
 TORCHRUN_MASTER_PORT = "MASTER_PORT"
 
-# Tensor fusion: grouped_allreduce bins per dtype up to this many bytes
-# (reference operations.cc:419 default of 64 MB).
+# Tensor fusion: grouped_allreduce and the eager engine fuse per dtype up to
+# this many bytes (reference operations.cc:419 default of 64 MB).
 FUSION_THRESHOLD = "HVDTPU_FUSION_THRESHOLD"
 DEFAULT_FUSION_BYTES = 64 * 1024 * 1024
+
+# The eager engine's knobs (horovod_tpu/utils/env.py:13-88, same names and
+# defaults): cycle time in ms, the Chrome timeline, the stall inspector,
+# the response cache's capacity, the two-level allreduce and its cross-leg
+# wire, the online autotuner and schedule replay.
+CYCLE_TIME = "HVDTPU_CYCLE_TIME"
+TIMELINE = "HVDTPU_TIMELINE"
+TIMELINE_MARK_CYCLES = "HVDTPU_TIMELINE_MARK_CYCLES"
+STALL_CHECK_TIME = "HVDTPU_STALL_CHECK_TIME_SECONDS"
+STALL_SHUTDOWN_TIME = "HVDTPU_STALL_SHUTDOWN_TIME_SECONDS"
+STALL_CHECK_DISABLE = "HVDTPU_STALL_CHECK_DISABLE"
+CACHE_CAPACITY = "HVDTPU_CACHE_CAPACITY"
+HIERARCHICAL_ALLREDUCE = "HVDTPU_HIERARCHICAL_ALLREDUCE"
+DCN_COMPRESSION = "HVDTPU_DCN_COMPRESSION"
+AUTOTUNE = "HVDTPU_AUTOTUNE"
+AUTOTUNE_LOG = "HVDTPU_AUTOTUNE_LOG"
+AUTOTUNE_WARMUP_SAMPLES = "HVDTPU_AUTOTUNE_WARMUP_SAMPLES"
+AUTOTUNE_STEPS_PER_SAMPLE = "HVDTPU_AUTOTUNE_STEPS_PER_SAMPLE"
+AUTOTUNE_BAYES_OPT_MAX_SAMPLES = "HVDTPU_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"
+AUTOTUNE_GP_NOISE = "HVDTPU_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"
+AUTOTUNE_DRIFT_THRESHOLD = "HVDTPU_AUTOTUNE_DRIFT_THRESHOLD"
+AUTOTUNE_DRIFT_SAMPLES = "HVDTPU_AUTOTUNE_DRIFT_SAMPLES"
+SCHEDULE_REPLAY = "HVDTPU_SCHEDULE_REPLAY"
+SCHEDULE_REPLAY_CYCLES = "HVDTPU_SCHEDULE_REPLAY_CYCLES"
+DEFAULT_REPLAY_CYCLES = 50
+# Which eager engine (``_engine_registry``): auto / python; ``native``, the
+# C++ engine, is not ported yet.
+EAGER_ENGINE = "HVDTPU_EAGER_ENGINE"
 
 # Backward-overlap plane (optim/overlap.py): the gradient bucket cap in MB
 # and the default overlap mode of the bench (horovod_tpu/utils/env.py:58-60).
@@ -56,3 +84,21 @@ def env_int(name: str, default: int) -> int:
 def env_float(name: str, default: float) -> float:
     value = os.environ.get(name)
     return float(value) if value not in (None, "") else default
+
+
+def env_bool(name: str, default: bool = False) -> bool:
+    value = os.environ.get(name)
+    if value in (None, ""):
+        return default
+    return value.lower() in ("1", "true", "yes", "on")
+
+
+def resolve_rank(default=None):
+    """This process's rank per the launcher env contract: ``HVDTPU_RANK``
+    (static jobs) first, then ``HVDTPU_ELASTIC_RANK`` (elastic workers);
+    the fault injector reads it (horovod_tpu/utils/env.py:190-199)."""
+    for name in (RANK, "HVDTPU_ELASTIC_RANK"):
+        value = os.environ.get(name)
+        if value not in (None, ""):
+            return int(value)
+    return default

@@ -16,13 +16,35 @@ inputs:
   fp32 and a bf16 cross leg), ``hierarchical_reduce_scatter`` (rank (c, l)
   keeps shard l x cross + c) and ``hierarchical_all_gather``;
 * ``allreduce`` of IndexedSlices with ragged rows;
+* the eager engine (``eager``): every async op on this rank's tensors
+  (CUDA on the card) against numpy — allreduce Sum / Average / Min / Max /
+  scaled / int Average / bf16 / Adasum, allgather ragged, broadcast,
+  alltoall, reducescatter even and ragged — results on the input's device
+  in its dtype and, on the card, ``host_data_ops == 0`` (no CUDA payload
+  left the card); ``join`` with rank r submitting r more ops (the joined
+  ranks contribute zeros, Average divides by the world); a burst of 16
+  small named tensors (fused responses); repeated named ops (cache hits,
+  and a schedule-replay epoch after 5 stable cycles, this check's engine
+  only); the engine's stats;
+* the engine's two-level allreduce (``eager_two_level``): an engine
+  started with ``HVDTPU_HIERARCHICAL_ALLREDUCE=1``, once with the cross
+  leg exact and once with ``HVDTPU_DCN_COMPRESSION=bf16``, reduces a
+  scaled Average, an int32 Sum and a fused burst through ``enqueue``; on
+  the card every one runs the two-level schedule (``hierarchical_ops``)
+  and none takes a host path;
 * a GPT training step (gpt-small bf16 seq 1024 batch 8 per GPU on the
   card, gpt-nano fp32 on the CPU): 2 warm-up and 5 timed steps from the
   same weights and global batch in ``off``, ``bucket``, the two-level
   ``bucket`` and ``bucket+zero1``, the two-level ``bucket`` with a bf16
-  cross leg, and ``DistributedOptimizer(op=Adasum)``: losses finite, the
-  mean-reducing ones within 1e-3 of ``off`` (0.01 with the bf16 leg),
-  step times.
+  cross leg, ``DistributedOptimizer(op=Adasum)`` and ``interop.torch``'s
+  hook ``DistributedOptimizer`` on the eager engine (``eager_hook`` with
+  the engine's defaults, again with a 1 ms cycle, and again with a 0.5 ms
+  interpreter switch interval): losses finite, the
+  mean-reducing ones within 1e-3 of ``off`` (0.01 with the bf16 leg,
+  1.7e-5 through the engine), step times; for the engine runs the time
+  ``step()`` waits in ``synchronize``, the engine's mean cycle work and
+  negotiation times, and its cycles, responses and fused responses per
+  step.
 
 Prints three JSON lines (every rank's checks, rank 0's training runs, the
 verdict) and exits nonzero if any check fails on any rank.  Times are the
@@ -32,6 +54,7 @@ host clock around ``torch.cuda.synchronize()``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import multiprocessing as mp
@@ -47,7 +70,16 @@ __all__ = ["main"]
 LENGTH = 4099          # not a multiple of any local size
 TOL = 1e-5             # fp32 sums of a few terms in another order
 STEPS, WARMUP = 5, 2
-LOSS_RTOL = {"mean": 1e-3, "bf16_cross": 1e-2}
+LOSS_RTOL = {"mean": 1e-3, "bf16_cross": 1e-2, "eager_hook": 1.7e-5,
+             "eager_hook_cycle_1ms": 1.7e-5,
+             "eager_hook_switch_0.5ms": 1.7e-5}
+# the engine's replay threshold in the eager checks: 5 stable cycles (the
+# default 50 is longer than the checks' loop of repeated ops); the training
+# runs keep the default
+REPLAY_CYCLES = "5"
+# the engines of the eager training runs: the defaults, and a 1 ms cycle
+# (the multi-process default is 10 ms)
+HOOK_ENV = {"eager_hook_cycle_1ms": {"HVDTPU_CYCLE_TIME": "1"}}
 
 
 def _rows(world: int, seed: int = 0):
@@ -135,13 +167,211 @@ def _collective_checks(hvd, torch) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _engine_env(**env):
+    """A fresh eager engine for the block, started (on the block's first
+    eager call) with ``env`` set, and stopped after the block."""
+    from . import _engine_registry
+
+    _engine_registry.shutdown_engine()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        _engine_registry.shutdown_engine()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _two_level_checks(hvd, torch) -> dict:
+    """The engine's two-level allreduce, selected by
+    ``HVDTPU_HIERARCHICAL_ALLREDUCE=1``, with the cross leg exact and in
+    bf16: every op through ``enqueue`` against numpy, and the engine's
+    count of two-level executions."""
+    import numpy as np
+
+    from . import _engine_registry
+
+    r, world = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    rng = np.random.RandomState(3)
+    x_all = rng.randn(world, 7, 5).astype(np.float32)
+    i_all = rng.randint(-40, 40, (world, 9)).astype(np.int32)
+    out = {}
+    for wire in ("none", "bf16"):
+        with _engine_env(HVDTPU_HIERARCHICAL_ALLREDUCE="1",
+                         HVDTPU_DCN_COMPRESSION=wire):
+            x = torch.from_numpy(x_all[r]).to(dev)
+            avg = hvd.synchronize(hvd.allreduce_async(
+                x, name="h.avg", prescale_factor=0.5, postscale_factor=2.0))
+            isum = hvd.synchronize(hvd.allreduce_async(
+                torch.from_numpy(i_all[r]).to(dev), hvd.Sum, name="h.isum"))
+            burst = [hvd.allreduce_async(torch.full((4,), float(k),
+                                                    device=dev),
+                                         hvd.Sum, name=f"h.fuse.{k}")
+                     for k in range(16)]
+            fused = max(_rel(hvd.synchronize(h).cpu().numpy(),
+                             np.full(4, float(k * world)))
+                        for k, h in enumerate(burst))
+            engine = _engine_registry.get_engine()
+            out[wire] = {
+                "hierarchical": engine.hierarchical,
+                "average_rel_err": _rel(avg.cpu().numpy(), x_all.mean(0)),
+                "int_sum_exact": bool(np.array_equal(
+                    isum.cpu().numpy(), i_all.sum(0))),
+                "fuse_rel_err": fused,
+                "device_ok": all(t.device == x.device for t in (avg, isum)),
+                "stats": {k: engine.stats[k] for k in (
+                    "hierarchical_ops", "fused_responses", "device_data_ops",
+                    "host_data_ops", "host_staged_ops")}}
+    return out
+
+
+def _eager_checks(hvd, torch, cpu: bool) -> dict:
+    """The eager engine on this world: every async op against numpy, join
+    with uneven submissions, repeated ops, and the engine's stats."""
+    import numpy as np
+
+    from . import _engine_registry
+    from .ops import eager
+
+    r, world = hvd.rank(), hvd.size()
+    dev = hvd.device()
+    rng = np.random.RandomState(2)
+    x_all = rng.randn(world, 5, 3).astype(np.float32)
+    i_all = rng.randint(-40, 40, (world, 6)).astype(np.int32)
+    x = torch.from_numpy(x_all[r]).to(dev)
+    rows = torch.from_numpy(np.arange(world * 2 * 3, dtype=np.float32)
+                            .reshape(world * 2, 3) * (r + 1)).to(dev)
+    ragged = torch.full((1 + r, 3), float(r), device=dev)
+    ops = {
+        "sum": (lambda: hvd.allreduce_async(x, hvd.Sum, name="e.sum"),
+                x_all.sum(0)),
+        "average": (lambda: hvd.allreduce_async(x, name="e.avg"),
+                    x_all.mean(0)),
+        "min": (lambda: hvd.allreduce_async(x, hvd.Min, name="e.min"),
+                x_all.min(0)),
+        "max": (lambda: hvd.allreduce_async(x, hvd.Max, name="e.max"),
+                x_all.max(0)),
+        "scaled": (lambda: hvd.allreduce_async(
+            x, hvd.Sum, name="e.scaled", prescale_factor=0.5,
+            postscale_factor=4.0), x_all.sum(0) * 2.0),
+        "int_average": (lambda: hvd.allreduce_async(
+            torch.from_numpy(i_all[r]).to(dev), name="e.iavg"),
+            np.floor_divide(i_all.astype(np.int64).sum(0), world)),
+        "bf16_sum": (lambda: hvd.allreduce_async(
+            x.bfloat16(), hvd.Sum, name="e.bf16"), x_all.sum(0)),
+        "adasum": (lambda: hvd.allreduce_async(x, hvd.Adasum,
+                                               name="e.adasum"),
+                   _adasum_rows(x_all)),
+        "allgather_ragged": (lambda: hvd.allgather_async(
+            ragged, name="e.ag"), np.concatenate(
+                [np.full((1 + q, 3), float(q)) for q in range(world)])),
+        "broadcast": (lambda: hvd.broadcast_async(x, world - 1,
+                                                  name="e.bcast"),
+                      x_all[world - 1]),
+        "alltoall": (lambda: eager.alltoall_async(rows, name="e.a2a"),
+                     np.concatenate([np.arange(world * 6, dtype=np.float64)
+                                     .reshape(world * 2, 3)[2 * r:2 * r + 2]
+                                     * (q + 1) for q in range(world)])),
+        "reducescatter": (lambda: eager.reducescatter_async(
+            rows, hvd.Sum, name="e.rs"),
+            (np.arange(world * 6, dtype=np.float64).reshape(world * 2, 3)
+             * sum(range(1, world + 1)))[2 * r:2 * r + 2]),
+        "reducescatter_ragged": (lambda: eager.reducescatter_async(
+            x, hvd.Average, name="e.rs_ragged"), None),
+    }
+    out = {}
+    handles = {k: fn() for k, (fn, _) in ops.items()}
+    for k, h in handles.items():
+        got = hvd.synchronize(h)
+        want = ops[k][1]
+        if k == "reducescatter_ragged":  # 5 rows: the first 5 % world ranks
+            base, rem = divmod(5, world)  # keep one more
+            lo = r * base + min(r, rem)
+            want = x_all.mean(0)[lo:lo + base + (r < rem)]
+        out[k] = {"rel_err": _rel(got.float().cpu().numpy(), want),
+                  "device_ok": got.device == x.device,
+                  "dtype": str(got.dtype)}
+    # join with uneven submissions: rank r submits r more averages
+    late = [hvd.synchronize(hvd.allreduce_async(
+        torch.full((4,), float((r + 1) * (k + 1)), device=dev),
+        name=f"e.late.{k}")) for k in range(r)]
+    out["join_last"] = hvd.join()
+    out["join_rel_err"] = max(
+        [_rel(got.cpu().numpy(), np.full(4, sum(
+            (q + 1) * (k + 1) for q in range(k + 1, world)) / world))
+         for k, got in enumerate(late)] or [0.0])
+    burst = [hvd.allreduce_async(torch.full((4,), float(k), device=dev),
+                                 hvd.Sum, name=f"e.fuse.{k}")
+             for k in range(16)]  # small same-kind tensors: they fuse
+    out["fuse_rel_err"] = max(_rel(hvd.synchronize(h).cpu().numpy(),
+                                   np.full(4, float(k * world)))
+                              for k, h in enumerate(burst))
+    for _ in range(40):  # one name again and again: cache hits, replay
+        hvd.synchronize(hvd.allreduce_async(x, hvd.Sum, name="e.repeat"))
+    stats = dict(_engine_registry.get_engine().stats)
+    out["stats"] = {k: stats[k] for k in (
+        "cycles", "negotiated_cycles", "replay_cycles", "replay_epochs",
+        "cache_hits", "fused_responses", "negotiated_responses",
+        "cached_responses", "control_bytes", "payload_bytes",
+        "host_data_ops", "host_staged_ops", "device_data_ops",
+        "device_payload_bytes")}
+    out["on_card"] = not cpu
+    return out
+
+
+def _adasum_rows(rows):
+    from .ops.adasum import _numpy_adasum_rows
+
+    return _numpy_adasum_rows(rows.reshape(rows.shape[0], -1)).reshape(
+        rows.shape[1:])
+
+
+def _time_synchronize(opt) -> list:
+    """Record the seconds each ``opt.synchronize()`` takes (the step's
+    wait on the engine) into the returned list."""
+    waits = []
+    inner = opt.synchronize
+
+    def timed():
+        t0 = time.perf_counter()
+        inner()
+        waits.append(time.perf_counter() - t0)
+
+    opt.synchronize = timed
+    return waits
+
+
+def _cycle_hists():
+    """``(count, sum)`` of the engine's cycle work time (a cycle's time
+    without its sleep) and of its negotiation time, in ms."""
+    from ._obs import get_registry
+
+    reg = get_registry()
+    return tuple((h.count, h.sum) for h in (
+        reg.histogram("engine.cycle_time_ms"),
+        reg.histogram("engine.negotiation_ms")))
+
+
 def _training(hvd, torch, cpu: bool) -> dict:
+    from . import _engine_registry
+    from .interop import torch as ht
     from .optim.overlap import OverlapPlan
     from .train import build_gpt_step, make_adamw
 
     step_args = (("nano", "fp32", 2, 32) if cpu
                  else ("small", "bf16", 8, 1024))
     axes = (hvd.LOCAL_AXIS, hvd.CROSS_AXIS)
+
+    def hook(m):
+        return ht.DistributedOptimizer(make_adamw(m.parameters()),
+                                       named_parameters=m.named_parameters())
+
     plans = {
         "off": None,
         "bucket": lambda m: OverlapPlan(m.parameters(), make_adamw,
@@ -157,6 +387,13 @@ def _training(hvd, torch, cpu: bool) -> dict:
             hierarchical_axes=axes, dcn_compression="bf16"),
         "adasum": lambda m: hvd.DistributedOptimizer(
             make_adamw(m.parameters()), op=hvd.Adasum),
+        "eager_hook": hook,
+        "eager_hook_cycle_1ms": hook,
+        # the same with the interpreter's thread switch interval cut from
+        # 5 ms to 0.5 ms: the engine's thread and the training thread share
+        # the GIL, and each GIL-releasing call of the engine (every gloo
+        # and NCCL call) waits up to one interval to take it back
+        "eager_hook_switch_0.5ms": hook,
     }
     sync = (lambda: None) if cpu else torch.cuda.synchronize
     out = {}
@@ -165,18 +402,48 @@ def _training(hvd, torch, cpu: bool) -> dict:
                                         device="cpu" if cpu else None)
         if make is not None:
             state = (state[0], make(state[0]), state[2])
+        eager_run = name.startswith("eager_hook")
+        if eager_run:
+            waits = _time_synchronize(state[1])
+        switch = sys.getswitchinterval()
+        if name == "eager_hook_switch_0.5ms":
+            sys.setswitchinterval(0.0005)
         losses = []
-        for k in range(WARMUP + STEPS):
-            if k == WARMUP:
+        # each engine run starts an engine of its own, with its knobs
+        with (_engine_env(**HOOK_ENV.get(name, {})) if eager_run
+              else contextlib.nullcontext()):
+            try:
+                for k in range(WARMUP + STEPS):
+                    if k == WARMUP:
+                        sync()
+                        t0 = time.perf_counter()
+                        if eager_run:
+                            stats0 = dict(_engine_registry.get_engine().stats)
+                            hist0 = _cycle_hists()
+                            waits.clear()
+                    model, opt, loss = step(*state)
+                    state = (model, opt, state[2])
+                    losses.append(loss)
                 sync()
-                t0 = time.perf_counter()
-            model, opt, loss = step(*state)
-            state = (model, opt, state[2])
-            losses.append(loss)
-        sync()
-        secs = (time.perf_counter() - t0) / STEPS
-        out[name] = {"losses": [float(x) for x in losses],
-                     "step_ms": secs * 1e3}
+                secs = (time.perf_counter() - t0) / STEPS
+            finally:
+                sys.setswitchinterval(switch)
+            out[name] = {"losses": [float(x) for x in losses],
+                         "step_ms": secs * 1e3}
+            if eager_run:
+                stats = _engine_registry.get_engine().stats
+                (n, work), (m, neg) = (
+                    (c - c0, s_ - s0) for (c, s_), (c0, s0)
+                    in zip(_cycle_hists(), hist0))
+                out[name].update(
+                    synchronize_ms=sum(waits) * 1e3 / STEPS,
+                    cycle_work_ms=work / max(n, 1),
+                    negotiation_ms=neg / max(m, 1),
+                    per_step={k: (stats[k] - stats0[k]) / STEPS for k in (
+                        "cycles", "negotiated_cycles", "replay_cycles",
+                        "cached_responses", "negotiated_responses",
+                        "fused_responses", "device_data_ops",
+                        "host_data_ops", "host_staged_ops")})
         del step, state, model, opt
     off = out["off"]["losses"]
     for name, run in out.items():
@@ -189,6 +456,36 @@ def _training(hvd, torch, cpu: bool) -> dict:
 
 def _failures(checks: dict, train: dict) -> list:
     bad = []
+    e = checks["eager"]
+    for name, c in e.items():
+        if isinstance(c, dict) and "rel_err" in c and (
+                c["rel_err"] > (2.0 ** -7 if "bf" in name else TOL)
+                or not c["device_ok"]):
+            bad.append(f"eager {name}")
+    if e["join_rel_err"] > TOL:
+        bad.append("eager join")
+    if e["fuse_rel_err"] > TOL:
+        bad.append("eager fused burst")
+    s = e["stats"]
+    if not (s["fused_responses"] and s["cache_hits"] and s["replay_epochs"]):
+        bad.append(f"eager stats {s}")
+    if e["on_card"] and (s["host_data_ops"] or s["host_staged_ops"]
+                         or not s["device_data_ops"]):
+        bad.append(f"eager: a CUDA payload took a host path {s}")
+    for wire, c in checks["eager_two_level"].items():
+        s = c["stats"]
+        if (c["average_rel_err"] > (2.0 ** -7 if wire == "bf16" else TOL)
+                or c["fuse_rel_err"] > TOL or not c["int_sum_exact"]
+                or not c["device_ok"]):
+            bad.append(f"eager two-level ({wire})")
+        # on the card every allreduce (2 ops and the fused burst) runs the
+        # two-level schedule; the CPU world has no two-level engine plane
+        if e["on_card"] and not (c["hierarchical"]
+                                 and s["hierarchical_ops"] >= 3
+                                 and s["fused_responses"]
+                                 and not s["host_data_ops"]
+                                 and not s["host_staged_ops"]):
+            bad.append(f"eager two-level ({wire}): {c['hierarchical']} {s}")
     for name in ("adasum_world", "adasum_local_group",
                  "hierarchical_allreduce"):
         if checks[name]["rel_err"] > TOL:
@@ -210,7 +507,7 @@ def _failures(checks: dict, train: dict) -> list:
         if not all(math.isfinite(x) for x in run["losses"]):
             bad.append(f"{name}: non-finite loss")
         tol = (LOSS_RTOL["bf16_cross"] if name.endswith("bf16_cross")
-               else LOSS_RTOL["mean"])
+               else LOSS_RTOL.get(name, LOSS_RTOL["mean"]))
         if name != "adasum" and run["max_rel_loss_diff_vs_off"] > tol:
             bad.append(f"{name}: losses off by "
                        f"{run['max_rel_loss_diff_vs_off']:.2e}")
@@ -238,6 +535,9 @@ def _worker(rank, world, local_size, port, cpu, out):
         device = "cpu" if cpu else f"cuda:{rank % torch.cuda.device_count()}"
         hvd.init(device=device)
         checks = _collective_checks(hvd, torch)
+        with _engine_env(HVDTPU_SCHEDULE_REPLAY_CYCLES=REPLAY_CYCLES):
+            checks["eager"] = _eager_checks(hvd, torch, cpu)
+        checks["eager_two_level"] = _two_level_checks(hvd, torch)
         train = _training(hvd, torch, cpu)
         out.put((rank, True, {"checks": checks, "train": train,
                               "failures": _failures(checks, train)}))

@@ -775,3 +775,274 @@ def adasum_odd_world_worker():
         return None
     except ValueError as e:
         return str(e)
+
+
+def replay_worker(n, tuned):
+    """``n`` blocking Sum allreduces of ones under one name through the
+    eager engine; the values and the engine's stats.  Then ``tuned`` more
+    on a second engine started with the online autotuner on (a sample per
+    cycle, no warm-up): their values, and the engine's parameters before
+    and after, read once the coordinated shutdown has stopped every rank's
+    cycle on the same one."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _engine_registry
+
+    values = [float(hvd.synchronize(hvd.allreduce_async(
+        torch.ones(8), hvd.Sum, name="grad"))[0]) for _ in range(n)]
+    stats = dict(_engine_registry.get_engine().stats)
+    stats["values"] = values
+
+    _engine_registry.shutdown_engine()
+    os.environ.update({"HVDTPU_AUTOTUNE": "1",
+                       "HVDTPU_AUTOTUNE_WARMUP_SAMPLES": "0",
+                       "HVDTPU_AUTOTUNE_STEPS_PER_SAMPLE": "1"})
+    eng = _engine_registry.get_engine()
+    start = (eng.fusion_bytes, eng.cycle_s)
+    values = [float(hvd.synchronize(hvd.allreduce_async(
+        torch.ones(8), hvd.Sum, name="tuned"))[0]) for _ in range(tuned)]
+    _engine_registry.shutdown_engine()
+    stats["tuner"] = {
+        "values": values, "tuning": eng._pm is not None, "start": start,
+        "end": (eng.fusion_bytes, eng.cycle_s, eng.cache_enabled)}
+    return stats
+
+
+def _np(t):
+    """A tensor as numpy; bf16 (which numpy lacks) as fp32."""
+    return (t.float() if str(t.dtype) == "torch.bfloat16" else t).numpy()
+
+
+def eager_worker(inputs):
+    """Every eager op on this rank's ``inputs[case][rank]``, the engine's
+    fused responses, the duplicate-name and dtype-mismatch errors, ``join``
+    with rank 1 submitting three more ops, then rank 0's ``shutdown`` while
+    rank 1 holds a pending op.  Returns numpy results and the errors' text."""
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _engine_registry
+    from horovod_tpu_torch.exceptions import HorovodShutdownError
+    from horovod_tpu_torch.ops import eager
+
+    r = hvd.rank()
+    mine = {k: torch.from_numpy(v[r]) for k, v in inputs.items()
+            if k != "ragged"}
+    eng = _engine_registry.get_engine()
+    fused = []
+    perform = eng._perform_operation
+
+    def record(resp):  # every response the engine executes, with its size
+        fused.append((list(resp.tensor_names),
+                      sum(int(torch.Size(s).numel()) * 4
+                          for s in getattr(resp, "_shapes", []))))
+        perform(resp)
+
+    eng._perform_operation = record
+    ops = {
+        "sum": lambda: hvd.allreduce_async(mine["x"], hvd.Sum, name="sum"),
+        "avg": lambda: hvd.allreduce_async(mine["x"], name="avg"),
+        "min": lambda: hvd.allreduce_async(mine["x"], hvd.Min, name="min"),
+        "max": lambda: hvd.allreduce_async(mine["x"], hvd.Max, name="max"),
+        "scaled": lambda: hvd.allreduce_async(
+            mine["x"], hvd.Sum, name="scaled", prescale_factor=2.0,
+            postscale_factor=0.25),
+        "int_avg": lambda: hvd.allreduce_async(mine["i"], name="int_avg"),
+        "i64_sum": lambda: hvd.allreduce_async(mine["l"], hvd.Sum,
+                                               name="i64_sum"),
+        "bf16_sum": lambda: hvd.allreduce_async(mine["x"].bfloat16(),
+                                                hvd.Sum, name="bf16_sum"),
+        "f64_avg": lambda: hvd.allreduce_async(mine["x"].double(),
+                                               name="f64_avg"),
+        "adasum": lambda: hvd.allreduce_async(mine["x"], hvd.Adasum,
+                                              name="adasum"),
+        "allgather": lambda: hvd.allgather_async(mine["rows"],
+                                                 name="allgather"),
+        "allgather_ragged": lambda: hvd.allgather_async(
+            torch.from_numpy(inputs["ragged"][r]), name="ragged"),
+        "broadcast": lambda: hvd.broadcast_async(mine["x"], 1,
+                                                 name="broadcast"),
+        "alltoall": lambda: eager.alltoall_async(mine["rows"],
+                                                 name="alltoall"),
+        "reducescatter": lambda: eager.reducescatter_async(
+            mine["rows"], hvd.Sum, name="reducescatter"),
+        "reducescatter_ragged": lambda: eager.reducescatter_async(
+            mine["odd"], hvd.Average, name="reducescatter_ragged"),
+    }
+    handles = {k: fn() for k, fn in ops.items()}
+    inplace = mine["x"].clone()
+    handles_inplace = hvd.allreduce_async_(inplace, hvd.Sum, name="inplace")
+    out = {k: _np(hvd.synchronize(h)) for k, h in handles.items()}
+    out["inplace_is_arg"] = hvd.synchronize(handles_inplace) is inplace
+    out["inplace"] = inplace.numpy()
+    out["dtypes"] = {k: str(hvd.synchronize(h).dtype)
+                     for k, h in handles.items()}
+    eager.barrier()
+
+    # N small named tensors in one burst: fewer responses than tensors
+    fused.clear()
+    burst = [hvd.allreduce_async(torch.full((4,), float(i)), hvd.Sum,
+                                 name=f"fuse.{i}") for i in range(16)]
+    out["burst"] = [float(hvd.synchronize(h)[0]) for h in burst]
+    out["burst_responses"] = [f for f in fused if f[0][0].startswith("fuse.")]
+
+    # the duplicate-name error: a second in-flight op under one name
+    first = hvd.allreduce_async(mine["x"], hvd.Sum, name="dup")
+    try:
+        hvd.synchronize(hvd.allreduce_async(mine["x"], hvd.Sum, name="dup"))
+        out["duplicate"] = None
+    except ValueError as e:
+        out["duplicate"] = str(e)
+    hvd.synchronize(first)
+
+    # a dtype mismatch raises on both ranks
+    t = mine["x"] if r == 0 else mine["i"]
+    try:
+        hvd.synchronize(hvd.allreduce_async(t, hvd.Sum, name="mismatch"))
+        out["mismatch"] = None
+    except RuntimeError as e:
+        out["mismatch"] = str(e)
+
+    # join with uneven submissions: rank 1 reduces three more tensors while
+    # rank 0 has joined (it contributes zeros; AVERAGE divides by the world)
+    if r == 1:
+        out["after_join"] = [
+            hvd.synchronize(hvd.allreduce_async(
+                mine["x"] * (k + 1), name=f"late.{k}")).numpy()
+            for k in range(3)]
+    out["join"] = hvd.join()
+    out["stats"] = dict(eng.stats)
+
+    # shutdown with a peer's collective pending
+    if r == 1:
+        pending = hvd.allreduce_async(mine["x"], name="pending")
+    dist.barrier()
+    if r == 0:
+        hvd.shutdown()
+        out["shutdown_error"] = None
+    else:
+        try:
+            hvd.synchronize(pending)
+            out["shutdown_error"] = None
+        except HorovodShutdownError as e:
+            out["shutdown_error"] = type(e).__name__
+    return out
+
+
+def interop_worker(state_np, tokens, steps, bn_xs, bn_ws, env):
+    """``interop.torch``'s hook DistributedOptimizer against the port's flat
+    one on gpt-nano (fp32) from ``state_np``: AdamW steps with 1 and 2
+    backward passes a step, and the synchronize / clip / step pattern;
+    broadcast_parameters and broadcast_optimizer_state through the engine;
+    the Adasum delta optimizer; SyncBatchNorm on ``bn_xs[rank]``.  ``env``
+    is set before the engine starts (the engine reads its knobs then)."""
+    import os
+
+    os.environ.update(env)
+    import torch
+
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.interop.torch as ht
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.train import lm_loss, make_adamw
+
+    r, n = hvd.rank(), hvd.size()
+    rows = tokens.shape[0] // n
+    mine = torch.from_numpy(tokens[r * rows:(r + 1) * rows])
+
+    def model():
+        m = gpt("nano", device="cpu", dtype=torch.float32, flash_block_q=16,
+                flash_block_k=16)
+        m.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in state_np.items()})
+        if r != 0:  # a drifted replica: the broadcast must overwrite it
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.add_(1.0)
+        ht.broadcast_parameters(m.state_dict(), root_rank=0)
+        return m
+
+    def params(m):
+        return {k: v.detach().numpy().copy()
+                for k, v in m.state_dict().items()}
+
+    def flat_run(k=1, clip=None):
+        m = model()
+        opt = hvd.DistributedOptimizer(make_adamw(m.parameters()),
+                                       backward_passes_per_step=k)
+        micro, losses = rows // k, []
+        for _ in range(steps):
+            for j in range(k):
+                opt.zero_grad()
+                loss = lm_loss(m, mine[j * micro:(j + 1) * micro])
+                loss.backward()
+                if clip is None:
+                    opt.step()
+            if clip is not None:
+                opt.synchronize()
+                torch.nn.utils.clip_grad_norm_(m.parameters(), clip)
+                opt.optimizer.step()
+            losses.append(hvd.allreduce(loss.detach()).item())
+        return losses, params(m)
+
+    def hook_run(k=1, clip=None):
+        m = model()
+        opt = ht.DistributedOptimizer(make_adamw(m.parameters()),
+                                      named_parameters=m.named_parameters(),
+                                      backward_passes_per_step=k)
+        micro, losses = rows // k, []
+        for _ in range(steps):
+            opt.zero_grad()
+            for j in range(k):
+                loss = lm_loss(m, mine[j * micro:(j + 1) * micro])
+                loss.backward()
+            if clip is None:
+                opt.step()
+            else:
+                opt.synchronize()
+                torch.nn.utils.clip_grad_norm_(m.parameters(), clip)
+                with opt.skip_synchronize():
+                    opt.step()
+            losses.append(hvd.allreduce(loss.detach()).item())
+        return losses, params(m), opt
+
+    out = {}
+    out["flat"] = flat_run()
+    losses, p, opt = hook_run()
+    out["hook"] = (losses, p)
+    # optimizer state: perturb a replica, then broadcast from rank 0
+    if r != 0:
+        for st in opt.state.values():
+            st["exp_avg"].mul_(3.0)
+    ht.broadcast_optimizer_state(opt, root_rank=0)
+    out["state_digest"] = [float(st["exp_avg"].double().sum())
+                           for st in opt.state.values()]
+    out["flat_k2"] = flat_run(k=2)
+    out["hook_k2"] = hook_run(k=2)[:2]
+    out["flat_clip"] = flat_run(clip=0.5)
+    out["hook_clip"] = hook_run(clip=0.5)[:2]
+
+    # the Adasum delta optimizer: one SGD step of a linear map
+    torch.manual_seed(0)
+    lin = torch.nn.Linear(3, 2)
+    start = {k: v.detach().clone() for k, v in lin.named_parameters()}
+    aopt = ht.DistributedOptimizer(torch.optim.SGD(lin.parameters(), lr=0.1),
+                                   named_parameters=lin.named_parameters(),
+                                   op=ht.Adasum)
+    (lin(torch.full((1, 3), float(r + 1))) * (r - 0.5)).sum().backward()
+    grads = {k: v.grad.detach().clone() for k, v in lin.named_parameters()}
+    aopt.step()
+    out["adasum"] = {k: (start[k].numpy(), grads[k].numpy(),
+                         v.detach().numpy()) for k, v in
+                     lin.named_parameters()}
+
+    # SyncBatchNorm over the world's batch
+    bn = ht.SyncBatchNorm(bn_xs.shape[2])
+    x = torch.from_numpy(bn_xs[r]).requires_grad_()
+    y = bn(x)
+    (y * torch.from_numpy(bn_ws[r])).sum().backward()
+    out["sync_bn"] = (y.detach().numpy(), x.grad.numpy(),
+                      bn.running_mean.numpy(), bn.running_var.numpy())
+    return out

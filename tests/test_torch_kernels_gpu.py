@@ -24,8 +24,11 @@ Then the conv zoo's CUDA path (cuDNN, channels_last, the BatchNorm
 statistics) against its CPU path, which the CPU tests hold against JAX: one
 fp32 SGD step of ResNet-18 with TF32 off within ``chip_smoke.CONV_TOL``,
 and a bf16 step whose profile has no cuDNN layout-conversion kernel in any
-overlap mode.  Last, fp8 storage's ``act_store`` card against CPU and the
-sparse embedding path's SGD steps on the card.
+overlap mode.  Then fp8 storage's ``act_store`` card against CPU and the
+sparse embedding path's SGD steps on the card.  Last, the eager engine:
+every eager op keeps CUDA tensors on the card in their dtype, and the
+engine's data plane orders its NCCL reduce after the payloads' ready
+events and the caller's stream after the result.
 """
 
 from __future__ import annotations
@@ -340,3 +343,23 @@ def test_sparse_embedding_sgd_on_the_card(world):
     assert kinds_sparse == ["sparse"] * chip_smoke.SPARSE_STEPS
     assert torch.equal(dense, sparse)
     assert dense.abs().sum() > 0
+
+
+def test_eager_ops_keep_cuda_tensors_on_the_card(world):
+    """Every eager op on CUDA tensors (world of one): the result on the
+    card with the input's dtype, equal to the input, scales applied."""
+    ops = chip_smoke.eager_ops_check()
+    assert all(dev.startswith("cuda") for dev, _ in ops.values())
+
+
+def test_eager_data_plane_orders_the_streams(world):
+    """The engine's fused allreduce on a 1-rank NCCL group: the engine's
+    stream waits on the payloads' ready events (they are written late, on
+    the caller's stream), ``synchronize`` returns while the caller's stream
+    is still busy, and the results, read on the caller's stream right after
+    it (before the card drains), equal the plain version bit for bit."""
+    rec = chip_smoke.eager_plane_check(shapes=((256, 64), (64,), (1000,)))
+    for dtype in ("float32", "bfloat16"):
+        assert rec[dtype]["max_abs_err"] == 0.0
+        assert rec[dtype]["on_card"]
+        assert rec[dtype]["synchronize_left_stream_busy"]

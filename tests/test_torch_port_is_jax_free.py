@@ -62,7 +62,11 @@ def _run_isolated():
 def test_every_module_imports_without_jax():
     res = _run_isolated()
     for mod in ("ops.flash_attention", "train", "optim.overlap", "ops.rope",
-                "runtime.autotune", "bench"):
+                "runtime.autotune", "bench", "runtime.engine",
+                "runtime.controller", "runtime.device_plane",
+                "runtime.messages", "runtime.response_cache",
+                "runtime.timeline", "ops.eager", "interop.torch",
+                "_engine_registry", "_obs", "testing.faults"):
         assert f"horovod_tpu_torch.{mod}" in res["modules"], mod
     assert res["leaked"] == []
     # causal pairs of gpt-small's attention x 4 * head_dim

@@ -61,6 +61,22 @@ def test_every_reference_name_is_ported_or_tabled(name):
         assert getattr(hvd, name) is not None
 
 
+A9_NAMES = ("allreduce_async", "allreduce_async_", "allgather_async",
+            "broadcast_async", "broadcast_async_", "synchronize", "poll",
+            "join")
+
+
+def test_the_eager_names_are_ported():
+    """ROADMAP A9: the eager engine's names are the port's own, from
+    ``ops.eager``, and none of them is in the table any more."""
+    from horovod_tpu_torch.ops import eager
+
+    for name in A9_NAMES:
+        assert name not in hvd.NOT_PORTED
+        assert getattr(hvd, name) is getattr(eager, name)
+    assert not any(item == "A9" for item, _ in hvd.NOT_PORTED.values())
+
+
 def test_the_table_holds_only_reference_names():
     assert set(hvd.NOT_PORTED) <= set(REFERENCE_NAMES)
 
