@@ -96,6 +96,43 @@ dQ (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``: fp32 and head_dims
    memory beside bf16's.  Then ``act_store`` on the card against the CPU
    on ``act_store_grid``, values and gradients, NaN where NaN.
 
+12. ``serve_check`` (fp32, TF32 off): the serving path, which runs no
+   kernel of this repo (decode and prefill attention are fp32 einsums, as
+   the reference's).  gpt-small (reference attention, seed-0 weights) in
+   a contiguous ``SlotEngine`` of 8 slots serving 12 greedy requests of
+   16 tokens (prompts of ``RandomState(0).randint(16, 257)`` tokens): each
+   emission's logit row (the first token's and the decoded ones') within
+   ``SERVE_LOGIT_RTOL`` x max |logit| of a teacher-forced ``GPT.forward``
+   over prompt + tokens, every token by the margin rule (``margin_rule``)
+   at ``SERVE_FP32_MARGIN`` against it, and the same gate rejecting a
+   planted fault (``planted_fault``); then the same engine and
+   requests at 2 layers on the card and on the CPU from the same weights:
+   logits of every emission within ``SERVE_LOGIT_RTOL``, tokens by the
+   margin rule.
+13. ``serve`` (bf16): gpt-small as ``train`` builds it (learned positions,
+   seed 0) behind a 16-slot ``SlotEngine``, contiguous (``cache_len``
+   1024) and then paged (512 pages of 16 rows, half the worst case, so
+   admission waits for pages), serving 48 requests enqueued at step 0
+   (prompts of ``randint(16, 769)`` tokens, budgets ``randint(16, 129)``,
+   every 4th request sampled at temperature 0.8, top-k 50) through the
+   scheduler loop: every request ends with exactly its budget of tokens
+   in range, no NaN logit, no kernel launch, the paged streams equal the
+   contiguous ones bit for bit, and each greedy stream, whole, passes the
+   margin rule at ``SERVE_BF16_MARGIN`` against a teacher-forced bf16
+   forward (flash kernels); the same gate must reject a planted fault
+   (``planted_fault``).  Printed: wall seconds, requests/s, generated
+   tokens/s, the median decode-step ms (CUDA events and host clock) at 16
+   active slots, prefill ms by prompt bucket (these timed numbers include
+   the NaN tap's three small launches per engine call), ``kv_stats`` at
+   the step of most live rows (read after the loop), peak memory, and,
+   untapped, one decode step and one 512-token admission profiled as
+   ``profile_step`` does.
+14. ``sampler_check``: ``ops/prng.py`` and ``serve/sampling.py`` on the
+   card against the CPU: keys, folds, splits and 32000 random bits equal
+   on a grid of seeds, rids and emission indices; Gumbel noise within
+   ``GUMBEL_ULPS`` ulp (at the scale max(|g|, 1)); ``sample_token`` on 256
+   rows of 32000 fp32 logits, the same tokens by the margin rule at 1e-5.
+
 Then the ``kernels`` summary, the card's name and power limit, and
 ``{"ok": true, ...}`` as the last line.  Any failure raises and exits
 nonzero; without a GPU it exits 2 and prints no result.
@@ -1476,6 +1513,634 @@ def fp8(fa, train_run, resnet_off) -> None:
          act_store=act_store_check())
 
 
+# ---------------------------------------------------------------------------
+# Serving: phases serve_check, serve and sampler_check.  The serving path
+# runs no kernel of this repo: decode and prefill attention are fp32
+# einsums in the reference (horovod_tpu/models/decode.py:115-168), and so
+# in the port; the Dense products are cuBLAS's through F.linear.
+# ---------------------------------------------------------------------------
+
+VOCAB = 32000
+# serve_check: gpt-small fp32, reference attention, TF32 off
+SERVE_CHECK = {"slots": 8, "requests": 12, "prompt": (16, 257), "new": 16}
+# logits, engine against a teacher-forced forward and card against CPU:
+# |got - want| <= SERVE_LOGIT_RTOL x max |want| (fp32 sums in other
+# orders over 768-wide rows and a 32000-wide head)
+SERVE_LOGIT_RTOL = 1e-4
+# fp32 tokens are held by the margin rule at this gap of the reference's
+# top two logits
+SERVE_FP32_MARGIN = 1e-3
+SERVE_CPU_LAYERS = 2
+# serve: gpt-small bf16, 48 requests all enqueued at step 0
+SERVE_SLOTS = 16
+SERVE_REQUESTS = 48
+SERVE_PROMPT = (16, 769)
+SERVE_NEW = (16, 129)
+SERVE_SAMPLE_EVERY = 4
+SERVE_SAMPLING = {"temperature": 0.8, "top_k": 50}
+SERVE_PAGE_SIZE = 16
+SERVE_PAGES = 512      # half the worst case (16 slots x 64 pages)
+# bf16 greedy tokens against a teacher-forced bf16 forward (flash
+# kernels): decode attends in fp32 over the bf16 cache, the forward in the
+# flash kernels with bf16 P, and the head rounds the logits to bf16 (steps
+# of 0.03125 at |logit| 4-8, where the top logits sit), so near ties are
+# one or two such steps apart.  Held over whole streams on an NVIDIA H100
+# 80GB HBM3 (700 W), the 36 greedy streams (2,293 tokens) show 51 near
+# ties in 23 streams, the largest gap 0.03125; the margin is twice that.
+# The phase checks that it still rejects a planted fault (``planted_fault``).
+SERVE_BF16_MARGIN = 0.0625
+# sampler_check
+SAMPLER_SEEDS = (0, 7, 2**31 + 5, 2**40 + 3)
+SAMPLER_RIDS = ("", "r0", "req-1")
+SAMPLER_INDICES = (0, 1, 17, 1000)
+SAMPLER_ROWS = 256
+SAMPLER_MARGIN = 1e-5
+GUMBEL_ULPS = 2
+
+
+def margin_rule(got, want, scores, tol, *, teacher_forced: bool) -> dict:
+    """Hold token stream ``got`` against ``want``: equal, or a near tie:
+    the reference's score of ``got`` within ``tol`` of its score of
+    ``want`` (its top; bf16 logits tie three ways too, so this is the
+    top-two rule without the count).  Raises on a violation.
+
+    ``teacher_forced``: the reference's scores come from a forward over
+    ``got``'s own history, so both sides share it at every step and the
+    whole stream is held, near ties counted.  Otherwise (two engines
+    decoding on their own) the histories part at the first near tie, and
+    the comparison stops there."""
+    import numpy as np
+
+    scores = np.asarray(scores, dtype=np.float64)
+    ties, gaps = [], []
+    for i, (g, w) in enumerate(zip(list(got), list(want))):
+        if g == w:
+            continue
+        gap = float(scores[i][w] - scores[i][g])
+        if not gap <= tol:
+            raise AssertionError(
+                f"step {i}: token {g} != reference {w}, {gap:.4g} below it "
+                f"in the reference's scores (tolerance {tol})")
+        ties.append(i)
+        gaps.append(gap)
+        if not teacher_forced:
+            return {"compared": i + 1, "near_ties": ties, "max_gap": gap}
+    return {"compared": min(len(got), len(want)), "near_ties": ties,
+            "max_gap": max(gaps, default=None)}
+
+
+def serve_requests(n, prompt, new, sample_every=None, vocab=VOCAB):
+    """``n`` requests: prompt lengths ``RandomState(0).randint(*prompt)``,
+    budgets ``randint(*new)`` (or ``new`` itself), tokens ``randint(0,
+    vocab)``; every ``sample_every``-th request (the 4th, 8th, ...)
+    sampled with ``SERVE_SAMPLING``."""
+    import numpy as np
+
+    from horovod_tpu_torch.serve import Request
+
+    rng = np.random.RandomState(0)
+    lens = rng.randint(*prompt, size=n)
+    news = rng.randint(*new, size=n) if isinstance(new, tuple) else [new] * n
+    reqs = []
+    for i in range(n):
+        sampled = sample_every and (i + 1) % sample_every == 0
+        reqs.append(Request(
+            rid=f"r{i}", prompt=tuple(int(t) for t in rng.randint(
+                0, vocab, lens[i])), max_new_tokens=int(news[i]),
+            **(SERVE_SAMPLING if sampled else {})))
+    return reqs
+
+
+class LogitTap:
+    """Taps the logits the engine's decode functions return (patched into
+    ``horovod_tpu_torch.serve.engine`` while entered): a device-side NaN
+    flag always, and with ``keep`` the last logits on the host."""
+
+    NAMES = ("assign_slot", "assign_slot_paged", "decode_step",
+             "decode_step_paged")
+
+    def __init__(self, keep: bool):
+        self.keep, self.last, self.nan = keep, None, None
+
+    def __enter__(self):
+        from horovod_tpu_torch.serve import engine
+
+        self._orig = {n: getattr(engine, n) for n in self.NAMES}
+        for n, fn in self._orig.items():
+            setattr(engine, n, self._wrap(fn, n.startswith("assign")))
+        return self
+
+    def __exit__(self, *exc):
+        from horovod_tpu_torch.serve import engine
+
+        for n, fn in self._orig.items():
+            setattr(engine, n, fn)
+
+    def _wrap(self, fn, admit: bool):
+        import torch
+
+        def tapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            logits = out[1] if admit else out[0]
+            flag = torch.isnan(logits).any()
+            self.nan = flag if self.nan is None else self.nan | flag
+            if self.keep:
+                self.last = logits.float().cpu()
+            return out
+
+        return tapped
+
+
+def serve_loop(engine, reqs, tap=None, timed: bool = False) -> dict:
+    """The scheduler loop of ``tests/test_serve.py`` over ``reqs``, all
+    enqueued at step 0: admit (the paged engine's page gate), record,
+    evict, step, record, evict (``release_slot`` in paged mode).  Returns
+    the tokens by request, with ``tap.keep`` the logits of each emission
+    by request, and with ``timed`` CUDA events around every admission and
+    step, the host time of each, and ``kv_stats`` at the step of most
+    live KV rows (read after the loop)."""
+    import torch
+
+    from horovod_tpu_torch.serve import SlotScheduler, prompt_bucket
+
+    sched = SlotScheduler(engine.num_slots)
+    for r in reqs:
+        sched.enqueue(r)
+    paged = engine.paged is not None
+    tokens, logits = {}, {r.rid: [] for r in reqs}
+    admits_t, steps_t = [], []
+    peak = {"live_rows": -1}
+
+    def evict():
+        for ev in sched.evict_finished():
+            tokens[ev.rid] = list(ev.tokens)
+            if paged:
+                engine.release_slot(ev.slot)
+
+    def events():
+        if not timed:
+            return None
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        return ev
+
+    step = 0
+    t0 = time.perf_counter()
+    while len(tokens) < len(reqs):
+        step += 1
+        if step > 10_000:
+            raise AssertionError(f"serving {len(reqs)} requests did not end")
+        for adm in sched.admit(step, can_admit=engine.admission_gate()):
+            req = adm.req
+            ev, h0 = events(), time.perf_counter()
+            tok = engine.admit(adm.slot, req.prompt, adm.resume,
+                               total_len=len(req.prompt) + req.max_new_tokens,
+                               temperature=req.temperature, top_k=req.top_k,
+                               rid=req.rid)
+            if ev:
+                ev[1].record()
+                admits_t.append((ev, time.perf_counter() - h0, prompt_bucket(
+                    len(req.prompt), engine.serve_len)))
+            if tap is not None and tap.keep:
+                logits[req.rid].append(tap.last)
+            sched.record(adm.slot, tok)
+        evict()
+        active = sorted(sched.active)
+        if active:
+            ev, h0 = events(), time.perf_counter()
+            toks = engine.step(active)
+            if ev:
+                ev[1].record()
+                steps_t.append((ev, time.perf_counter() - h0, len(active)))
+            for slot in active:
+                if tap is not None and tap.keep:
+                    logits[sched.active[slot].req.rid].append(tap.last[slot])
+                sched.record(slot, toks[slot])
+            live = sum(len(a.req.prompt) + len(a.emitted) - 1
+                       for a in sched.active.values())
+            if timed and live > peak["live_rows"]:
+                # no host read here: the paged stats are host state, the
+                # contiguous positions are cloned on the card and read
+                # after the loop
+                peak = {"live_rows": live, "step": step,
+                        "active": active,
+                        "kv_stats": engine.kv_stats(active) if paged
+                        else engine.cache["pos"].clone()}
+        evict()
+    wall = time.perf_counter() - t0
+    if timed and not paged:
+        pos, engine.cache["pos"] = engine.cache["pos"], peak["kv_stats"]
+        peak["kv_stats"] = engine.kv_stats(peak["active"])
+        engine.cache["pos"] = pos
+    return {"tokens": tokens, "logits": logits, "steps": step, "wall_s": wall,
+            "admits": admits_t, "decode_steps": steps_t, "peak": peak}
+
+
+def teacher_forced(model, req, toks, device):
+    """The model's logits over ``req.prompt + toks[:-1]`` at the positions
+    that predict ``toks`` (fp32 on the host): the engine's own history."""
+    import torch
+
+    seq = torch.tensor([list(req.prompt) + toks[:-1]], device=device)
+    return model(seq)[0, len(req.prompt) - 1:].float().cpu()
+
+
+def bf16_margins(model, greedy, tokens, device) -> dict:
+    """Each greedy request's tokens under the margin rule at
+    ``SERVE_BF16_MARGIN`` against the teacher-forced forward; raises
+    after the last request, naming every stream that failed."""
+    import torch
+
+    out, failed = {}, {}
+    with torch.inference_mode():
+        for r in greedy:
+            want = teacher_forced(model, r, tokens[r.rid], device)
+            try:
+                out[r.rid] = margin_rule(
+                    tokens[r.rid], want.argmax(-1).tolist(), want,
+                    SERVE_BF16_MARGIN, teacher_forced=True)
+            except AssertionError as e:
+                failed[r.rid] = str(e)
+    if failed:
+        raise AssertionError(f"serve: {len(failed)} of {len(greedy)} greedy "
+                             f"streams fail the bf16 margin rule: {failed}")
+    return out
+
+
+def planted_fault(model, reqs, slots, hold) -> dict:
+    """A gate against a planted fault: a contiguous engine of ``slots``
+    whose decode writes to the last row of every ``SERVE_PAGE_SIZE``-row
+    block land one row late (so each such token drops out of every later
+    step's history, a fault that shows only after the stream's first
+    block boundary) serves ``reqs`` with its logits tapped;
+    ``hold(run)``, the gate, must raise."""
+    import torch
+
+    from horovod_tpu_torch.models import decode
+    from horovod_tpu_torch.serve import SlotEngine
+
+    write_rows = decode._write_rows
+
+    def late(buf, dest, valid, new):
+        edge = dest % SERVE_PAGE_SIZE == SERVE_PAGE_SIZE - 1
+        write_rows(buf, torch.where(edge, dest + 1, dest).clamp(
+            max=buf.shape[1] - 1), valid, new)
+
+    decode._write_rows = late
+    try:
+        with LogitTap(keep=True) as tap:
+            run = serve_loop(SlotEngine(model, slots), reqs, tap)
+    finally:
+        decode._write_rows = write_rows
+    try:
+        hold(run)
+    except AssertionError as e:
+        return {"requests": len(reqs), "rejected": str(e)}
+    raise AssertionError("a gate passed a planted fault (decode writes one "
+                         "row late at each block boundary)")
+
+
+def check_stream_logits(name, got, want, tol_rel) -> float:
+    """The engine's logits of one request against the reference's, step by
+    step: max |got - want| / max |want|; raises past ``tol_rel``."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = (g - w).abs().max().item() / w.abs().max().item()
+        worst = max(worst, rel)
+        if not rel <= tol_rel:
+            raise AssertionError(f"{name} step {i}: logits {rel:.3g} x max "
+                                 f"|logit| from the reference's (> {tol_rel})")
+    return worst
+
+
+def serve_check(device: str = "cuda") -> dict:
+    """Phase ``serve_check`` (fp32, TF32 off): gpt-small's contiguous
+    ``SlotEngine`` (8 slots, 12 greedy requests of 16 tokens) against a
+    teacher-forced ``GPT.forward`` (and the same gate against a planted
+    fault), and at 2 layers the same engine on the card against the
+    CPU."""
+    import copy
+
+    import torch
+
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.serve import SlotEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reqs = serve_requests(SERVE_CHECK["requests"], SERVE_CHECK["prompt"],
+                          SERVE_CHECK["new"])
+    model = gpt("small", dtype=torch.float32, attention_impl="reference",
+                device=device)
+
+    def hold(run):
+        """Every emission's logits within ``SERVE_LOGIT_RTOL`` of the
+        teacher-forced forward (the first token's apart), every token by
+        the margin rule; raises."""
+        rel, margins = {"first": 0.0, "later": 0.0}, []
+        with torch.inference_mode():
+            for r in reqs:
+                toks, got = run["tokens"][r.rid], run["logits"][r.rid]
+                want = teacher_forced(model, r, toks, device)
+                rel["first"] = max(rel["first"], check_stream_logits(
+                    f"{r.rid} first token", got[:1], want[:1],
+                    SERVE_LOGIT_RTOL))
+                rel["later"] = max(rel["later"], check_stream_logits(
+                    f"{r.rid} decode", got[1:], want[1:], SERVE_LOGIT_RTOL))
+                margins.append(margin_rule(
+                    toks, want.argmax(-1).tolist(), want, SERVE_FP32_MARGIN,
+                    teacher_forced=True))
+        return rel, margins
+
+    with LogitTap(keep=True) as tap:
+        run = serve_loop(SlotEngine(model, SERVE_CHECK["slots"]), reqs, tap)
+    rel, margins = hold(run)
+    fault = planted_fault(model, reqs, SERVE_CHECK["slots"], hold)
+    del model, tap, run
+    release()
+
+    # card against CPU at gpt-small's widths, 2 layers, same weights
+    cpu = gpt("small", dtype=torch.float32, attention_impl="reference",
+              num_layers=SERVE_CPU_LAYERS, device="cpu")
+    card = copy.deepcopy(cpu).to(device)
+    runs = {}
+    for dev, m in (("cpu", cpu), ("card", card)):
+        with LogitTap(keep=True) as tap:
+            runs[dev] = serve_loop(SlotEngine(m, SERVE_CHECK["slots"]), reqs,
+                                   tap)
+    step_rel, card_margins = 0.0, []
+    for r in reqs:
+        want_toks = runs["cpu"]["tokens"][r.rid]
+        want_logits = runs["cpu"]["logits"][r.rid]
+        m = margin_rule(runs["card"]["tokens"][r.rid], want_toks,
+                        torch.stack(want_logits), SERVE_FP32_MARGIN,
+                        teacher_forced=False)
+        card_margins.append(m)
+        n = m["compared"]
+        step_rel = max(step_rel, check_stream_logits(
+            f"{r.rid} card vs CPU", runs["card"]["logits"][r.rid][:n],
+            want_logits[:n], SERVE_LOGIT_RTOL))
+    del card, cpu
+    release()
+    out = {
+        "model": "gpt-small", "dtype": "fp32", "tf32": False,
+        "attention_impl": "reference", "slots": SERVE_CHECK["slots"],
+        "requests": len(reqs), "new_tokens": SERVE_CHECK["new"],
+        "logit_rtol": SERVE_LOGIT_RTOL, "margin": SERVE_FP32_MARGIN,
+        "first_token_max_rel": rel["first"],
+        "decode_max_rel": rel["later"],
+        "tokens_compared": sum(m["compared"] for m in margins),
+        "tokens": sum(r.max_new_tokens for r in reqs),
+        "forward_near_ties": sum(len(m["near_ties"]) for m in margins),
+        "planted_fault": fault,
+        "card_vs_cpu": {"layers": SERVE_CPU_LAYERS, "step_max_rel": step_rel,
+                        "tokens_compared": sum(m["compared"]
+                                               for m in card_margins),
+                        "streams_stopped_at_a_near_tie": [
+                            r.rid for r, m in zip(reqs, card_margins)
+                            if m["near_ties"]]},
+    }
+    emit("serve_check", **out)
+    return out
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def serve_record(run, reqs, peak_mem) -> dict:
+    """The timed numbers of one traffic run."""
+    import torch
+
+    torch.cuda.synchronize()
+    new = sum(r.max_new_tokens for r in reqs)
+    full = [(ev[0].elapsed_time(ev[1]), host * 1e3)
+            for ev, host, n in run["decode_steps"] if n == SERVE_SLOTS]
+    by_bucket: dict = {}
+    for ev, host, bucket in run["admits"]:
+        by_bucket.setdefault(bucket, []).append(ev[0].elapsed_time(ev[1]))
+    return {
+        "wall_s": run["wall_s"], "steps": run["steps"],
+        "requests_per_s": len(reqs) / run["wall_s"],
+        "generated_tokens_per_s": new / run["wall_s"],
+        "decode_steps": len(run["decode_steps"]),
+        "decode_steps_at_16": len(full),
+        "decode_step_ms_median_at_16": _median([f[0] for f in full]),
+        "decode_step_host_ms_median_at_16": _median([f[1] for f in full]),
+        "prefill_ms_by_bucket": {
+            str(b): {"median_ms": _median(v), "admissions": len(v)}
+            for b, v in sorted(by_bucket.items())},
+        "peak": run["peak"], "peak_mem_gib": peak_mem,
+    }
+
+
+def serve(fa, device: str = "cuda") -> dict:
+    """Phase ``serve`` (bf16): gpt-small's ``SlotEngine`` with 16 slots,
+    contiguous, then paged (512 pages of 16, half the worst case), over 48
+    requests enqueued at step 0; the gates and numbers of the module
+    docstring.  Each engine is profiled after its run and dropped before
+    the next is built, so each run's peak memory is its own."""
+    import torch
+
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.serve import SlotEngine
+
+    reqs = serve_requests(SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
+                          SERVE_SAMPLE_EVERY)
+    model = gpt("small", device=device)
+    modes = {"contiguous": {},
+             "paged": {"kv_mode": "paged", "page_size": SERVE_PAGE_SIZE,
+                       "num_pages": SERVE_PAGES}}
+    tokens, records = {}, {}
+    for mode, kw in modes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = SlotEngine(model, SERVE_SLOTS, sample_seed=0, **kw)
+        fa.reset_launch_counts()              # the serving path starts here
+        with LogitTap(keep=False) as tap:
+            run = serve_loop(eng, reqs, tap, timed=True)
+            nan = bool(tap.nan)
+        launches = dict(fa.LAUNCHES)          # ... and ends here
+        records[mode] = serve_record(run, reqs,
+                                     torch.cuda.max_memory_allocated() / 2**30)
+        records[mode]["kernel_launches"] = launches
+        tokens[mode] = run["tokens"]
+        if nan:
+            raise AssertionError(f"serve {mode}: a NaN logit")
+        if any(launches.values()):
+            raise AssertionError(f"serve {mode}: kernels of this repo "
+                                 f"launched on the serving path: {launches}")
+        records[mode]["after_the_run"] = serve_profiles(eng)
+        del eng, run
+        release_cache()
+    for r in reqs:
+        toks = tokens["contiguous"][r.rid]
+        if len(toks) != r.max_new_tokens or not all(
+                0 <= t < VOCAB for t in toks):
+            raise AssertionError(f"serve {r.rid}: {len(toks)} tokens for a "
+                                 f"budget of {r.max_new_tokens}, or one out "
+                                 f"of range")
+    differ = [r.rid for r in reqs
+              if tokens["paged"][r.rid] != tokens["contiguous"][r.rid]]
+    if differ:
+        raise AssertionError(f"serve: paged and contiguous streams differ "
+                             f"for {differ}")
+    greedy = [r for r in reqs if r.temperature == 0]
+    margins = bf16_margins(model, greedy, tokens["contiguous"], device)
+    fault = planted_fault(
+        model, greedy, SERVE_SLOTS,
+        lambda run: bf16_margins(model, greedy, run["tokens"], device))
+    del model
+    release()
+    gaps = [m["max_gap"] for m in margins.values() if m["near_ties"]]
+    out = {
+        "model": "gpt-small", "dtype": "bf16", "pos_embedding": "learned",
+        "slots": SERVE_SLOTS, "requests": len(reqs),
+        "prompt_range": SERVE_PROMPT, "new_range": SERVE_NEW,
+        "sampled_every": SERVE_SAMPLE_EVERY, "sampling": SERVE_SAMPLING,
+        "generated_tokens": sum(r.max_new_tokens for r in reqs),
+        "prompt_tokens": sum(len(r.prompt) for r in reqs),
+        "page_pool": {"page_size": SERVE_PAGE_SIZE,
+                      "num_pages": SERVE_PAGES},
+        "paged_equals_contiguous": True,
+        "bf16_margin": SERVE_BF16_MARGIN,
+        "greedy_tokens_compared": sum(m["compared"]
+                                      for m in margins.values()),
+        "greedy_tokens": sum(r.max_new_tokens for r in greedy),
+        "near_ties": sum(len(m["near_ties"]) for m in margins.values()),
+        "streams_with_a_near_tie": len(gaps),
+        "max_near_tie_gap": max(gaps, default=None),
+        "planted_fault": fault,
+        **records,
+    }
+    emit("serve", **out)
+    return out
+
+
+def release_cache() -> None:
+    """Return the blocks of dropped tensors to the card (no check: the
+    model of the phase is still alive)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+PROFILE_PROMPT = 480   # 16 x 31 pages of 16 fit the 512-page pool
+PROFILE_STEPS = 5
+
+
+def serve_profiles(eng) -> dict:
+    """After a traffic run: 16 requests of ``PROFILE_PROMPT`` tokens in
+    every slot, the decode step's host-clock time (median of
+    ``PROFILE_STEPS``, each ending in the host read of the tokens) and one
+    more step profiled as ``profile_step`` does; then one admission into
+    slot 0 timed and profiled the same way."""
+    import numpy as np
+
+    eng.reset()
+    rng = np.random.RandomState(1)
+    prompts = [tuple(int(t) for t in rng.randint(0, VOCAB, PROFILE_PROMPT))
+               for _ in range(SERVE_SLOTS)]
+    total = PROFILE_PROMPT + 2 * PROFILE_STEPS + 2
+
+    def admit():
+        eng.release_slot(0)
+        eng.admit(0, prompts[0], total_len=total)
+
+    for slot, p in enumerate(prompts):
+        eng.admit(slot, p, total_len=total)
+    slots = list(range(SERVE_SLOTS))
+    out = {}
+    for name, fn in (("decode_step_16", lambda: eng.step(slots)),
+                     ("admission_480", admit)):
+        times = []
+        for _ in range(PROFILE_STEPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = _median(times)
+        out[name] = {"host_ms_median": ms, "host_ms": times,
+                     "profile": profile_step((), fn, ms, top=8)}
+    eng.reset()
+    return out
+
+
+def sampler_check(device: str = "cuda") -> dict:
+    """Phase ``sampler_check``: the threefry layer and the sampler on the
+    card against the CPU: keys, folds, splits and bits equal; Gumbel
+    noise within ``GUMBEL_ULPS`` ulp at the scale ``max(|g|, 1)``; tokens
+    of 256 rows of 32000 fp32 logits under the margin rule."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.ops import prng
+    from horovod_tpu_torch.serve import sampling
+
+    keys = 0
+    for seed in SAMPLER_SEEDS:
+        for rid in SAMPLER_RIDS:
+            base = {d: sampling.request_key(seed, rid, device=d)
+                    for d in ("cpu", device)}
+            outs = {d: [base[d], prng.split(base[d], (3, 4)),
+                        prng.random_bits(base[d], (VOCAB,))]
+                    + [sampling.token_key(base[d], i)
+                       for i in SAMPLER_INDICES] for d in base}
+            for a, b in zip(outs["cpu"], outs[device]):
+                if not torch.equal(a, b.cpu()):
+                    raise AssertionError(f"threefry on the card differs from "
+                                         f"the CPU (seed {seed}, rid {rid!r})")
+                keys += 1
+    worst_ulps = 0.0
+    for seed in SAMPLER_SEEDS:
+        g = {d: prng.gumbel(prng.prng_key(seed, d), (VOCAB,)).cpu()
+             for d in ("cpu", device)}
+        scale = np.spacing(np.maximum(np.abs(g["cpu"].numpy()), 1.0)
+                           .astype(np.float32))
+        ulps = float((np.abs(g[device].numpy() - g["cpu"].numpy())
+                      / scale).max())
+        worst_ulps = max(worst_ulps, ulps)
+        if ulps > GUMBEL_ULPS:
+            raise AssertionError(f"gumbel on the card {ulps} ulp from the "
+                                 f"CPU's (> {GUMBEL_ULPS})")
+    rng = np.random.RandomState(0)
+    logits = torch.from_numpy((rng.randn(SAMPLER_ROWS, VOCAB) * 3)
+                              .astype(np.float32))
+    temps = rng.choice([0.0, 0.8, 1.0], SAMPLER_ROWS).astype(np.float32)
+    topks = rng.choice([0, 50, 1000], SAMPLER_ROWS)
+    base = torch.stack([sampling.request_key(0, f"r{i}")
+                        for i in range(SAMPLER_ROWS)])
+    idx = torch.arange(SAMPLER_ROWS) % 7
+    got = sampling.sample_token(logits.to(device), temps, topks,
+                                sampling.token_key(base.to(device),
+                                                   idx.to(device))).cpu()
+    keys_cpu = sampling.token_key(base, idx)
+    want = sampling.sample_token(logits, temps, topks, keys_cpu)
+    lt = logits / torch.from_numpy(np.where(temps > 0, temps, 1.0))[:, None]
+    k = torch.from_numpy(np.where((topks > 0) & (topks < VOCAB), topks,
+                                  VOCAB))
+    kth = torch.sort(lt, dim=-1, descending=True).values.gather(
+        1, (k - 1)[:, None])
+    lt = torch.where(lt < kth, -torch.inf, lt)
+    noise = prng.gumbel(keys_cpu, (VOCAB,))
+    differ = 0
+    for i in range(SAMPLER_ROWS):
+        score = (lt[i] + noise[i]) if temps[i] > 0 else logits[i]
+        m = margin_rule([int(got[i])], [int(want[i])], score[None].numpy(),
+                        SAMPLER_MARGIN, teacher_forced=True)
+        differ += len(m["near_ties"])
+    out = {"key_checks": keys, "gumbel_max_ulps": worst_ulps,
+           "gumbel_ulp_limit": GUMBEL_ULPS, "rows": SAMPLER_ROWS,
+           "vocab": VOCAB, "tokens_differing_at_near_ties": differ,
+           "sampled_rows": int((temps > 0).sum())}
+    emit("sampler_check", **out)
+    return out
+
+
 # cuDNN's NCHW <-> NHWC conversion kernels: device time in them means a
 # tensor reached a convolution in the other layout
 LAYOUT_KERNELS = ("nchwToNhwc", "nhwcToNchw")
@@ -1585,6 +2250,10 @@ def main() -> int:
     eager(hvd, fa, run)
     release()
     fp8(fa, run, resnet_off)
+    release()
+    serve_check()
+    serve(fa)
+    sampler_check()
 
     summary = [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],

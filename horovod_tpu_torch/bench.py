@@ -147,7 +147,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def _check_ported(args) -> None:
     if args.serve:
-        raise NotImplementedError("--serve is not ported yet (ROADMAP A12)")
+        raise NotImplementedError(
+            "--serve is not ported yet (ROADMAP A12b: the serving plane)")
     if args.moe_experts:
         raise NotImplementedError(
             "--moe-experts is not ported yet (ROADMAP A11)")

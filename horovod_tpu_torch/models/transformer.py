@@ -146,11 +146,14 @@ def _attend(cfg: TransformerConfig, q, k, v):
 
 
 def block_math(cfg: TransformerConfig, x, rope_tabs, *, ln1, qkv, proj,
-               ln2, mlp):
+               ln2, mlp, attend=None):
     """The pre-LN block wiring: ``LN -> qkv -> split heads -> rope ->
     attend -> proj (+res) -> LN -> mlp (+res)``; ``proj`` and ``mlp``
     return the residual delta; ``rope_tabs`` is ``(cos, sin)`` or
-    ``None``."""
+    ``None``.  ``attend`` overrides the attention schedule: a callable
+    ``(q, k, v) -> att`` over the rope-applied ``[b, s, heads,
+    head_dim]`` tensors (the KV-cache decode path, ``models/decode.py``,
+    appends to its cache and attends against the prefix through it)."""
     def store(y):
         return act_store(y, cfg.act_store_dtype, cfg.dtype)
 
@@ -164,7 +167,8 @@ def block_math(cfg: TransformerConfig, x, rope_tabs, *, ln1, qkv, proj,
     if rope_tabs is not None:
         q = apply_rope_tables(q, *rope_tabs)
         k = apply_rope_tables(k, *rope_tabs)
-    att = store(_attend(cfg, q, k, v).reshape(b, s, q_dim))
+    att = attend(q, k, v) if attend is not None else _attend(cfg, q, k, v)
+    att = store(att.reshape(b, s, q_dim))
     x = x + store(proj(att))
     return x + store(mlp(ln2(x)))
 
@@ -195,13 +199,14 @@ class Block(nn.Module):
         self.fc1 = Dense(e, cfg.mlp_ratio * e, dt)
         self.fc2 = Dense(cfg.mlp_ratio * e, e, dt)
 
-    def forward(self, x, rope_tabs=None):
+    def forward(self, x, rope_tabs=None, attend=None):
         return block_math(
             self.cfg, x, rope_tabs, ln1=self.ln1, qkv=self.qkv, proj=self.proj,
             ln2=self.ln2,
             mlp=lambda h: self.fc2(act_store(
                 F.gelu(self.fc1(h), approximate="tanh"),
                 self.cfg.act_store_dtype, self.cfg.dtype)),
+            attend=attend,
         )
 
 
@@ -271,27 +276,49 @@ class GPT(nn.Module):
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.cfg.num_layers)]
 
-    def forward(self, tokens: torch.Tensor):
+    def embed(self, tokens: torch.Tensor,
+              positions: Optional[torch.Tensor] = None):
+        """The embedding step (the reference's ``_gpt_embed``,
+        horovod_tpu/parallel/tensor_parallel.py:198-225): ``(x,
+        rope_tabs)`` for ``tokens`` ``[b, s]``.  ``positions``: int,
+        ``[s]`` for every row or ``[b, s]`` per row; ``None`` means
+        ``0..s-1``.  The learned table is gathered with NaN past
+        ``max_len``, as ``jnp.take(mode="fill", fill_value=nan)`` does;
+        the RoPE tables are ``[positions.numel(), head_dim // 2]`` (per
+        row for ``[b, 1]`` positions), ``None`` for learned positions."""
         cfg = self.cfg
         s = tokens.shape[1]
         if s > cfg.max_len:
             raise ValueError(
                 f"sequence length {s} exceeds max_len={cfg.max_len}")
         x = self.wte(tokens).to(cfg.dtype)
-        rope_tabs = None
-        if cfg.pos_embedding == "learned":
-            x = x + self.wpe[:s].to(cfg.dtype)[None]
-        else:
-            # once for all blocks: a block's recompute does not redo them
+        if positions is None:
             positions = torch.arange(s, device=tokens.device)
-            rope_tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.pos_embedding == "learned":
+                return x + self.wpe[:s].to(cfg.dtype)[None], None
+        if cfg.pos_embedding == "learned":
+            inside = (positions >= 0) & (positions < cfg.max_len)
+            pe = self.wpe[positions.clamp(0, cfg.max_len - 1)]
+            pe = torch.where(inside[..., None], pe, torch.nan)
+            return x + pe.to(cfg.dtype), None
+        # once for all blocks: a block's recompute does not redo them
+        return x, rope_tables(positions.reshape(-1), cfg.head_dim,
+                              cfg.rope_theta)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The head step (the reference's ``_gpt_head``): final LN, the LM
+        head in the compute dtype, fp32 logits."""
+        return self.head(self.lnf(x)).float()
+
+    def forward(self, tokens: torch.Tensor):
+        x, rope_tabs = self.embed(tokens)
         for block in self.blocks():
             if self._remat_context is None:
                 x = block(x, rope_tabs)
             else:
                 x = checkpoint(block, x, rope_tabs, use_reentrant=False,
                                context_fn=self._remat_context)
-        return self.head(self.lnf(x)).float()
+        return self.logits(x)
 
 
 # Named sizes (GPT-2 family geometry, head_dim 64 beyond nano).

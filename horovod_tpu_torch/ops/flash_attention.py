@@ -183,8 +183,11 @@ def flash_attention(
     scale_ = scale if scale is not None else d ** -0.5
     bq = _pick_block(s, block_q)
     bk = _pick_block(s, block_k)
-    # [B,S,H,D] -> [B*H, S, D]; GQA k/v fold to [B*HKV, S, D]
-    fold = lambda x: x.transpose(1, 2).reshape(b * x.shape[2], s, d)
+    # [B,S,H,D] -> [B*H, S, D]; GQA k/v fold to [B*HKV, S, D].  At B = 1
+    # the reshape of the transpose is a strided view (a slice of the fused
+    # qkv), which the kernels refuse: made contiguous (a no-op otherwise)
+    fold = lambda x: x.transpose(1, 2).reshape(
+        b * x.shape[2], s, d).contiguous()
     out = _FlashAttention.apply(fold(q), fold(k), fold(v), causal, scale_,
                                 bq, bk, h, hkv, window)
     return out.reshape(b, h, s, d).transpose(1, 2)

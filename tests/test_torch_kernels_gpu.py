@@ -28,7 +28,10 @@ overlap mode.  Then fp8 storage's ``act_store`` card against CPU and the
 sparse embedding path's SGD steps on the card.  Last, the eager engine:
 every eager op keeps CUDA tensors on the card in their dtype, and the
 engine's data plane orders its NCCL reduce after the payloads' ready
-events and the caller's stream after the result.
+events and the caller's stream after the result.  And the serving path,
+which runs no kernel of this repo: the threefry sampler card against CPU,
+and a small engine's paged streams bit for bit its contiguous ones, its
+fp32 logits within ``chip_smoke.SERVE_LOGIT_RTOL`` of the CPU's.
 """
 
 from __future__ import annotations
@@ -119,6 +122,23 @@ def test_backward_matches_plain(cuda, case):
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.shape == b.shape
         _close(a, b, q.dtype, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_of_one_from_a_fused_projection(cuda, dtype):
+    """``flash_attention`` on q/k/v sliced out of one fused projection at
+    batch 1, as a teacher-forced forward of one request gives them: the
+    fold of a batch of one is a strided view the kernels refuse unless it
+    is made contiguous.  Output against the reference attention."""
+    from horovod_tpu_torch.parallel.ring_attention import local_attention
+
+    s, h, d = 200, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(3)
+    fused = torch.randn(1, s, 3 * h * d, device=cuda, generator=g).to(dtype)
+    q, k, v = (fused[..., i * h * d:(i + 1) * h * d].reshape(1, s, h, d)
+               for i in range(3))
+    got = fa.flash_attention(q, k, v, causal=True)
+    _close(got, local_attention(q, k, v, causal=True), dtype, "o")
 
 
 @pytest.mark.parametrize("case", GQA_CASES)
@@ -363,3 +383,51 @@ def test_eager_data_plane_orders_the_streams(world):
         assert rec[dtype]["max_abs_err"] == 0.0
         assert rec[dtype]["on_card"]
         assert rec[dtype]["synchronize_left_stream_busy"]
+
+
+def test_sampler_on_the_card_equals_the_cpu(cuda):
+    """The threefry keys, folds, splits and bits on the card equal the
+    CPU's (which the CPU tests hold to ``jax.random``), the Gumbel noise
+    within 2 ulp, and ``sample_token`` picks the CPU's tokens."""
+    rec = chip_smoke.sampler_check()
+    assert rec["gumbel_max_ulps"] <= chip_smoke.GUMBEL_ULPS
+    assert rec["key_checks"] > 0 and rec["sampled_rows"] > 0
+
+
+def test_paged_serving_on_the_card_equals_contiguous(cuda):
+    """A bf16 head_dim-64 engine on the card, paged (virtual length = the
+    contiguous cache) and contiguous, over churning greedy and sampled
+    requests: the same tokens bit for bit; and an fp32 engine on the card
+    within ``SERVE_LOGIT_RTOL`` of the same engine on the CPU."""
+    import copy
+
+    from horovod_tpu_torch.serve import SlotEngine
+
+    reqs = chip_smoke.serve_requests(10, (8, 100), (4, 24), 3, vocab=1024)
+    model = gpt("nano", num_heads=2, emb_dim=128, max_len=128,
+                device="cuda")
+    toks = {}
+    for mode, kw in (("contiguous", {}),
+                     ("paged", {"kv_mode": "paged", "page_size": 16,
+                                "num_pages": 24})):
+        run = chip_smoke.serve_loop(SlotEngine(model, 4, **kw), reqs)
+        toks[mode] = run["tokens"]
+    assert toks["paged"] == toks["contiguous"]
+    assert all(len(toks["paged"][r.rid]) == r.max_new_tokens for r in reqs)
+
+    cpu = gpt("nano", num_heads=2, emb_dim=128, max_len=128, device="cpu",
+              dtype=torch.float32, attention_impl="reference")
+    runs = {}
+    for dev, m in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).cuda())):
+        with chip_smoke.LogitTap(keep=True) as tap:
+            runs[dev] = chip_smoke.serve_loop(SlotEngine(m, 4), reqs, tap)
+    for r in reqs:
+        want = runs["cpu"]["logits"][r.rid]
+        m = chip_smoke.margin_rule(runs["cuda"]["tokens"][r.rid],
+                                   runs["cpu"]["tokens"][r.rid],
+                                   torch.stack(want),
+                                   chip_smoke.SERVE_FP32_MARGIN,
+                                   teacher_forced=False)
+        chip_smoke.check_stream_logits(
+            r.rid, runs["cuda"]["logits"][r.rid][:m["compared"]],
+            want[:m["compared"]], chip_smoke.SERVE_LOGIT_RTOL)
