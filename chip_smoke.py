@@ -5,28 +5,39 @@
 
 Drives the port's main path — one data-parallel gpt-small training step
 at full width and depth (12 layers, 12 heads, emb 768, vocab 32000, bf16,
-seq 1024, batch 8 per GPU, AdamW lr 1e-4) — and holds every kernel of it
-against its plain PyTorch version.  Six kernels: the tensor-core forward,
-dK/dV and dQ (``flash_fwd_tc``, ``flash_bwd_dkdv_tc``, ``flash_bwd_dq_tc``;
-bf16 at head_dim 64, the main path) and the scalar-FMA forward, dK/dV and
-dQ (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``: fp32 and head_dims
-16/32).  Phases, one JSON line each:
+seq 1024, batch 8 per GPU, AdamW lr 1e-4) — and its fp32 twin, and holds
+every kernel of them against its plain PyTorch version.  Eight kernels:
+the bf16 tensor-core forward, dK/dV and dQ (``flash_fwd_tc``,
+``flash_bwd_dkdv_tc``, ``flash_bwd_dq_tc``; bf16 at head_dim 64), the fp32
+3xTF32 tensor-core forward and dK/dV (``flash_fwd_f32tc``,
+``flash_bwd_dkdv_f32tc``; fp32 at head_dims 16/32/64) and the scalar-FMA
+forward, dK/dV and dQ (``flash_fwd``, ``flash_bwd_dkdv``: bf16 at head_dims
+16/32; ``flash_bwd_dq``: fp32, and bf16 at head_dims 16/32).  Phases, one
+JSON line each:
 
 1. ``build``: compile the CUDA kernels from ``horovod_tpu_torch/csrc``
    (one nvcc per source, all at once), print the seconds taken, each
-   kernel's registers, and the HGMMA (wgmma) and UTMALDG (TMA load)
-   instructions in the tensor-core libraries' SASS.
-2. ``kernel_check``: each kernel against its plain version at the main
-   path's shape (Z=96, S=1024, D=64, bf16, causal; the scalar kernels
-   too, through their launch helpers), at a bf16 GQA + window shape
-   with a ragged S (tensor-core kernels) and at the same shape in fp32
-   (scalar kernels); device times of all six kernels at the main shape,
-   of the plain versions and of the PyTorch library call (SDPA; a
-   yardstick the port never calls).  ``tile_skip``: each kernel's time
-   unmasked, causal and windowed; the masked runs must be faster by the
-   tiles they skip.
-3. ``model_check``: gpt-nano in fp32 on the card, flash kernels against
-   the plain reference attention: logits and gradients.
+   kernel's registers, spills and ptxas's wgmma serialization notes, and
+   the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the five
+   tensor-core libraries' SASS.
+2. ``kernel_check``: each kernel against its plain version at ``SHAPES``:
+   the bf16 main path (Z=96, S=1024, D=64, causal), a bf16 and an fp32
+   GQA + window shape with a ragged S, the fp32 main shape (the same in
+   fp32; the scalar forward and dK/dV there too, through their launch
+   helpers), gpt-nano's head_dim 32 in fp32, bf16 at D=32 (the scalar
+   route) and a bf16 GQA + window and an MQA shape at D=32 and D=16.  Each
+   kernel is timed at its own route's shape (``RECORD_SHAPE``) beside the
+   plain versions and the PyTorch library call (SDPA's flash kernels in
+   bf16, its memory-efficient ones in fp32; a yardstick the port never
+   calls); ``speedup``: every tensor-core kernel at least ``MIN_SPEEDUP``
+   x its scalar twin, that one forced through its launch helper at the
+   tensor-core kernel's own shape and dtype.  ``tile_skip``: each kernel's time unmasked,
+   causal and windowed; the masked runs must be faster by the tiles they
+   skip.
+3. ``model_check``: gpt-nano on the card, flash kernels against the plain
+   reference attention: logits and gradients in fp32, and in bf16 (the
+   scalar kernels' route) within ``NANO_BF16_SCALE_TOL`` of each tensor's
+   scale, with its launches counted.
 4. ``train``: ``init()``, ``build_gpt_step("small", "bf16", 8, 1024)``,
    2 warm-up and 5 timed steps; every loss finite, each main-path kernel
    launched 12 times per step, and the 7 losses within 1% of the same
@@ -34,6 +45,13 @@ dQ (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``: fp32 and head_dims
 5. ``profile``: one more step under ``torch.profiler``: device time by
    kernel, the device's busy share, host busy time by op (the phases
    below profile one step of each of their runs the same way).
+   ``train_fp32``: ``build_gpt_step("small", "fp32", 8, 1024)``, TF32
+   off, the same 7 steps: exactly 12 launches a step of the 3xTF32
+   forward and dK/dV and the scalar dQ and nothing else, losses within
+   ``FP32_LOSS_RTOL`` of the same steps with reference attention, step
+   time, tokens/s/GPU, MFU at 67 TFLOP/s, peak memory, one profiled step
+   (the flash kernels' share of device time).  ``bench``: ``python -m
+   horovod_tpu_torch.bench --model gpt-small --dtype fp32`` once.
 6. ``overlap``: the same 7 steps from the same weights and tokens through
    the backward-overlap plane, ``overlap_mode="bucket"`` and
    ``"bucket+zero1"`` (16 MB buckets): losses against ``train``'s within
@@ -133,8 +151,11 @@ dQ (``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``: fp32 and head_dims
    ``GUMBEL_ULPS`` ulp (at the scale max(|g|, 1)); ``sample_token`` on 256
    rows of 32000 fp32 logits, the same tokens by the margin rule at 1e-5.
 
-Then the ``kernels`` summary, the card's name and power limit, and
-``{"ok": true, ...}`` as the last line.  Any failure raises and exits
+Then the ``kernels`` summary (each kernel's launches from its own route's
+run: ``train`` for the bf16 tensor-core kernels, ``train_fp32`` for the
+fp32 route, ``model_check``'s bf16 gpt-nano for the scalar forward and
+dK/dV), the card's name and power limit, and ``{"ok": true, ...}`` as the
+last line.  Any failure raises and exits
 nonzero; without a GPU it exits 2 and prints no result.
 """
 
@@ -147,6 +168,10 @@ import sys
 import time
 
 H100_BF16_PEAK = 989e12     # FLOP/s, dense, H100 SXM data sheet
+# fp32-accurate products on the tensor cores: 3xTF32 takes three TF32
+# products (495 TFLOP/s) for each
+H100_TF32X3_PEAK = 495e12 / 3
+H100_FP32_PEAK = 67e12      # fp32 FMA, outside the tensor cores
 H100_HBM_BYTES = 3.35e12    # B/s
 
 # (atol, rtol) of |kernel - plain| <= atol + rtol * |plain|, elementwise.
@@ -171,15 +196,27 @@ SOURCES = {
                        "horovod_tpu/ops/flash_attention.py:291"),
     "flash_bwd_dq": ("horovod_tpu_torch/csrc/flash_bwd_dq.cu",
                      "horovod_tpu/ops/flash_attention.py:324"),
+    "flash_fwd_f32tc": ("horovod_tpu_torch/csrc/flash_fwd_f32tc.cu",
+                        "horovod_tpu/ops/flash_attention.py:158"),
+    "flash_bwd_dkdv_f32tc": ("horovod_tpu_torch/csrc/flash_bwd_dkdv_f32tc.cu",
+                             "horovod_tpu/ops/flash_attention.py:291"),
 }
-PASS = {"flash_fwd_tc": "fwd", "flash_fwd": "fwd",
+PASS = {"flash_fwd_tc": "fwd", "flash_fwd": "fwd", "flash_fwd_f32tc": "fwd",
         "flash_bwd_dkdv_tc": "dkdv", "flash_bwd_dkdv": "dkdv",
+        "flash_bwd_dkdv_f32tc": "dkdv",
         "flash_bwd_dq_tc": "dq", "flash_bwd_dq": "dq"}
-# tensor-core kernel -> the scalar kernel of the same function
+# tensor-core kernel -> the scalar kernel of the same function, timed at the
+# tensor-core kernel's own shape, in its dtype (``RECORD_SHAPE``)
 SCALAR_TWIN = {"flash_fwd_tc": "flash_fwd",
                "flash_bwd_dkdv_tc": "flash_bwd_dkdv",
-               "flash_bwd_dq_tc": "flash_bwd_dq"}
+               "flash_bwd_dq_tc": "flash_bwd_dq",
+               "flash_fwd_f32tc": "flash_fwd",
+               "flash_bwd_dkdv_f32tc": "flash_bwd_dkdv"}
 MIN_SPEEDUP = 3.0
+# the peak of a bound, by the dtype of the shape a kernel's record is taken
+# at: bf16 work at the bf16 tensor-core rate, fp32 work at the 3xTF32 one
+# (the scalar dQ's too: the rate fp32-accurate work can reach on this card)
+PEAK = {"bf16": H100_BF16_PEAK, "fp32": H100_TF32X3_PEAK}
 
 
 def act_store_grid(dtype):
@@ -292,10 +329,13 @@ SKIP_WINDOW = 64
 SKIP_LIMITS = {"causal_over_full": 0.7, "window_over_causal": 0.5}
 SKIP_SHAPE = {"b": 2, "s": 4096, "h": 12, "d": 64}
 MAIN_SHAPE = {"b": 8, "s": 1024, "h": 12, "d": 64}
-# dtype each kernel is timed in: the one the route sends it
+# dtype each kernel is timed in, at head_dim 64: a dtype of its route (the
+# scalar forward and dK/dV in bf16, their route at head_dims 16/32; the
+# scalar dQ in fp32)
 SKIP_DTYPE = {"flash_fwd_tc": "bf16", "flash_bwd_dkdv_tc": "bf16",
-              "flash_bwd_dq_tc": "bf16", "flash_fwd": "fp32",
-              "flash_bwd_dkdv": "fp32", "flash_bwd_dq": "fp32"}
+              "flash_bwd_dq_tc": "bf16", "flash_fwd": "bf16",
+              "flash_bwd_dkdv": "bf16", "flash_bwd_dq": "fp32",
+              "flash_fwd_f32tc": "fp32", "flash_bwd_dkdv_f32tc": "fp32"}
 
 
 def mask_times(fa, names, b, s, h, d, dtype):
@@ -324,11 +364,11 @@ def ratios_of(ms):
 
 
 def tile_skip(fa):
-    """Each of the six kernels' device time unmasked, causal and windowed
-    at ``SKIP_SHAPE``, in the dtype its route gives it.  Raises unless each
+    """Each kernel's device time unmasked, causal and windowed at
+    ``SKIP_SHAPE``, in the dtype of ``SKIP_DTYPE``.  Raises unless each
     masked run is as much faster as ``SKIP_LIMITS`` says; returns the times
-    and ratios per kernel, and the tensor-core kernels' ratios at the main
-    shape (reported only)."""
+    and ratios per kernel, and the bf16 tensor-core kernels' ratios at the
+    main shape (reported only)."""
     import torch
 
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -339,7 +379,7 @@ def tile_skip(fa):
                                     **SKIP_SHAPE).items():
             ms[mask].update(row)
     ratios = ratios_of(ms)
-    main = ratios_of(mask_times(fa, list(SCALAR_TWIN), dtype=torch.bfloat16,
+    main = ratios_of(mask_times(fa, list(MAIN_PATH), dtype=torch.bfloat16,
                                 **MAIN_SHAPE))
     bad = {n: r for n, r in ratios.items()
            if any(r[key] >= lim for key, lim in SKIP_LIMITS.items())}
@@ -380,9 +420,9 @@ def attention_work(b, s, h, hkv, d, causal, window, itemsize):
     # S, dP, dQ = dS K: q, o, dO, k, v, lse in; dq out
     dq = (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes)
     return {
-        "flash_fwd_tc": fwd, "flash_fwd": fwd,
+        "flash_fwd_tc": fwd, "flash_fwd": fwd, "flash_fwd_f32tc": fwd,
         "flash_bwd_dkdv_tc": (dkdv[0], dkdv[1] + pair_bytes),
-        "flash_bwd_dkdv": dkdv,
+        "flash_bwd_dkdv": dkdv, "flash_bwd_dkdv_f32tc": dkdv,
         # q, dO, k, v and the pairs in; dq out
         "flash_bwd_dq_tc": (dq[0], dq[1] - q_bytes - lse_bytes + pair_bytes),
         "flash_bwd_dq": dq,
@@ -395,28 +435,95 @@ def bound(flops: int, nbytes: int, peak: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_check(fa):
-    """Every kernel against its plain version at three shapes; returns the
-    main shape's record per kernel."""
+# The shapes kernel_check holds the kernels at: the kernels of each one's
+# route (``fa.kernel_for``) and those it "forced", launched through their
+# launch helpers off their route: the scalar twins of the tensor-core
+# kernels (``SCALAR_TWIN``) at those kernels' shapes.  A "timed" shape
+# times them all.
+SHAPES = (
+    dict(name="bf16_main", b=8, s=1024, h=12, hkv=12, d=64, dtype="bf16",
+         causal=True, window=None, timed=True,
+         forced=("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")),
+    # GQA + sliding window, S not a multiple of any tile
+    dict(name="bf16_gqa_window", b=2, s=300, h=8, hkv=2, d=64,
+         dtype="bf16", causal=True, window=100, timed=False, forced=()),
+    dict(name="fp32_gqa_window", b=2, s=300, h=8, hkv=2, d=64,
+         dtype="fp32", causal=True, window=100, timed=False, forced=()),
+    dict(name="fp32_main", b=8, s=1024, h=12, hkv=12, d=64, dtype="fp32",
+         causal=True, window=None, timed=True,
+         forced=("flash_fwd", "flash_bwd_dkdv")),
+    # gpt-nano's head_dim in fp32
+    dict(name="fp32_d32", b=4, s=256, h=4, hkv=4, d=32, dtype="fp32",
+         causal=True, window=None, timed=False, forced=()),
+    dict(name="bf16_d32", b=8, s=1024, h=12, hkv=12, d=32, dtype="bf16",
+         causal=True, window=None, timed=True, forced=()),
+    # the scalar route's GQA fold and ragged S
+    dict(name="bf16_d32_gqa_window", b=2, s=300, h=8, hkv=2, d=32,
+         dtype="bf16", causal=True, window=100, timed=False, forced=()),
+    dict(name="bf16_d16_mqa", b=2, s=97, h=4, hkv=1, d=16, dtype="bf16",
+         causal=True, window=None, timed=False, forced=()),
+)
+# the shape each kernel's record (the ``kernels`` line, PERF.md) and its
+# launches come from, one on its route: gpt-small's bf16 attention for the
+# bf16 tensor-core kernels, the fp32 gpt-small step's for the fp32 route
+# (the 3xTF32 forward and dK/dV, the scalar dQ), bf16 at head_dim 32
+# (gpt-nano's) for the scalar forward and dK/dV
+RECORD_SHAPE = {"flash_fwd_tc": "bf16_main", "flash_bwd_dkdv_tc": "bf16_main",
+                "flash_bwd_dq_tc": "bf16_main",
+                "flash_fwd_f32tc": "fp32_main",
+                "flash_bwd_dkdv_f32tc": "fp32_main",
+                "flash_bwd_dq": "fp32_main",
+                "flash_fwd": "bf16_d32", "flash_bwd_dkdv": "bf16_d32"}
+
+
+def library_ms(q, k, v, do, b, h, s, d, scale):
+    """Device ms of one PyTorch call computing the forward, and of one
+    computing dq, dk and dv together, on these inputs: SDPA's flash
+    kernels in bf16, its memory-efficient ones in fp32 (the flash backend
+    takes no fp32).  A yardstick the port never calls."""
     import torch
     import torch.nn.functional as F
 
-    shapes = [
-        # the main path: gpt-small attention, one layer
-        dict(b=8, s=1024, h=12, hkv=12, d=64, dtype=torch.bfloat16,
-             causal=True, window=None, main=True),
-        # GQA + sliding window, S not a multiple of any tile: bf16 takes
-        # the tensor-core kernels, fp32 the scalar ones
-        dict(b=2, s=300, h=8, hkv=2, d=64, dtype=torch.bfloat16,
-             causal=True, window=100, main=False),
-        dict(b=2, s=300, h=8, hkv=2, d=64, dtype=torch.float32,
-             causal=True, window=100, main=False),
-    ]
-    records = {}
-    for shp in shapes:
+    q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, do))
+    if q.dtype == torch.bfloat16:
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, scale=scale), 20)
+        fw = torch.ops.aten._scaled_dot_product_flash_attention(
+            q4, k4, v4, 0.0, True, False, scale=scale)
+        bwd = cuda_ms(
+            lambda: torch.ops.aten
+            ._scaled_dot_product_flash_attention_backward(
+                do4, q4, k4, v4, fw[0], fw[1], fw[2], fw[3], fw[4],
+                fw[5], 0.0, True, fw[6], fw[7], scale=scale), 10)
+        return fwd, bwd
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, scale=scale), 20)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             scale=scale)
+        bwd = cuda_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do4, retain_graph=True), 10)
+    return fwd, bwd
+
+
+def kernel_check(fa):
+    """Every kernel against its plain version at ``SHAPES`` (its route's,
+    and the forced launches); the timed shapes' device times of the
+    kernels, the plain versions and the library calls.  Raises unless each
+    tensor-core kernel is ``MIN_SPEEDUP`` x its scalar twin at its own
+    shape, or a kernel's ``RECORD_SHAPE`` is off its route.  Returns each
+    kernel's record, from ``RECORD_SHAPE``."""
+    import torch
+
+    dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    records, timed_ms = {}, {}
+    for shp in SHAPES:
         b, s, h, hkv, d = (shp[x] for x in ("b", "s", "h", "hkv", "d"))
-        dt, causal, window = shp["dtype"], shp["causal"], shp["window"]
-        tname = "bf16" if dt == torch.bfloat16 else "fp32"
+        tname, causal, window = shp["dtype"], shp["causal"], shp["window"]
+        dt = dts[tname]
         g = torch.Generator(device="cuda").manual_seed(0)
         mk = lambda heads: torch.randn(b * heads, s, d, device="cuda",
                                        generator=g).to(dt)
@@ -445,115 +552,171 @@ def kernel_check(fa):
             check_close(route["dkdv"] + " dk", dk, dk_p, TOL[tname]),
             check_close(route["dkdv"] + " dv", dv, dv_p, TOL[tname]),
         )
-        line = {"shape": {"b": b, "s": s, "h": h, "hkv": hkv, "d": d,
-                          "dtype": tname, "causal": causal,
-                          "window": window},
-                "route": route,
+        for name in shp["forced"]:
+            if PASS[name] == "fwd":
+                o_s, lse_s = torch.empty_like(q), torch.empty_like(lse)
+                fa.launch_fwd(q, k, v, o_s, lse_s, *cfg, kernel=name)
+                err[name] = check_close(name + " o", o_s, o_p, TOL[tname])
+            elif PASS[name] == "dq":
+                dq_s = torch.empty_like(q)
+                fa.launch_dq(q, k, v, o_p, lse_p, do, dq_s, *cfg,
+                             kernel=name)
+                err[name] = check_close(name, dq_s, dq_p, TOL[tname])
+            else:
+                dk_s, dv_s = torch.empty_like(k), torch.empty_like(v)
+                fa.launch_dkdv(q, k, v, o_p, lse_p, do, dk_s, dv_s, *cfg,
+                               kernel=name)
+                err[name] = max(
+                    check_close(name + " dk", dk_s, dk_p, TOL[tname]),
+                    check_close(name + " dv", dv_s, dv_p, TOL[tname]))
+        line = {"shape": {"name": shp["name"], "b": b, "s": s, "h": h,
+                          "hkv": hkv, "d": d, "dtype": tname,
+                          "causal": causal, "window": window},
+                "route": route, "forced": list(shp["forced"]),
                 "tolerance": {"atol": TOL[tname][0],
                               "rtol": TOL[tname][1],
                               "lse_atol": TOL["lse"][0]},
                 "max_abs_err": err}
-        if shp["main"]:
-            # the scalar kernels at the main path's shape, through their
-            # launch helpers: the "before" of the tensor-core kernels
-            o_s, lse_s = torch.empty_like(q), torch.empty_like(lse)
-            fa.launch_fwd(q, k, v, o_s, lse_s, *cfg, kernel="flash_fwd")
-            err["flash_fwd"] = check_close("flash_fwd o", o_s, o_p,
-                                           TOL[tname])
-            dk_s, dv_s = torch.empty_like(k), torch.empty_like(v)
-            fa.launch_dkdv(q, k, v, o_p, lse_p, do, dk_s, dv_s, *cfg,
-                           kernel="flash_bwd_dkdv")
-            err["flash_bwd_dkdv"] = max(
-                check_close("flash_bwd_dkdv dk", dk_s, dk_p, TOL[tname]),
-                check_close("flash_bwd_dkdv dv", dv_s, dv_p, TOL[tname]))
-            dq_s = torch.empty_like(q)
-            fa.launch_dq(q, k, v, o_p, lse_p, do, dq_s, *cfg,
-                         kernel="flash_bwd_dq")
-            err["flash_bwd_dq"] = check_close("flash_bwd_dq", dq_s, dq_p,
-                                              TOL[tname])
+        if shp["timed"]:
             ms = {n: cuda_ms(launcher(fa, n, q, k, v, o_p, lse_p, do, cfg),
                              20 if n in SCALAR_TWIN else 10)
-                  for n in SOURCES}
+                  for n in dict.fromkeys((*route.values(), *shp["forced"]))}
+            timed_ms[shp["name"]] = ms
             plain_fwd = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, *args),
                                 3, warmup=1)
             # the plain backward computes dq, dk and dv together
             plain_bwd = cuda_ms(lambda: fa.flash_bwd_plain(
                 q, k, v, o_p, lse_p, do, causal, scale, bk, h, hkv, window),
                 3, warmup=1)
-            q4, k4, v4, do4 = (x.view(b, h, s, d) for x in (q, k, v, do))
-            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, scale=scale), 20)
-            fw = torch.ops.aten._scaled_dot_product_flash_attention(
-                q4, k4, v4, 0.0, True, False, scale=scale)
-            # one call computes dq, dk and dv together
-            lib_bwd = cuda_ms(
-                lambda: torch.ops.aten
-                ._scaled_dot_product_flash_attention_backward(
-                    do4, q4, k4, v4, fw[0], fw[1], fw[2], fw[3], fw[4],
-                    fw[5], 0.0, True, fw[6], fw[7], scale=scale), 10)
+            lib_fwd, lib_bwd = library_ms(q, k, v, do, b, h, s, d, scale)
             work = attention_work(b, s, h, hkv, d, causal, window,
                                   q.element_size())
-            for name in SOURCES:
+            for name, where in RECORD_SHAPE.items():
+                if where != shp["name"]:
+                    continue
+                if name not in route.values():
+                    raise AssertionError(
+                        f"{name}'s record shape {where} routes to {route}")
                 flops, nbytes = work[name]
-                bms, by = bound(flops, nbytes, H100_BF16_PEAK)
+                peak = PEAK[tname]
+                bms, by = bound(flops, nbytes, peak)
                 fwd = PASS[name] == "fwd"
                 records[name] = {
                     "max_abs_err": err[name], "ms": ms[name],
                     "plain_ms": plain_fwd if fwd else plain_bwd,
                     "bound_ms": bms, "bound_by": by,
                     "library_ms": lib_fwd if fwd else lib_bwd,
-                    "flops": flops, "bytes": nbytes,
+                    "flops": flops, "bytes": nbytes, "peak_flops": peak,
+                    "shape": shp["name"],
                 }
-            speedup = {n: ms[twin] / ms[n] for n, twin in SCALAR_TWIN.items()}
             line["kernel_ms"] = ms
-            line["speedup_over_scalar"] = speedup
-            # the like-for-like backward: the tensor-core dQ's time leaves
-            # out delta, which dK/dV's pre-pass computes for it
-            line["backward_ms"] = {
-                "tensor_core_dkdv_plus_dq":
-                    ms["flash_bwd_dkdv_tc"] + ms["flash_bwd_dq_tc"],
-                "scalar_dkdv_plus_dq":
-                    ms["flash_bwd_dkdv"] + ms["flash_bwd_dq"]}
             line["plain_ms"] = {"forward": plain_fwd,
                                 "backward_dq_dk_dv": plain_bwd}
             line["library_ms"] = {"sdpa_forward": lib_fwd,
-                                  "sdpa_flash_backward_dq_dk_dv": lib_bwd}
-            line["bound_ms"] = {n: records[n]["bound_ms"] for n in records}
-            slow = {n: x for n, x in speedup.items() if x < MIN_SPEEDUP}
-            if slow:
-                raise AssertionError(
-                    f"tensor-core kernels under {MIN_SPEEDUP}x the scalar "
-                    f"kernels at the main shape: {slow}")
+                                  "sdpa_backward_dq_dk_dv": lib_bwd}
+            line["bound_ms"] = {n: r["bound_ms"] for n, r in records.items()
+                                if r["shape"] == shp["name"]}
         emit("kernel_check", **line)
+
+    # every tensor-core kernel against the scalar kernel of its function,
+    # both timed on the same inputs: the tensor-core kernel's own shape
+    speedup = {}
+    for n, twin in SCALAR_TWIN.items():
+        ms = timed_ms[RECORD_SHAPE[n]]
+        speedup[n] = ms[twin] / ms[n]
+    bf, f32 = timed_ms["bf16_main"], timed_ms["fp32_main"]
+    emit("speedup", min_speedup=MIN_SPEEDUP, over_scalar_twin=speedup,
+         twin_shape={n: RECORD_SHAPE[n] for n in SCALAR_TWIN},
+         backward_ms={
+             "bf16_tensor_core_dkdv_plus_dq":
+                 bf["flash_bwd_dkdv_tc"] + bf["flash_bwd_dq_tc"],
+             "bf16_scalar_dkdv_plus_dq":
+                 bf["flash_bwd_dkdv"] + bf["flash_bwd_dq"],
+             "fp32_tensor_core_dkdv_plus_scalar_dq":
+                 f32["flash_bwd_dkdv_f32tc"] + f32["flash_bwd_dq"],
+             "fp32_scalar_dkdv_plus_dq":
+                 f32["flash_bwd_dkdv"] + f32["flash_bwd_dq"]})
+    slow = {n: x for n, x in speedup.items() if x < MIN_SPEEDUP}
+    if slow:
+        raise AssertionError(
+            f"tensor-core kernels under {MIN_SPEEDUP}x their scalar twins "
+            f"at their own shapes: {slow}")
     return records
 
 
+# gpt-nano (3 layers, head_dim 32) in bf16 runs the scalar kernels: the
+# gate against reference attention is 3% of each tensor's largest
+# magnitude (measured on the CPU through the plain versions: logits 1.0%,
+# gradients 0.93%; bf16 rounds q, k, v, P and the outputs at other places
+# than the reference's einsums)
+NANO_BF16_SCALE_TOL = 0.03
+
+
 def model_check(hvd_models, fa):
-    """gpt-nano, fp32, on the card: the flash kernels against the plain
-    reference attention through the whole model, logits and grads."""
+    """gpt-nano on the card, flash kernels against the plain reference
+    attention through the whole model, logits and grads: in fp32 (the
+    3xTF32 forward and dK/dV, the scalar dQ) and in bf16 (the scalar
+    kernels).  Returns the bf16 run's launches, counted from 0 around its
+    flash model only."""
     import numpy as np
     import torch
 
     toks = torch.from_numpy(
         np.random.RandomState(1).randint(0, 1024, (2, 128))).cuda()
-    out = {}
-    for impl in ("flash", "reference"):
-        m = hvd_models.gpt("nano", device="cuda", dtype=torch.float32,
-                           attention_impl=impl)
-        logits = m(toks)
-        logits.square().mean().backward()
-        out[impl] = (logits.detach(),
-                     {n: p.grad for n, p in m.named_parameters()})
-    err_logits = check_close("nano logits", out["flash"][0],
-                             out["reference"][0], (2e-4, 2e-4))
+    out, launches = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for impl in ("flash", "reference"):
+            m = hvd_models.gpt("nano", device="cuda", dtype=dt,
+                               attention_impl=impl)
+            if impl == "flash":
+                fa.reset_launch_counts()
+            layers = m.cfg.num_layers
+            logits = m(toks)
+            logits.float().square().mean().backward()
+            if impl == "flash":
+                torch.cuda.synchronize()
+                launches[dt] = dict(fa.LAUNCHES)
+            out[dt, impl] = (logits.detach().float(),
+                             {n: p.grad.float()
+                              for n, p in m.named_parameters()})
+    f32 = torch.float32
+    err_logits = check_close("nano logits", out[f32, "flash"][0],
+                             out[f32, "reference"][0], (2e-4, 2e-4))
     err_grads = max(
-        check_close(f"nano grad {n}", g, out["reference"][1][n],
+        check_close(f"nano grad {n}", g, out[f32, "reference"][1][n],
                     (5e-4, 5e-4))
-        for n, g in out["flash"][1].items()
+        for n, g in out[f32, "flash"][1].items()
     )
-    emit("model_check", model="gpt-nano fp32 seq 128 batch 2",
-         max_abs_err_logits=err_logits, max_abs_err_grads=err_grads,
-         tolerance={"logits": [2e-4, 2e-4], "grads": [5e-4, 5e-4]})
+    bf = torch.bfloat16
+
+    def scaled(name, got, want):
+        worst = ((got - want).abs().max() / want.abs().max()).item()
+        if not torch.isfinite(got).all() or worst > NANO_BF16_SCALE_TOL:
+            raise AssertionError(
+                f"{name}: max |flash - reference| is {worst:.4f} of the "
+                f"largest |reference| (> {NANO_BF16_SCALE_TOL})")
+        return worst
+
+    bf16_logits = scaled("nano bf16 logits", out[bf, "flash"][0],
+                         out[bf, "reference"][0])
+    bf16_grads = max(scaled(f"nano bf16 grad {n}", g,
+                            out[bf, "reference"][1][n])
+                     for n, g in out[bf, "flash"][1].items())
+    route = {fa.kernel_for(p, bf, 32) for p in ("fwd", "dkdv", "dq")}
+    want = {n: layers if n in route else 0 for n in fa.LAUNCHES}
+    if launches[bf] != want:
+        raise AssertionError(f"bf16 nano launches {launches[bf]} != {want}")
+    emit("model_check", model="gpt-nano seq 128 batch 2",
+         fp32={"max_abs_err_logits": err_logits,
+               "max_abs_err_grads": err_grads,
+               "tolerance": {"logits": [2e-4, 2e-4],
+                             "grads": [5e-4, 5e-4]},
+               "launches": launches[f32]},
+         bf16={"max_err_over_scale_logits": bf16_logits,
+               "max_err_over_scale_grads": bf16_grads,
+               "tolerance_of_scale": NANO_BF16_SCALE_TOL,
+               "launches": launches[bf]})
+    return launches[bf]
 
 
 # the kernels of the main path (bf16, head_dim 64) and the ones it must not
@@ -583,12 +746,13 @@ def run_steps(step, state, n):
     return state, losses
 
 
-def drive(fa, step, state, remat: bool = False):
+def drive(fa, step, state, remat: bool = False, path=MAIN_PATH,
+          peak: float = H100_BF16_PEAK):
     """``WARMUP`` then ``STEPS`` timed steps from ``state``: the launch
     counts are set to 0 just before and read just after, and must be exact
-    (each main-path kernel once per layer and step; the forward twice
-    under remat, which recomputes it; none of the others).  Returns the
-    state and the run's record."""
+    (each kernel of ``path`` once per layer and step; the forward twice
+    under remat, which recomputes it; none of the others).  MFU against
+    ``peak``.  Returns the state and the run's record."""
     import torch
 
     model = state[0]
@@ -609,8 +773,8 @@ def drive(fa, step, state, remat: bool = False):
 
     total = STEPS + WARMUP
     layers = model.cfg.num_layers
-    per_step = {n: (layers * (2 if remat and n == "flash_fwd_tc" else 1)
-                    if n in MAIN_PATH else 0) for n in launches}
+    per_step = {n: (layers * (2 if remat and PASS[n] == "fwd" else 1)
+                    if n in path else 0) for n in launches}
     want = {n: k * total for n, k in per_step.items()}
     if launches != want:
         raise AssertionError(
@@ -624,16 +788,16 @@ def drive(fa, step, state, remat: bool = False):
     return state, {
         "losses": losses, "step_ms": secs * 1e3,
         "tokens_per_s_per_gpu": batch * seq / secs,
-        "model_flops_per_step": flops, "mfu": flops / secs / H100_BF16_PEAK,
+        "model_flops_per_step": flops, "mfu": flops / secs / peak,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         # what the built model, optimizer and buffers hold before a step
         "resident_mem_gib": resident,
         "launches": launches, "launches_per_step": per_step}
 
 
-def losses_of(build, **kwargs):
+def losses_of(build, cfg=GPT_STEP, **kwargs):
     """The losses of the same steps built with ``kwargs`` (no timing)."""
-    step, state, _ = build(*GPT_STEP, **kwargs)
+    step, state, _ = build(*cfg, **kwargs)
     return [float(x) for x in run_steps(step, state, STEPS + WARMUP)[1]]
 
 
@@ -682,6 +846,69 @@ def train(hvd, fa):
          reference_losses=ref_losses, max_rel_loss_diff=rel,
          loss_rtol=LOSS_RTOL, mfu_peak_flops=H100_BF16_PEAK, **run)
     return state, step, run, static["n_chips"]
+
+
+GPT_FP32_STEP = ("small", "fp32", 8, 1024)
+# losses of the same steps with the reference's fp32 einsum attention:
+# fp32 sums in other orders through 7 AdamW steps (measured 1.2e-6 on the
+# H100; 1e-4 at first, tightened with an 8x margin)
+FP32_LOSS_RTOL = 1e-5
+
+
+def train_fp32(fa):
+    """``build_gpt_step("small", "fp32", 8, 1024)`` from ``train``'s seed-0
+    weights and tokens: exact launches (the fp32 route's forward, dK/dV
+    and dQ 12 a step, nothing else), finite losses within ``FP32_LOSS_RTOL`` of reference attention,
+    step time, tokens/s, MFU at the fp32 FMA peak, memory, one profiled
+    step.  TF32 must be off for matmuls: the only tensor-core arithmetic
+    of the step is the kernels' own 3xTF32.  Returns the run's record."""
+    import torch
+    from horovod_tpu_torch.train import build_gpt_step
+
+    step, state, _ = build_gpt_step(*GPT_FP32_STEP)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 step with TF32 matmuls on")
+    # the kernels fa.kernel_for sends fp32 at gpt-small's head_dim 64 to
+    path = tuple(fa.kernel_for(p, torch.float32, state[0].cfg.head_dim)
+                 for p in ("fwd", "dkdv", "dq"))
+    state, run = drive(fa, step, state, path=path, peak=H100_FP32_PEAK)
+    prof = profile_step(state, step, run["step_ms"])
+    del state, step
+    release()
+    ref_losses = losses_of(build_gpt_step, cfg=GPT_FP32_STEP,
+                           attention="reference")
+    release()
+    rel = max_rel(run["losses"], ref_losses)
+    if rel > FP32_LOSS_RTOL:
+        raise AssertionError(
+            f"fp32 losses {run['losses']} differ from the reference "
+            f"attention's {ref_losses} by {rel:.3g} > {FP32_LOSS_RTOL}")
+    emit("train_fp32", model="gpt-small", dtype="fp32",
+         batch_per_gpu=GPT_FP32_STEP[2], seq=GPT_FP32_STEP[3],
+         steps_timed=STEPS, warmup=WARMUP, tf32_matmul=False,
+         reference_losses=ref_losses, max_rel_loss_diff=rel,
+         loss_rtol=FP32_LOSS_RTOL, mfu_peak_flops=H100_FP32_PEAK,
+         attention_share=(prof["flash_kernels_ms"] / prof["device_busy_ms"]
+                          if prof["device_busy_ms"] else None),
+         profile=prof, **run)
+    return run
+
+
+def bench_fp32() -> dict:
+    """``python -m horovod_tpu_torch.bench --model gpt-small --dtype fp32``
+    once, in its own process: its record, which must say that the flash
+    kernels ran."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.bench", "--model",
+           "gpt-small", "--dtype", "fp32"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"bench exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    record = json.loads(out.stdout.strip().splitlines()[-1])
+    if record.get("attention") != "kernels":
+        raise AssertionError(f"bench ran no flash kernel: {record}")
+    emit("bench", command=" ".join(cmd[1:]), record=record)
+    return record
 
 
 def issue_order(fa, plan, names):
@@ -2236,12 +2463,17 @@ def main() -> int:
          limits=SKIP_LIMITS,
          main_shape={**MAIN_SHAPE, "ratios": main_ratios,
                      "held": False})
-    model_check(hvd_models, fa)
+    nano_bf16_launches = model_check(hvd_models, fa)
     state, step, run, world = train(hvd, fa)
-    launches = run["launches"]
     emit("profile", **profile_step(state, step, run["step_ms"]))
     del state, step
     release()
+    fp32_run = train_fp32(fa)
+    bench_fp32()
+    # each kernel's launches from the run of its record shape's route
+    runs = {"bf16_main": run["launches"], "fp32_main": fp32_run["launches"],
+            "bf16_d32": nano_bf16_launches}
+    launches = {n: runs[where][n] for n, where in RECORD_SHAPE.items()}
     overlap(fa, run["losses"])
     rope_remat(fa)
     resnet_off = conv(fa)

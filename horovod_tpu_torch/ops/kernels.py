@@ -33,6 +33,8 @@ SOURCES = {
     "flash_fwd_tc": "flash_fwd_tc.cu",
     "flash_bwd_dkdv_tc": "flash_bwd_dkdv_tc.cu",
     "flash_bwd_dq_tc": "flash_bwd_dq_tc.cu",
+    "flash_fwd_f32tc": "flash_fwd_f32tc.cu",
+    "flash_bwd_dkdv_f32tc": "flash_bwd_dkdv_f32tc.cu",
 }
 _HEADERS = ("flash_common.cuh", "hopper_tc.cuh")
 _FLAGS = (
@@ -57,6 +59,10 @@ _SIGNATURES = {
     # the filled (lse, delta) scratch in place of o and lse
     "flash_bwd_dq_tc": ("hvd_flash_bwd_dq_tc",
                         [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+    "flash_fwd_f32tc": ("hvd_flash_fwd_f32tc",
+                        [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+    "flash_bwd_dkdv_f32tc": ("hvd_flash_bwd_dkdv_f32tc",
+                             [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -142,7 +148,8 @@ def library(name: str):
 
 
 def ptxas_report(name: str) -> str:
-    """The compiler's register / shared-memory / spill lines of the build
+    """The compiler's register / shared-memory / spill lines, and its
+    notes on serialized wgmma ("Potential Performance Loss"), of the build
     of ``name`` from the current sources (kept beside the library, under
     the same hash), or '' if it has not been built."""
     p = _lib_path(name).with_suffix(".ptxas.txt")
@@ -150,7 +157,7 @@ def ptxas_report(name: str) -> str:
         return ""
     return "\n".join(
         ln for ln in p.read_text().splitlines()
-        if "registers" in ln or "spill" in ln
+        if "registers" in ln or "spill" in ln or "Performance Loss" in ln
     )
 
 

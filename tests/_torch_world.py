@@ -259,6 +259,29 @@ def train_step_worker(steps):
             "dtype": str(next(model.parameters()).dtype)}
 
 
+def gpt_step_worker(state_np, steps, batch, seq, block):
+    """build_gpt_step("nano", "fp32", ...) from the weights ``state_np``
+    (a port state_dict of numpy arrays): the losses of ``steps`` steps on
+    its own seeded tokens, the tokens, and the parameters after."""
+    import torch
+
+    from horovod_tpu_torch.train import build_gpt_step
+
+    step, state, static = build_gpt_step(
+        "nano", "fp32", batch, seq, device="cpu", flash_block_q=block,
+        flash_block_k=block)
+    state[0].load_state_dict({k: torch.from_numpy(v)
+                              for k, v in state_np.items()}, strict=True)
+    losses = []
+    for _ in range(steps):
+        model, opt, loss = step(*state)
+        state = (model, opt) + state[2:]
+        losses.append(loss.item())
+    return {"losses": losses, "tokens": state[2].numpy(), "static": static,
+            "params": {n: p.detach().numpy().copy()
+                       for n, p in state[0].named_parameters()}}
+
+
 def reduce_worker(grads):
     """The gradient DistributedOptimizer hands to SGD(lr=1) for this
     rank's ``grads[rank]``, under each wire option."""

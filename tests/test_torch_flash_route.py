@@ -2,7 +2,9 @@
 tensor-core kernels' tiles (horovod_tpu_torch.ops.flash_attention).
 
 The route is a plain table (``kernel_for``): bf16 at head_dim 64 runs the
-tensor-core forward, dK/dV and dQ, everything else the scalar kernels.
+bf16 tensor-core forward, dK/dV and dQ; fp32 at every head_dim the 3xTF32
+tensor-core forward and dK/dV and the scalar dQ; bf16 at head_dims 16/32
+the scalar kernels.
 The CUDA kernels cannot run here; what
 they are held to on the card is the plain version, and the last test
 holds that plain version against the JAX package's Pallas kernels on the
@@ -32,30 +34,38 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (the repo root's on-card smoke run)
 
 BF16_TOL = 0.05
-TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
+TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
+      "flash_fwd_f32tc", "flash_bwd_dkdv_f32tc")
 
 
 @pytest.mark.parametrize("pass_,dtype,d,want", [
     ("fwd", torch.bfloat16, 64, "flash_fwd_tc"),
     ("dkdv", torch.bfloat16, 64, "flash_bwd_dkdv_tc"),
     ("dq", torch.bfloat16, 64, "flash_bwd_dq_tc"),
-    ("fwd", torch.float32, 64, "flash_fwd"),
-    ("dkdv", torch.float32, 64, "flash_bwd_dkdv"),
+    ("fwd", torch.float32, 64, "flash_fwd_f32tc"),
+    ("dkdv", torch.float32, 64, "flash_bwd_dkdv_f32tc"),
     ("dq", torch.float32, 64, "flash_bwd_dq"),
+    ("fwd", torch.float32, 32, "flash_fwd_f32tc"),
+    ("dkdv", torch.float32, 32, "flash_bwd_dkdv_f32tc"),
+    ("dq", torch.float32, 32, "flash_bwd_dq"),
+    ("fwd", torch.float32, 16, "flash_fwd_f32tc"),
+    ("dkdv", torch.float32, 16, "flash_bwd_dkdv_f32tc"),
     ("fwd", torch.bfloat16, 32, "flash_fwd"),
     ("dkdv", torch.bfloat16, 32, "flash_bwd_dkdv"),
     ("fwd", torch.bfloat16, 16, "flash_fwd"),
     ("dkdv", torch.bfloat16, 16, "flash_bwd_dkdv"),
     ("dq", torch.float32, 16, "flash_bwd_dq"),
     ("dq", torch.bfloat16, 32, "flash_bwd_dq"),
+    ("dq", torch.bfloat16, 16, "flash_bwd_dq"),
 ])
 def test_route_table(pass_, dtype, d, want):
     assert fa.kernel_for(pass_, dtype, d) == want
 
 
 def test_every_kernel_is_built_counted_and_tiled():
-    """Six kernels, each with a source, a C signature, a launch counter
+    """Eight kernels, each with a source, a C signature, a launch counter
     and its tiles; the route reaches every one of them."""
+    assert len(kernels.SOURCES) == 8
     assert set(kernels.SOURCES) == set(kernels._SIGNATURES)
     assert set(fa.LAUNCHES) == set(kernels.SOURCES) == set(fa.KERNEL_TILES)
     reached = {fa.kernel_for(p, dt, d)
@@ -72,6 +82,10 @@ def test_every_kernel_is_built_counted_and_tiled():
     assert sym == "hvd_flash_bwd_dq_tc"
     assert args == [ctypes.c_void_p] * 6 + \
         kernels._SIGNATURES["flash_bwd_dq"][1][7:]
+    # the fp32 tensor-core kernels take the scalar kernels' arguments
+    for name, twin in (("flash_fwd_f32tc", "flash_fwd"),
+                       ("flash_bwd_dkdv_f32tc", "flash_bwd_dkdv")):
+        assert kernels._SIGNATURES[name][1] == kernels._SIGNATURES[twin][1]
 
 
 # tensors each kernel reads or writes once: its launch helper's pointers
@@ -83,6 +97,8 @@ _MOVED = {
     "flash_bwd_dkdv": ("q", "k", "v", "o", "lse", "do", "dk", "dv"),
     "flash_bwd_dq_tc": ("q", "k", "v", "pairs", "do", "dq"),
     "flash_bwd_dq": ("q", "k", "v", "o", "lse", "do", "dq"),
+    "flash_fwd_f32tc": ("q", "k", "v", "o", "lse"),
+    "flash_bwd_dkdv_f32tc": ("q", "k", "v", "o", "lse", "do", "dk", "dv"),
 }
 
 
@@ -102,6 +118,30 @@ def test_bound_counts_the_bytes_each_kernel_moves(name):
     work = chip_smoke.attention_work(b, s, h, hkv, d, True, 100, 2)
     assert set(work) == set(_MOVED) == set(kernels.SOURCES)
     assert work[name][1] == sum(size[t] for t in _MOVED[name])
+
+
+@pytest.mark.parametrize("name", sorted(_MOVED))
+def test_bound_takes_each_kernels_peak(name):
+    """chip_smoke's bound takes the peak of the work a kernel does on its
+    route: 989 TFLOP/s for bf16, 495 / 3 TFLOP/s (3xTF32) for fp32, the
+    scalar dQ's fp32 route included; bytes at 3.35 TB/s.  The shape a
+    kernel's record is taken at is one ``kernel_for`` sends to it."""
+    shape = {s["name"]: s for s in chip_smoke.SHAPES}[
+        chip_smoke.RECORD_SHAPE[name]]
+    dtype = shape["dtype"]
+    assert shape["timed"]
+    torch_dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+    assert fa.kernel_for(chip_smoke.PASS[name], torch_dtype,
+                         shape["d"]) == name
+    want = {"bf16": 989e12, "fp32": 495e12 / 3}[dtype]
+    assert chip_smoke.PEAK[dtype] == want
+    # 4-byte items at the fp32 main shape: the operations bound
+    work = chip_smoke.attention_work(8, 1024, 12, 12, 64, True, None, 4)
+    flops, nbytes = work[name]
+    ms, by = chip_smoke.bound(flops, nbytes, want)
+    assert ms == pytest.approx(max(flops / want, nbytes / 3.35e12) * 1e3)
+    if dtype == "fp32":
+        assert by == "operations"
 
 
 @pytest.mark.parametrize("s,s_pad", [(1, 64), (64, 64), (300, 320),

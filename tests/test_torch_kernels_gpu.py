@@ -8,10 +8,13 @@ Run on the machine with the card (the file imports no JAX; the
     python -m pytest tests/test_torch_kernels_gpu.py --noconftest -q
 
 Tolerance, |kernel - plain| <= atol + rtol * |plain|: fp32 1e-4 (sums in
-another order), bf16 1e-2 (outputs rounded to bf16 after those sums; the
-tensor-core kernels also round P and dS to bf16 before their second
-product).  bf16 at head_dim 64 runs the tensor-core forward, dK/dV and dQ
-(``fa.kernel_for``); fp32 and head_dims 16/32 the scalar kernels.
+another order; the fp32 tensor-core kernels take each product as three
+TF32 products, about 2^-22 relative from fp32), bf16 1e-2 (outputs
+rounded to bf16 after those sums; the bf16 tensor-core kernels also round
+P and dS to bf16 before their second product).  bf16 at head_dim 64 runs
+the bf16 tensor-core forward, dK/dV and dQ (``fa.kernel_for``); fp32 the
+3xTF32 forward and dK/dV and the scalar dQ; bf16 at head_dims 16/32 the
+scalar kernels.
 
 The next tests drive gpt-nano at head_dim 64 (2 heads, bf16) through the
 training path on the card, in a one-GPU NCCL world: the overlap plane's
@@ -62,18 +65,25 @@ CASES = [
     (1, 200, 8, 2, 64, torch.float32, True, 37),     # ragged S, GQA, band
     (2, 97, 4, 1, 32, torch.float32, True, None),    # MQA, ragged
     (1, 70, 2, 2, 16, torch.float32, False, None),
-    (2, 256, 4, 2, 64, torch.bfloat16, True, None),  # tensor cores, GQA
+    # the fp32 tensor-core kernels at every head_dim, causal and not
+    (2, 128, 4, 4, 32, torch.float32, False, None),
+    (2, 160, 4, 4, 16, torch.float32, True, None),
+    (1, 300, 8, 2, 32, torch.float32, True, 100),   # ragged S, GQA, band
+    (2, 97, 4, 2, 16, torch.float32, True, 20),     # ragged S, GQA, band
+    # the scalar kernels: bf16, head_dims 16/32
     (1, 130, 4, 4, 32, torch.bfloat16, True, 64),
     (1, 33, 4, 4, 16, torch.bfloat16, False, None),
+    (2, 300, 8, 2, 32, torch.bfloat16, True, 100),   # ragged S, GQA, band
+    (2, 97, 4, 1, 16, torch.bfloat16, True, None),   # MQA, ragged
     # the tensor-core kernels: bf16, head_dim 64
+    (2, 256, 4, 2, 64, torch.bfloat16, True, None),  # GQA
     (2, 128, 4, 4, 64, torch.bfloat16, False, None),
     (2, 192, 4, 4, 64, torch.bfloat16, True, None),
     (2, 300, 8, 2, 64, torch.bfloat16, True, 100),   # ragged S, GQA, band
     (2, 97, 4, 1, 64, torch.bfloat16, True, None),   # MQA, ragged
 ]
-# a GQA case per route, for the run-to-run check (the bf16 ones run the
-# tensor-core dQ)
-GQA_CASES = [CASES[2], CASES[5], CASES[10]]
+# the GQA and MQA cases of every route, for the run-to-run check
+GQA_CASES = [c for c in CASES if c[3] < c[2]]
 
 
 @pytest.fixture
@@ -144,7 +154,9 @@ def test_batch_of_one_from_a_fused_projection(cuda, dtype):
 @pytest.mark.parametrize("case", GQA_CASES)
 def test_backward_is_deterministic(cuda, case):
     """No atomics: two runs give the same bits (GQA folds in one block),
-    on the scalar and on the tensor-core route."""
+    on every route: fp32's 3xTF32 forward and dK/dV with the scalar dQ,
+    the bf16 tensor-core kernels at head_dim 64, the bf16 scalar kernels
+    at head_dims 16/32."""
     q, k, v, do, args = _inputs(case, cuda)
     o, lse = fa.flash_fwd(q, k, v, *args)
     first = fa.flash_bwd(q, k, v, o, lse, do, *args)
@@ -155,20 +167,24 @@ def test_backward_is_deterministic(cuda, case):
 
 def test_masked_tiles_are_skipped(cuda):
     """The kernels' own copy of the tile predicate skips tiles, not just
-    masks them: at S=1024 each kernel runs causal in under 0.7x its
-    unmasked time and with a 64-key window in under 0.5x its causal time
-    (``chip_smoke.tile_skip`` raises otherwise)."""
+    masks them: at ``chip_smoke.SKIP_SHAPE`` each kernel runs causal in
+    under 0.7x its unmasked time and with a 64-key window in under 0.5x
+    its causal time (``chip_smoke.tile_skip`` raises otherwise)."""
     _, ratios, _ = chip_smoke.tile_skip(fa)
     assert set(ratios) == set(fa.LAUNCHES)
 
 
-@pytest.mark.parametrize("dtype,launched", [
-    (torch.float32, ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")),
-    (torch.bfloat16, ("flash_fwd_tc", "flash_bwd_dkdv_tc",
-                      "flash_bwd_dq_tc")),
+@pytest.mark.parametrize("dtype,d,launched", [
+    (torch.float32, 64, ("flash_fwd_f32tc", "flash_bwd_dkdv_f32tc",
+                         "flash_bwd_dq")),
+    (torch.float32, 32, ("flash_fwd_f32tc", "flash_bwd_dkdv_f32tc",
+                         "flash_bwd_dq")),
+    (torch.bfloat16, 64, ("flash_fwd_tc", "flash_bwd_dkdv_tc",
+                          "flash_bwd_dq_tc")),
+    (torch.bfloat16, 32, ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")),
 ])
-def test_autograd_launches_each_kernel_once(cuda, dtype, launched):
-    b, s, h, d = 2, 128, 4, 64
+def test_autograd_launches_each_kernel_once(cuda, dtype, d, launched):
+    b, s, h = 2, 128, 4
     q, k, v = (torch.randn(b, s, h, d, device=cuda, dtype=dtype,
                            requires_grad=True) for _ in range(3))
     fa.reset_launch_counts()
