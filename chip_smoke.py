@@ -5,15 +5,17 @@
 
 Drives the port's main path — one data-parallel gpt-small training step
 at full width and depth (12 layers, 12 heads, emb 768, vocab 32000, bf16,
-seq 1024, batch 8 per GPU, AdamW lr 1e-4) — and its fp32 twin, and holds
-every kernel of them against its plain PyTorch version.  Eight kernels:
-the bf16 tensor-core forward, dK/dV and dQ (``flash_fwd_tc``,
-``flash_bwd_dkdv_tc``, ``flash_bwd_dq_tc``; bf16 at head_dim 64), the fp32
-3xTF32 tensor-core forward and dK/dV (``flash_fwd_f32tc``,
-``flash_bwd_dkdv_f32tc``; fp32 at head_dims 16/32/64) and the scalar-FMA
-forward, dK/dV and dQ (``flash_fwd``, ``flash_bwd_dkdv``: bf16 at head_dims
-16/32; ``flash_bwd_dq``: fp32, and bf16 at head_dims 16/32).  Phases, one
-JSON line each:
+seq 1024, batch 8 per GPU, AdamW lr 1e-4) — its fp32 twin and gpt-nano's
+bf16 step (head_dim 32), and holds every kernel of them against its plain
+PyTorch version.  Eight kernels: the bf16 tensor-core forward and dK/dV
+(``flash_fwd_tc``, ``flash_bwd_dkdv_tc``; bf16 at head_dims 16/32/64) and
+dQ (``flash_bwd_dq_tc``; bf16 at head_dim 64), the fp32 3xTF32
+tensor-core forward and dK/dV (``flash_fwd_f32tc``,
+``flash_bwd_dkdv_f32tc``; fp32 at head_dims 16/32/64), the scalar-FMA dQ
+(``flash_bwd_dq``: fp32, and bf16 at head_dims 16/32) and the scalar-FMA
+forward and dK/dV (``flash_fwd``, ``flash_bwd_dkdv``), which no route
+reaches (``fa.OFF_ROUTE``): the tensor-core kernels' yardstick, forced
+through their launch helpers.  Phases, one JSON line each:
 
 1. ``build``: compile the CUDA kernels from ``horovod_tpu_torch/csrc``
    (one nvcc per source, all at once), print the seconds taken, each
@@ -24,20 +26,25 @@ JSON line each:
    the bf16 main path (Z=96, S=1024, D=64, causal), a bf16 and an fp32
    GQA + window shape with a ragged S, the fp32 main shape (the same in
    fp32; the scalar forward and dK/dV there too, through their launch
-   helpers), gpt-nano's head_dim 32 in fp32, bf16 at D=32 (the scalar
-   route) and a bf16 GQA + window and an MQA shape at D=32 and D=16.  Each
-   kernel is timed at its own route's shape (``RECORD_SHAPE``) beside the
-   plain versions and the PyTorch library call (SDPA's flash kernels in
-   bf16, its memory-efficient ones in fp32; a yardstick the port never
-   calls); ``speedup``: every tensor-core kernel at least ``MIN_SPEEDUP``
-   x its scalar twin, that one forced through its launch helper at the
-   tensor-core kernel's own shape and dtype.  ``tile_skip``: each kernel's time unmasked,
+   helpers), gpt-nano's head_dim 32 in fp32, bf16 at D=32 (the same as the
+   main shape at gpt-nano's head_dim), gpt-nano's own bf16 attention
+   (Z=128, S=256, D=32: ``train_nano``'s; the scalar twins forced at both)
+   and a bf16 GQA + window and an MQA shape at D=32 and D=16.  Each kernel
+   is timed at each of its routes' shapes (``RECORD_SHAPE``; the scalar
+   twins at ``OFF_ROUTE_SHAPE``) beside the plain versions and the
+   PyTorch library call (SDPA's flash kernels in bf16, its
+   memory-efficient ones in fp32; a yardstick the port never calls);
+   ``speedup``: every tensor-core kernel at least ``MIN_SPEEDUP`` x its
+   scalar twin, that one forced through its launch helper on the same
+   inputs, at gpt-small's size in each route's dtype and head_dim
+   (``SPEEDUP_SHAPES``; reported at gpt-nano's).  ``tile_skip``: each kernel's time unmasked,
    causal and windowed; the masked runs must be faster by the tiles they
    skip.
 3. ``model_check``: gpt-nano on the card, flash kernels against the plain
    reference attention: logits and gradients in fp32, and in bf16 (the
-   scalar kernels' route) within ``NANO_BF16_SCALE_TOL`` of each tensor's
-   scale, with its launches counted.
+   tensor-core forward and dK/dV at head_dim 32, the scalar dQ) within
+   ``NANO_BF16_SCALE_TOL`` of each tensor's scale, with its launches
+   counted.
 4. ``train``: ``init()``, ``build_gpt_step("small", "bf16", 8, 1024)``,
    2 warm-up and 5 timed steps; every loss finite, each main-path kernel
    launched 12 times per step, and the 7 losses within 1% of the same
@@ -45,6 +52,14 @@ JSON line each:
 5. ``profile``: one more step under ``torch.profiler``: device time by
    kernel, the device's busy share, host busy time by op (the phases
    below profile one step of each of their runs the same way).
+   ``train_nano``: ``build_gpt_step("nano", "bf16", 32, 256)`` (3 layers,
+   4 heads, emb 128: head_dim 32), the same 7 steps: exactly 3 launches a
+   step of ``NANO_PATH`` and nothing else, losses within ``LOSS_RTOL`` of
+   the same steps with reference attention, tokens/s/GPU, one profiled
+   step (the device's busy share); then ``python -m
+   horovod_tpu_torch.bench --model gpt-nano --seq-len 256 --batch-size
+   32`` once, whose record must name ``NANO_PATH`` as the kernels
+   launched.
    ``train_fp32``: ``build_gpt_step("small", "fp32", 8, 1024)``, TF32
    off, the same 7 steps: exactly 12 launches a step of the 3xTF32
    forward and dK/dV and the scalar dQ and nothing else, losses within
@@ -151,10 +166,11 @@ JSON line each:
    ``GUMBEL_ULPS`` ulp (at the scale max(|g|, 1)); ``sample_token`` on 256
    rows of 32000 fp32 logits, the same tokens by the margin rule at 1e-5.
 
-Then the ``kernels`` summary (each kernel's launches from its own route's
-run: ``train`` for the bf16 tensor-core kernels, ``train_fp32`` for the
-fp32 route, ``model_check``'s bf16 gpt-nano for the scalar forward and
-dK/dV), the card's name and power limit, and ``{"ok": true, ...}`` as the
+Then the ``kernels`` summary, one record per kernel and route shape (its
+launches from that route's run: ``train`` at ``bf16_main``,
+``train_fp32`` at ``fp32_main``, ``train_nano`` at ``bf16_nano``; the
+scalar twins' from ``train_nano``, which must launch them 0 times), the
+card's name and power limit, and ``{"ok": true, ...}`` as the
 last line.  Any failure raises and exits
 nonzero; without a GPU it exits 2 and prints no result.
 """
@@ -206,7 +222,7 @@ PASS = {"flash_fwd_tc": "fwd", "flash_fwd": "fwd", "flash_fwd_f32tc": "fwd",
         "flash_bwd_dkdv_f32tc": "dkdv",
         "flash_bwd_dq_tc": "dq", "flash_bwd_dq": "dq"}
 # tensor-core kernel -> the scalar kernel of the same function, timed at the
-# tensor-core kernel's own shape, in its dtype (``RECORD_SHAPE``)
+# tensor-core kernel's own shapes, in its dtype (``RECORD_SHAPE``)
 SCALAR_TWIN = {"flash_fwd_tc": "flash_fwd",
                "flash_bwd_dkdv_tc": "flash_bwd_dkdv",
                "flash_bwd_dq_tc": "flash_bwd_dq",
@@ -330,8 +346,8 @@ SKIP_LIMITS = {"causal_over_full": 0.7, "window_over_causal": 0.5}
 SKIP_SHAPE = {"b": 2, "s": 4096, "h": 12, "d": 64}
 MAIN_SHAPE = {"b": 8, "s": 1024, "h": 12, "d": 64}
 # dtype each kernel is timed in, at head_dim 64: a dtype of its route (the
-# scalar forward and dK/dV in bf16, their route at head_dims 16/32; the
-# scalar dQ in fp32)
+# scalar forward and dK/dV, on no route, in bf16, the dtype of the
+# tensor-core kernels they are the twins of; the scalar dQ in fp32)
 SKIP_DTYPE = {"flash_fwd_tc": "bf16", "flash_bwd_dkdv_tc": "bf16",
               "flash_bwd_dq_tc": "bf16", "flash_fwd": "bf16",
               "flash_bwd_dkdv": "bf16", "flash_bwd_dq": "fp32",
@@ -389,13 +405,16 @@ def tile_skip(fa):
     return ms, ratios, main
 
 
-def attention_work(b, s, h, hkv, d, causal, window, itemsize):
+def attention_work(b, s, h, hkv, d, causal, window, itemsize,
+                   pairs_read=True):
     """FLOPs of each kernel's products and the bytes it must move (each
     of its inputs read once, each of its outputs written once) on these
     shapes; only the (q, k) pairs the masks leave alive count.  Keyed by
     kernel: the tensor-core backward kernels move other tensors than their
     scalar twins (dK/dV's pre-pass also writes the (lse, delta) pairs, dQ
-    reads them in place of o and lse)."""
+    reads them in place of o and lse).  *pairs_read*: whether the route's
+    dQ reads those pairs (the tensor-core dQ does; the scalar dQ
+    recomputes delta, and then writing them is no part of dK/dV's work)."""
     import torch
 
     qp = torch.arange(s)[:, None]
@@ -421,7 +440,8 @@ def attention_work(b, s, h, hkv, d, causal, window, itemsize):
     dq = (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + lse_bytes + q_bytes)
     return {
         "flash_fwd_tc": fwd, "flash_fwd": fwd, "flash_fwd_f32tc": fwd,
-        "flash_bwd_dkdv_tc": (dkdv[0], dkdv[1] + pair_bytes),
+        "flash_bwd_dkdv_tc": (dkdv[0],
+                              dkdv[1] + (pair_bytes if pairs_read else 0)),
         "flash_bwd_dkdv": dkdv, "flash_bwd_dkdv_f32tc": dkdv,
         # q, dO, k, v and the pairs in; dq out
         "flash_bwd_dq_tc": (dq[0], dq[1] - q_bytes - lse_bytes + pair_bytes),
@@ -433,6 +453,14 @@ def bound(flops: int, nbytes: int, peak: float):
     t_ops, t_bytes = flops / peak, nbytes / H100_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+# gpt-nano at full width and depth (3 layers, 4 heads, emb 128, so head_dim
+# 32; vocab 1024), bf16, its max_len 256 as seq, batch 32 per GPU: the
+# bf16 route at head_dim 32, the tensor-core forward and dK/dV and the
+# scalar dQ
+NANO_STEP = ("nano", "bf16", 32, 256)
+NANO_PATH = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq")
 
 
 # The shapes kernel_check holds the kernels at: the kernels of each one's
@@ -455,25 +483,40 @@ SHAPES = (
     # gpt-nano's head_dim in fp32
     dict(name="fp32_d32", b=4, s=256, h=4, hkv=4, d=32, dtype="fp32",
          causal=True, window=None, timed=False, forced=()),
+    # gpt-small's size at gpt-nano's head_dim: the speedup gate's D 32 shape
     dict(name="bf16_d32", b=8, s=1024, h=12, hkv=12, d=32, dtype="bf16",
-         causal=True, window=None, timed=True, forced=()),
-    # the scalar route's GQA fold and ragged S
+         causal=True, window=None, timed=True,
+         forced=("flash_fwd", "flash_bwd_dkdv")),
+    # gpt-nano's attention in ``train_nano`` (batch 32, seq 256, 4 heads)
+    dict(name="bf16_nano", b=NANO_STEP[2], s=NANO_STEP[3], h=4, hkv=4, d=32,
+         dtype="bf16", causal=True, window=None, timed=True,
+         forced=("flash_fwd", "flash_bwd_dkdv")),
+    # the GQA fold and ragged S at head_dims 32 and 16
     dict(name="bf16_d32_gqa_window", b=2, s=300, h=8, hkv=2, d=32,
          dtype="bf16", causal=True, window=100, timed=False, forced=()),
     dict(name="bf16_d16_mqa", b=2, s=97, h=4, hkv=1, d=16, dtype="bf16",
          causal=True, window=None, timed=False, forced=()),
 )
-# the shape each kernel's record (the ``kernels`` line, PERF.md) and its
-# launches come from, one on its route: gpt-small's bf16 attention for the
-# bf16 tensor-core kernels, the fp32 gpt-small step's for the fp32 route
-# (the 3xTF32 forward and dK/dV, the scalar dQ), bf16 at head_dim 32
-# (gpt-nano's) for the scalar forward and dK/dV
-RECORD_SHAPE = {"flash_fwd_tc": "bf16_main", "flash_bwd_dkdv_tc": "bf16_main",
-                "flash_bwd_dq_tc": "bf16_main",
-                "flash_fwd_f32tc": "fp32_main",
-                "flash_bwd_dkdv_f32tc": "fp32_main",
-                "flash_bwd_dq": "fp32_main",
-                "flash_fwd": "bf16_d32", "flash_bwd_dkdv": "bf16_d32"}
+# the shapes each kernel's records (the ``kernels`` line, PERF.md) and
+# their launches come from, one for each of its routes, each the shape of
+# the run that launches it: gpt-small's bf16 attention (head_dim 64,
+# ``train``), the fp32 gpt-small step's (the 3xTF32 forward and dK/dV, the
+# scalar dQ; ``train_fp32``) and gpt-nano's bf16 head_dim 32 (the
+# tensor-core forward and dK/dV, the scalar dQ; ``train_nano``)
+RECORD_SHAPE = {"flash_fwd_tc": ("bf16_main", "bf16_nano"),
+                "flash_bwd_dkdv_tc": ("bf16_main", "bf16_nano"),
+                "flash_bwd_dq_tc": ("bf16_main",),
+                "flash_fwd_f32tc": ("fp32_main",),
+                "flash_bwd_dkdv_f32tc": ("fp32_main",),
+                "flash_bwd_dq": ("fp32_main", "bf16_nano")}
+# the scalar twins on no route (fa.OFF_ROUTE), each recorded at the shape
+# it is forced at beside the tensor-core kernel it was the route of
+OFF_ROUTE_SHAPE = {"flash_fwd": "bf16_nano", "flash_bwd_dkdv": "bf16_nano"}
+# the shapes the speedup gate holds each tensor-core kernel to
+# ``MIN_SPEEDUP`` x its scalar twin at: gpt-small's size in each route's
+# dtype and head_dim.  At ``bf16_nano`` (kernels of a few microseconds) the
+# ratio is reported, not held.
+SPEEDUP_SHAPES = ("bf16_main", "fp32_main", "bf16_d32")
 
 
 def library_ms(q, k, v, do, b, h, s, d, scale):
@@ -513,9 +556,10 @@ def kernel_check(fa):
     """Every kernel against its plain version at ``SHAPES`` (its route's,
     and the forced launches); the timed shapes' device times of the
     kernels, the plain versions and the library calls.  Raises unless each
-    tensor-core kernel is ``MIN_SPEEDUP`` x its scalar twin at its own
-    shape, or a kernel's ``RECORD_SHAPE`` is off its route.  Returns each
-    kernel's record, from ``RECORD_SHAPE``."""
+    tensor-core kernel is ``MIN_SPEEDUP`` x its scalar twin at each of its
+    own shapes, or if a kernel's ``RECORD_SHAPE`` is off its route (an
+    ``OFF_ROUTE_SHAPE`` must be off it, and forced).  Returns the records,
+    keyed by (kernel, shape)."""
     import torch
 
     dts = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -589,19 +633,25 @@ def kernel_check(fa):
                 q, k, v, o_p, lse_p, do, causal, scale, bk, h, hkv, window),
                 3, warmup=1)
             lib_fwd, lib_bwd = library_ms(q, k, v, do, b, h, s, d, scale)
-            work = attention_work(b, s, h, hkv, d, causal, window,
-                                  q.element_size())
-            for name, where in RECORD_SHAPE.items():
-                if where != shp["name"]:
-                    continue
-                if name not in route.values():
+            work = attention_work(
+                b, s, h, hkv, d, causal, window, q.element_size(),
+                pairs_read=route["dq"] in fa._PAIRS_FILLED_BY)
+            recorded = [(n, True) for n, at in RECORD_SHAPE.items()
+                        if shp["name"] in at]
+            recorded += [(n, False) for n, at in OFF_ROUTE_SHAPE.items()
+                         if at == shp["name"]]
+            for name, on_route in recorded:
+                routed = name in route.values()
+                if routed != on_route or not (routed or
+                                              name in shp["forced"]):
                     raise AssertionError(
-                        f"{name}'s record shape {where} routes to {route}")
+                        f"{name}'s record shape {shp['name']} routes to "
+                        f"{route} (forced: {shp['forced']})")
                 flops, nbytes = work[name]
                 peak = PEAK[tname]
                 bms, by = bound(flops, nbytes, peak)
                 fwd = PASS[name] == "fwd"
-                records[name] = {
+                records[name, shp["name"]] = {
                     "max_abs_err": err[name], "ms": ms[name],
                     "plain_ms": plain_fwd if fwd else plain_bwd,
                     "bound_ms": bms, "bound_by": by,
@@ -614,29 +664,39 @@ def kernel_check(fa):
                                 "backward_dq_dk_dv": plain_bwd}
             line["library_ms"] = {"sdpa_forward": lib_fwd,
                                   "sdpa_backward_dq_dk_dv": lib_bwd}
-            line["bound_ms"] = {n: r["bound_ms"] for n, r in records.items()
-                                if r["shape"] == shp["name"]}
+            line["bound_ms"] = {n: r["bound_ms"]
+                                for (n, at), r in records.items()
+                                if at == shp["name"]}
         emit("kernel_check", **line)
 
     # every tensor-core kernel against the scalar kernel of its function,
-    # both timed on the same inputs: the tensor-core kernel's own shape
-    speedup = {}
-    for n, twin in SCALAR_TWIN.items():
-        ms = timed_ms[RECORD_SHAPE[n]]
-        speedup[n] = ms[twin] / ms[n]
+    # both timed on the same inputs: each timed shape that runs both
+    speedup = {f"{n}@{where}": ms[twin] / ms[n]
+               for n, twin in SCALAR_TWIN.items()
+               for where, ms in timed_ms.items() if n in ms and twin in ms}
     bf, f32 = timed_ms["bf16_main"], timed_ms["fp32_main"]
-    emit("speedup", min_speedup=MIN_SPEEDUP, over_scalar_twin=speedup,
-         twin_shape={n: RECORD_SHAPE[n] for n in SCALAR_TWIN},
+    d32, nano = timed_ms["bf16_d32"], timed_ms["bf16_nano"]
+    emit("speedup", min_speedup=MIN_SPEEDUP, held_at=SPEEDUP_SHAPES,
+         over_scalar_twin=speedup,
          backward_ms={
              "bf16_tensor_core_dkdv_plus_dq":
                  bf["flash_bwd_dkdv_tc"] + bf["flash_bwd_dq_tc"],
              "bf16_scalar_dkdv_plus_dq":
                  bf["flash_bwd_dkdv"] + bf["flash_bwd_dq"],
+             "bf16_d32_tensor_core_dkdv_plus_scalar_dq":
+                 d32["flash_bwd_dkdv_tc"] + d32["flash_bwd_dq"],
+             "bf16_d32_scalar_dkdv_plus_dq":
+                 d32["flash_bwd_dkdv"] + d32["flash_bwd_dq"],
+             "bf16_nano_tensor_core_dkdv_plus_scalar_dq":
+                 nano["flash_bwd_dkdv_tc"] + nano["flash_bwd_dq"],
+             "bf16_nano_scalar_dkdv_plus_dq":
+                 nano["flash_bwd_dkdv"] + nano["flash_bwd_dq"],
              "fp32_tensor_core_dkdv_plus_scalar_dq":
                  f32["flash_bwd_dkdv_f32tc"] + f32["flash_bwd_dq"],
              "fp32_scalar_dkdv_plus_dq":
                  f32["flash_bwd_dkdv"] + f32["flash_bwd_dq"]})
-    slow = {n: x for n, x in speedup.items() if x < MIN_SPEEDUP}
+    slow = {n: x for n, x in speedup.items()
+            if x < MIN_SPEEDUP and n.split("@")[1] in SPEEDUP_SHAPES}
     if slow:
         raise AssertionError(
             f"tensor-core kernels under {MIN_SPEEDUP}x their scalar twins "
@@ -644,20 +704,20 @@ def kernel_check(fa):
     return records
 
 
-# gpt-nano (3 layers, head_dim 32) in bf16 runs the scalar kernels: the
-# gate against reference attention is 3% of each tensor's largest
-# magnitude (measured on the CPU through the plain versions: logits 1.0%,
-# gradients 0.93%; bf16 rounds q, k, v, P and the outputs at other places
-# than the reference's einsums)
+# gpt-nano (3 layers, head_dim 32) in bf16 runs the tensor-core forward
+# and dK/dV and the scalar dQ: the gate against reference attention is 3%
+# of each tensor's largest magnitude (measured on the CPU through the
+# plain versions: logits 1.0%, gradients 0.93%; bf16 rounds q, k, v, P and
+# the outputs at other places than the reference's einsums)
 NANO_BF16_SCALE_TOL = 0.03
 
 
 def model_check(hvd_models, fa):
     """gpt-nano on the card, flash kernels against the plain reference
     attention through the whole model, logits and grads: in fp32 (the
-    3xTF32 forward and dK/dV, the scalar dQ) and in bf16 (the scalar
-    kernels).  Returns the bf16 run's launches, counted from 0 around its
-    flash model only."""
+    3xTF32 forward and dK/dV, the scalar dQ) and in bf16 (the tensor-core
+    forward and dK/dV, the scalar dQ), each route's kernels launched once
+    a layer, counted from 0 around its flash model only."""
     import numpy as np
     import torch
 
@@ -716,7 +776,6 @@ def model_check(hvd_models, fa):
                "max_err_over_scale_grads": bf16_grads,
                "tolerance_of_scale": NANO_BF16_SCALE_TOL,
                "launches": launches[bf]})
-    return launches[bf]
 
 
 # the kernels of the main path (bf16, head_dim 64) and the ones it must not
@@ -894,21 +953,56 @@ def train_fp32(fa):
     return run
 
 
-def bench_fp32() -> dict:
-    """``python -m horovod_tpu_torch.bench --model gpt-small --dtype fp32``
-    once, in its own process: its record, which must say that the flash
-    kernels ran."""
-    cmd = [sys.executable, "-m", "horovod_tpu_torch.bench", "--model",
-           "gpt-small", "--dtype", "fp32"]
+def bench(*args, path) -> dict:
+    """``python -m horovod_tpu_torch.bench *args`` once, in its own
+    process: its record, whose flash kernels launched must be exactly
+    ``path``'s."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.bench", *args]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
         raise AssertionError(f"bench exited {out.returncode}:\n"
                              f"{out.stderr[-4000:]}")
     record = json.loads(out.stdout.strip().splitlines()[-1])
-    if record.get("attention") != "kernels":
-        raise AssertionError(f"bench ran no flash kernel: {record}")
+    if (record.get("attention") != "kernels"
+            or set(record["flash_launches"]) != set(path)):
+        raise AssertionError(f"bench ran other flash kernels than {path}: "
+                             f"{record}")
     emit("bench", command=" ".join(cmd[1:]), record=record)
     return record
+
+
+def train_nano(fa):
+    """``build_gpt_step("nano", "bf16", 32, 256)``: exact launches
+    (``NANO_PATH`` 3 a step, nothing else), finite losses within
+    ``LOSS_RTOL`` of the same steps with reference attention, step time,
+    tokens/s/GPU, memory, one profiled step (the device's busy share).
+    Returns the run's record."""
+    import torch
+    from horovod_tpu_torch.train import build_gpt_step
+
+    step, state, _ = build_gpt_step(*NANO_STEP)
+    path = tuple(fa.kernel_for(p, torch.bfloat16, state[0].cfg.head_dim)
+                 for p in ("fwd", "dkdv", "dq"))
+    if path != NANO_PATH:
+        raise AssertionError(f"gpt-nano bf16 routes to {path}")
+    state, run = drive(fa, step, state, path=path)
+    prof = profile_step(state, step, run["step_ms"])
+    del state, step
+    release()
+    ref_losses = losses_of(build_gpt_step, cfg=NANO_STEP,
+                           attention="reference")
+    release()
+    rel = max_rel(run["losses"], ref_losses)
+    if rel > LOSS_RTOL:
+        raise AssertionError(
+            f"gpt-nano losses {run['losses']} differ from the reference "
+            f"attention's {ref_losses} by {rel:.4f} > {LOSS_RTOL}")
+    emit("train_nano", model="gpt-nano", dtype="bf16",
+         batch_per_gpu=NANO_STEP[2], seq=NANO_STEP[3], steps_timed=STEPS,
+         warmup=WARMUP, reference_losses=ref_losses, max_rel_loss_diff=rel,
+         loss_rtol=LOSS_RTOL, mfu_peak_flops=H100_BF16_PEAK,
+         device_busy_share=prof["device_busy_share"], profile=prof, **run)
+    return run
 
 
 def issue_order(fa, plan, names):
@@ -2463,17 +2557,19 @@ def main() -> int:
          limits=SKIP_LIMITS,
          main_shape={**MAIN_SHAPE, "ratios": main_ratios,
                      "held": False})
-    nano_bf16_launches = model_check(hvd_models, fa)
+    model_check(hvd_models, fa)
     state, step, run, world = train(hvd, fa)
     emit("profile", **profile_step(state, step, run["step_ms"]))
     del state, step
     release()
+    nano_run = train_nano(fa)
+    bench("--model", "gpt-nano", "--seq-len", str(NANO_STEP[3]),
+          "--batch-size", str(NANO_STEP[2]), path=NANO_PATH)
     fp32_run = train_fp32(fa)
-    bench_fp32()
-    # each kernel's launches from the run of its record shape's route
-    runs = {"bf16_main": run["launches"], "fp32_main": fp32_run["launches"],
-            "bf16_d32": nano_bf16_launches}
-    launches = {n: runs[where][n] for n, where in RECORD_SHAPE.items()}
+    bench("--model", "gpt-small", "--dtype", "fp32",
+          path=[n for n, k in fp32_run["launches_per_step"].items() if k])
+    # each record's launches from the run of its shape's route
+    runs = {"bf16_main": run, "fp32_main": fp32_run, "bf16_nano": nano_run}
     overlap(fa, run["losses"])
     rope_remat(fa)
     resnet_off = conv(fa)
@@ -2489,13 +2585,11 @@ def main() -> int:
 
     summary = [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
-         "replaces": SOURCES[n][1], "launches": launches[n],
-         "max_abs_err": records[n]["max_abs_err"], "ms": records[n]["ms"],
-         "plain_ms": records[n]["plain_ms"],
-         "bound_ms": records[n]["bound_ms"],
-         "bound_by": records[n]["bound_by"],
-         "library_ms": records[n]["library_ms"]}
-        for n in SOURCES
+         "replaces": SOURCES[n][1], "shape": at,
+         "launches": runs[at]["launches"][n],
+         **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}}
+        for n in SOURCES for (name, at), r in records.items() if name == n
     ]
     hvd.shutdown()
     print(json.dumps({"kernels": summary}), flush=True)

@@ -21,8 +21,12 @@
 // What bounds it on the H100.  4 products of 2 * D FLOPs per unmasked
 // score against q, k, v, o, dO and lse read once and dK, dV written once:
 // memory bound for tensor-core products, but this version's scalar fp32
-// FMAs make it bound by operations (67 TFLOP/s fp32 peak); wgmma is the
-// next step.
+// FMAs make it bound by operations (67 TFLOP/s fp32 peak).
+//
+// On no route: flash_bwd_dkdv_tc.cu takes bf16 at every head_dim and
+// flash_bwd_dkdv_f32tc.cu fp32.  It stays built, held against the plain
+// version, as the scalar yardstick the tensor-core dK/dV kernels are timed
+// against (chip_smoke.py, the speedup gate), launched only when named.
 #include "flash_common.cuh"
 
 using namespace hvd_flash;

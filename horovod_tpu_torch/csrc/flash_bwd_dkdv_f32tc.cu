@@ -3,11 +3,11 @@
 //
 // Replaces the TPU kernel horovod_tpu/ops/flash_attention.py:
 // _flash_bwd_pallas.kernel_dkdv (:291-322, with the shared recompute
-// _recompute_p_ds, :270-289), for fp32 inputs; bf16 at head_dim 64 runs
-// flash_bwd_dkdv_tc.cu and bf16 at head_dims 16/32 flash_bwd_dkdv.cu.  Per
-// key row: over every (q head of its GQA group, query row) the masks leave
-// alive, rebuild P = exp(S*scale - lse), dP = dO V^T, dS = P * (dP - delta)
-// with delta = rowsum(dO * O), and accumulate dV += P^T dO and
+// _recompute_p_ds, :270-289), for fp32 inputs; bf16 runs
+// flash_bwd_dkdv_tc.cu at every head_dim.  Per key row: over every (q
+// head of its GQA group, query row) the masks leave alive, rebuild
+// P = exp(S*scale - lse), dP = dO V^T, dS = P * (dP - delta) with
+// delta = rowsum(dO * O), and accumulate dV += P^T dO and
 // dK += dS^T Q * scale in fp32.  Every product is three tf32 products
 // (hopper_tc.cuh, "3xTF32"), fp32-grade like the reference's
 // preferred_element_type=float32 products.

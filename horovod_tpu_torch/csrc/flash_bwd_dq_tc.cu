@@ -63,6 +63,7 @@ constexpr int kD = 64;
 constexpr int kBQ = 64;            // query rows per CTA
 constexpr int kBK = 64;            // keys per K/V tile
 constexpr int kStages = 3;
+using Tile = BfTile<kD>;
 constexpr int kConsumerWarps = 4;  // one warpgroup
 constexpr int kThreads = kConsumerWarps * 32 + 32;  // + the producer warp
 constexpr int kTileBytes = kBQ * kD * 2;            // one of Q, dO, K, V
@@ -140,8 +141,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int lr = warp * 16 + lane / 4;  // this thread's rows lr, lr + 8
   const int r_lo = row0 + lr, r_hi = r_lo + 8;
   const int col = 2 * (lane % 4);       // + 8c + (e & 1)
-  const uint64_t desc_q = desc_sw128(sq);
-  const uint64_t desc_do = desc_sw128(sdo);
+  const uint64_t desc_q = Tile::desc(sq);
+  const uint64_t desc_do = Tile::desc(sdo);
 
   float acc[32];
 #pragma unroll
@@ -159,8 +160,8 @@ __global__ void __launch_bounds__(kThreads, 3)
     const int st = n % kStages;
     mbar_wait(&bars.full[st], (n / kStages) & 1);
     float s[32], dp[32];
-    const uint64_t desc_k = desc_sw128(sk + st * kTileBytes);
-    const uint64_t desc_v = desc_sw128(sv + st * kTileBytes);
+    const uint64_t desc_k = Tile::desc(sk + st * kTileBytes);
+    const uint64_t desc_v = Tile::desc(sv + st * kTileBytes);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
@@ -239,10 +240,10 @@ extern "C" int hvd_flash_bwd_dq_tc(const void* q, const void* k,
   const int zkv = Z / h * hkv;
   const int S_pad = (S + kBQ - 1) / kBQ * kBQ;
   CUtensorMap map_q, map_k, map_v, map_do;
-  if (!hvd_map_rows(&map_q, q, Z, S, kBQ) ||
-      !hvd_map_rows(&map_k, k, zkv, S, kBK) ||
-      !hvd_map_rows(&map_v, v, zkv, S, kBK) ||
-      !hvd_map_rows(&map_do, dout, Z, S, kBQ))
+  if (!hvd_map_rows(&map_q, q, Z, S, kD, kBQ) ||
+      !hvd_map_rows(&map_k, k, zkv, S, kD, kBK) ||
+      !hvd_map_rows(&map_v, v, zkv, S, kD, kBK) ||
+      !hvd_map_rows(&map_do, dout, Z, S, kD, kBQ))
     return (int)cudaErrorInvalidValue;
   static bool smem_set[kMaxDevices];
   cudaError_t err =

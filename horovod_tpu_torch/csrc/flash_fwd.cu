@@ -20,8 +20,12 @@
 // once: at D = 64 that is about 128 FLOPs per byte moved, under the
 // card's bf16 ridge of about 295, so the tensor-core version would be
 // memory bound.  This version does its products as scalar fp32 FMAs
-// (67 TFLOP/s peak, not 989), so it is bound by those operations; moving
-// the two products onto wgmma with TMA-fed tiles is the next step.
+// (67 TFLOP/s peak, not 989), so it is bound by those operations.
+//
+// On no route: flash_fwd_tc.cu takes bf16 at every head_dim and
+// flash_fwd_f32tc.cu fp32.  It stays built, held against the plain
+// version, as the scalar yardstick the tensor-core forwards are timed
+// against (chip_smoke.py, the speedup gate), launched only when named.
 #include "flash_common.cuh"
 
 using namespace hvd_flash;

@@ -3,14 +3,14 @@
 //
 // Replaces the TPU kernel horovod_tpu/ops/flash_attention.py:
 // _flash_fwd_kernel (its inner `kernel`, :158-207), for fp32 inputs; bf16
-// at head_dim 64 runs flash_fwd_tc.cu and bf16 at head_dims 16/32
-// flash_fwd.cu.  Computes, per folded row z and query position, the online
-// softmax of S = (Q * scale) K^T over the K tiles the causal/window masks
-// leave alive, and writes O = acc / l and lse = m + log(l) in fp32, with
-// the reference's finite NEG_INF recurrence.  The reference takes both
-// products in fp32 (flash_attention.py:179-185, :200-202), so this kernel
-// must stay fp32-grade: each product is three tf32 products, hi*hi +
-// hi*lo + lo*hi (hopper_tc.cuh, "3xTF32"), about 2^-22 relative from fp32.
+// runs flash_fwd_tc.cu at every head_dim.  Computes, per folded row z and
+// query position, the online softmax of S = (Q * scale) K^T over the K
+// tiles the causal/window masks leave alive, and writes O = acc / l and
+// lse = m + log(l) in fp32, with the reference's finite NEG_INF
+// recurrence.  The reference takes both products in fp32
+// (flash_attention.py:179-185, :200-202), so this kernel must stay
+// fp32-grade: each product is three tf32 products, hi*hi + hi*lo + lo*hi
+// (hopper_tc.cuh, "3xTF32"), about 2^-22 relative from fp32.
 //
 // What bounds it on the H100.  4 * D FLOPs per unmasked score, taken three
 // times on the tf32 tensor cores (495 TFLOP/s), so fp32-accurate work runs

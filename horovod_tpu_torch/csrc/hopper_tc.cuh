@@ -1,21 +1,27 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels
 // (flash_fwd_tc.cu, flash_bwd_dkdv_tc.cu, flash_bwd_dq_tc.cu): mbarriers,
-// TMA loads, wgmma descriptors and the one wgmma shape the three kernels
-// use, m64n64k16 bf16 with fp32 accumulators, in its SS form (A and B from
-// shared memory) and its RS form (A from registers).
+// TMA loads, wgmma descriptors and the bf16 wgmma forms those kernels use,
+// fp32 accumulators throughout: m64n64k16 SS (A and B from shared memory;
+// every score product, whose N is 64 keys or queries) and m64nNk16 RS (A
+// from registers; the products whose N is the head_dim, N in {16, 32, 64}).
 //
-// Shared-memory tiles.  Every bf16 tile is [rows, 64] with 128-byte rows,
-// written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row
-// r lands at chunk c ^ (r % 8), in 1024-byte atoms of 8 rows.  Tiles start
-// on 1024-byte boundaries so the swizzle phase is the address's own.  One
-// descriptor form reads such a tile either way:
-//   * K-major (the 64 columns are the product's depth): rows are M or N,
-//     8-row groups 1024 bytes apart (SBO); the k-th 16-column slice starts
-//     32 * k bytes into the row (descriptor address + 2 * k).
-//   * MN-major (the rows are the product's depth, transpose bit set): the 64
+// Shared-memory tiles.  A bf16 tile is [rows, D], D in {16, 32, 64}
+// (BfTile<D>), as TMA writes a box of D columns: rows of 2D bytes (128, 64
+// or 32) with the swizzle of the same width, the 16-byte chunk c of row r
+// at c ^ (r % 8), c ^ (r / 2 % 4) or c ^ (r / 4 % 2): address bits [4, 7),
+// [4, 6) or [4, 5) XOR bits [7, ...).  Tiles start on 1024-byte boundaries
+// so the swizzle phase is the address's own.  One descriptor form reads
+// such a tile either way, its SBO the 8 rows of a swizzle atom (8 x 2D
+// bytes):
+//   * K-major (the D columns are the product's depth): rows are M or N; the
+//     k-th 16-column slice starts 32 * k bytes into the row (descriptor
+//     address + 2 * k), D / 16 slices.
+//   * MN-major (the rows are the product's depth, transpose bit set): the D
 //     columns are N, one swizzle atom wide; the k-th 16-row slice starts
-//     2048 * k bytes on (descriptor address + 128 * k), and 8-row groups are
-//     1024 bytes apart (SBO).
+//     16 * 2D * k bytes on (descriptor address + 2D * k).
+// D 16 takes the 32-byte swizzle rather than a 32-column box over a
+// 16-column tensor (TMA zero-filling columns 16-31): one layout rule for
+// the three widths, and no bytes loaded or multiplied that are zeros.
 //
 // Accumulator fragment of m64nN (PTX "wgmma D fragment"): thread t of the
 // warpgroup, warp w = t / 32, lane l: d[4c + e] is row 16w + l/4 + 8*(e/2),
@@ -130,14 +136,24 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 
 // ---- wgmma -----------------------------------------------------------------
 
-// Descriptor of a 1024-byte-aligned SWIZZLE_128B bf16 tile (see the top).
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4)          // start address, 16-byte units
-         | (uint64_t(1) << 16)            // LBO: unused by these layouts
-         | (uint64_t(1024 >> 4) << 32)    // SBO: 8-row groups 1024 B apart
-         | (uint64_t(1) << 62);           // layout: 128-byte swizzle
-}
+// A bf16 tile [rows, D] (see the top): its descriptor and slice steps.
+template <int D>
+struct BfTile {
+  static_assert(D == 16 || D == 32 || D == 64, "BfTile: D in {16, 32, 64}");
+  static constexpr int kRowBytes = 2 * D;
+  static constexpr int kKSlices = D / 16;  // k16 slices of a K-major depth
+  static constexpr uint64_t kDescBits =
+      (uint64_t(1) << 16)                          // LBO: unused
+      | (uint64_t((8 * kRowBytes) >> 4) << 32)     // SBO: 8-row groups
+      | (uint64_t(D == 64 ? 1 : D == 32 ? 2 : 3) << 62);  // 128/64/32 B swizzle
+  // what k-slice k adds to the descriptor, in 16-byte units
+  static constexpr uint32_t kKStep = 2;           // K-major: 32 bytes on
+  static constexpr uint32_t kMNStep = kRowBytes;  // MN-major: 16 rows on
+  // descriptor of the 1024-byte-aligned tile at `tile` (its slice 0)
+  __device__ static __forceinline__ uint64_t desc(const void* tile) {
+    return ((smem_u32(tile) & 0x3FFFF) >> 4) | kDescBits;
+  }
+};
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -152,10 +168,22 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from touching accumulator registers across the
 // asynchronous product (reads are ordered after the wait by this).
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int K>
+__device__ __forceinline__ void fence_acc(float (&d)[K]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+
+#define HVD_WGMMA_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define HVD_WGMMA_D8_OPS(d)                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7])
+#define HVD_WGMMA_D16                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define HVD_WGMMA_D16_OPS(d)                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 
 #define HVD_WGMMA_D32                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -182,16 +210,35 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d += A[64x16] * B[16x64]; A in registers (pack_a), B MN-major in shared
-// memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+// d += A[64x16] * B[16xN], N = 2K (the accumulator's K words a thread:
+// N in {16, 32, 64}); A in registers (pack_a), B MN-major in shared memory
+// (transpose bit set).
+template <int K>
+__device__ __forceinline__ void wgmma_rs(float (&d)[K], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HVD_WGMMA_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : HVD_WGMMA_D32_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (K == 32) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HVD_WGMMA_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : HVD_WGMMA_D32_OPS(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else if constexpr (K == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HVD_WGMMA_D16
+        ", {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : HVD_WGMMA_D16_OPS(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else {
+    static_assert(K == 8, "N in {16, 32, 64}");
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " HVD_WGMMA_D8
+        ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : HVD_WGMMA_D8_OPS(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -441,12 +488,6 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <int K>
-__device__ __forceinline__ void fence_acc(float (&d)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // TMA load of an F32Tile from a hvd_map_rows_f32 map: one box per chunk,
 // rows from `row` of slab `z`.
 template <class Tile>
@@ -459,17 +500,6 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
     tma_load_3d(dst + c * Tile::kChunkBytes, map, c * Tile::kCW, row, z,
                 bar);
 }
-
-#define HVD_WGMMA_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
-#define HVD_WGMMA_D8_OPS(d)                                                 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7])
-#define HVD_WGMMA_D16                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-#define HVD_WGMMA_D16_OPS(d)                                                \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 
 // The .tf32 wgmma forms.  Descriptors come in as a tile's base descriptor
 // and a slice offset, added inside the asm as an immediate: with one
@@ -594,21 +624,28 @@ static hvd_encode_tiled_fn hvd_encode_tiled() {
   return fn;
 }
 
-// 3-D map over a contiguous bf16 [Z, S, 64] array, boxes of `rows` x 64,
-// 128-byte swizzle.  Rows past S of a box are zero-filled: the map's second
-// dimension ends at S, so a ragged tile never reads the next z's rows.
+// 3-D map over a contiguous bf16 [Z, S, D] array, D in {16, 32, 64}, whose
+// boxes are BfTile<D> tiles: `rows` x D, the swizzle of a 2D-byte row
+// (128, 64 or 32 bytes).  Rows past S of a box are zero-filled: the map's
+// second dimension ends at S, so a ragged tile never reads the next z's
+// rows.
 static bool hvd_map_rows(CUtensorMap* map, const void* base, int Z, int S,
-                         int rows) {
+                         int D, int rows) {
   hvd_encode_tiled_fn encode = hvd_encode_tiled();
-  if (encode == nullptr || (reinterpret_cast<uintptr_t>(base) & 15))
+  if (encode == nullptr || (reinterpret_cast<uintptr_t>(base) & 15) ||
+      (D != 16 && D != 32 && D != 64))
     return false;
-  const cuuint64_t dims[3] = {64, (cuuint64_t)S, (cuuint64_t)Z};
-  const cuuint64_t strides[2] = {64 * 2, (cuuint64_t)S * 64 * 2};  // bytes
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)Z};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)S * D * 2};  // bytes
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

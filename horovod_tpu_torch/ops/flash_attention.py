@@ -7,22 +7,26 @@ GQA semantics, and the same ``ValueError``s.  Kernels under ``csrc/``
 replace the three Pallas kernels:
 
 * ``_flash_fwd_kernel`` <- ``flash_fwd_tc`` (``csrc/flash_fwd_tc.cu``,
-  bf16 tensor cores) for bf16 at head_dim 64, ``flash_fwd_f32tc``
-  (``csrc/flash_fwd_f32tc.cu``, 3xTF32 tensor cores) for fp32, ``flash_fwd``
-  (``csrc/flash_fwd.cu``, scalar fp32 FMAs) for bf16 at head_dims 16/32
+  bf16 tensor cores) for bf16, ``flash_fwd_f32tc``
+  (``csrc/flash_fwd_f32tc.cu``, 3xTF32 tensor cores) for fp32
 * ``kernel_dkdv`` <- ``flash_bwd_dkdv_tc`` (``csrc/flash_bwd_dkdv_tc.cu``)
-  for bf16 at head_dim 64, ``flash_bwd_dkdv_f32tc``
-  (``csrc/flash_bwd_dkdv_f32tc.cu``) for fp32, ``flash_bwd_dkdv``
-  (``csrc/flash_bwd_dkdv.cu``) for bf16 at head_dims 16/32
+  for bf16, ``flash_bwd_dkdv_f32tc`` (``csrc/flash_bwd_dkdv_f32tc.cu``) for
+  fp32
 * ``kernel_dq`` <- ``flash_bwd_dq_tc`` (``csrc/flash_bwd_dq_tc.cu``) for
-  bf16 at head_dim 64, ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``)
-  otherwise
+  bf16 at head_dim 64, ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``, scalar
+  fp32 FMAs) otherwise
 
-:func:`kernel_for` is the whole route table.  ``wgmma`` has no fp32 form;
-the fp32 kernels take each product as three TF32 products (hi*hi + hi*lo
-+ lo*hi of a split x = hi + lo), which holds the fp32 tolerance where a
-single TF32 product would not.  The fp32 dQ stays on the scalar kernel
-for now (ROADMAP B).
+:func:`kernel_for` is the whole route table; the bf16 forward and dK/dV
+are one source each, instantiated at every head_dim of
+:data:`KERNEL_HEAD_DIMS`.  ``wgmma`` has no fp32 form; the fp32 kernels
+take each product as three TF32 products (hi*hi + hi*lo + lo*hi of a
+split x = hi + lo), which holds the fp32 tolerance where a single TF32
+product would not.  The fp32 dQ and the bf16 dQ at head_dims
+16/32 stay on the scalar kernel for now (ROADMAP B).  The scalar forward
+and dK/dV (``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dkdv.cu``) are on no
+route (:data:`OFF_ROUTE`): built, counted and held against their plain
+versions, they are launched only when named through the launch helpers'
+``kernel=``, as the yardstick the tensor-core kernels are timed against.
 
 Dispatch is by the device of the tensors: CUDA tensors launch the kernels
 (or raise), CPU tensors take the plain versions below — a port of the
@@ -81,6 +85,9 @@ KERNEL_TILES = {
     "flash_fwd_f32tc": (64, 32),
     "flash_bwd_dkdv_f32tc": (32, 128),
 }
+# kernels no route reaches: the scalar twins of the bf16 tensor-core
+# forward and dK/dV, launched only through the helpers' ``kernel=``
+OFF_ROUTE = ("flash_fwd", "flash_bwd_dkdv")
 # kernels fed by TMA and bulk copies, which need 16-byte aligned tensors
 _TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
                "flash_fwd_f32tc", "flash_bwd_dkdv_f32tc")
@@ -115,21 +122,19 @@ def _check_type(dtype: torch.dtype, head_dim: int) -> None:
 
 def kernel_for(pass_: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that runs pass ``"fwd"``, ``"dkdv"`` or ``"dq"`` on
-    inputs of ``dtype`` and ``head_dim``: the bf16 tensor-core kernels for
-    bf16 at head_dim 64, the 3xTF32 forward and dK/dV with the scalar dQ for
-    fp32, the scalar kernels for bf16 at head_dims 16/32.  Raises
-    ``ValueError`` for what no kernel takes."""
+    inputs of ``dtype`` and ``head_dim``: the bf16 tensor-core forward and
+    dK/dV for bf16, with the tensor-core dQ at head_dim 64 and the scalar
+    dQ at head_dims 16/32; the 3xTF32 forward and dK/dV with the scalar dQ
+    for fp32.  Raises ``ValueError`` for what no kernel takes."""
     _check_type(dtype, head_dim)
-    tc = dtype == torch.bfloat16 and head_dim == 64
-    f32 = dtype == torch.float32
+    bf16 = dtype == torch.bfloat16
     if pass_ == "fwd":
-        return ("flash_fwd_tc" if tc else "flash_fwd_f32tc" if f32
-                else "flash_fwd")
+        return "flash_fwd_tc" if bf16 else "flash_fwd_f32tc"
     if pass_ == "dkdv":
-        return ("flash_bwd_dkdv_tc" if tc else "flash_bwd_dkdv_f32tc" if f32
-                else "flash_bwd_dkdv")
+        return "flash_bwd_dkdv_tc" if bf16 else "flash_bwd_dkdv_f32tc"
     if pass_ == "dq":
-        return "flash_bwd_dq_tc" if tc else "flash_bwd_dq"
+        return ("flash_bwd_dq_tc" if bf16 and head_dim == 64
+                else "flash_bwd_dq")
     raise ValueError(f"unknown flash pass {pass_!r}")
 
 
@@ -301,9 +306,9 @@ def _checked_pairs(name, q, pairs) -> torch.Tensor:
     return pairs
 
 
-# The launch helpers take ``kernel=`` only so that chip_smoke.py can time
-# the scalar kernels at the fp32 tensor-core kernels' shapes; the port's
-# own calls leave it to kernel_for.
+# The launch helpers take ``kernel=`` only so that chip_smoke.py can hold
+# and time the scalar kernels (OFF_ROUTE among them) at the tensor-core
+# kernels' shapes; the port's own calls leave it to kernel_for.
 
 
 def launch_fwd(q, k, v, o, lse, causal, scale, h, hkv, window, kernel=None):

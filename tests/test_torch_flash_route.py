@@ -1,15 +1,16 @@
 """Which flash kernel runs what, and the tile predicate at the
 tensor-core kernels' tiles (horovod_tpu_torch.ops.flash_attention).
 
-The route is a plain table (``kernel_for``): bf16 at head_dim 64 runs the
-bf16 tensor-core forward, dK/dV and dQ; fp32 at every head_dim the 3xTF32
-tensor-core forward and dK/dV and the scalar dQ; bf16 at head_dims 16/32
-the scalar kernels.
-The CUDA kernels cannot run here; what
-they are held to on the card is the plain version, and the last test
-holds that plain version against the JAX package's Pallas kernels on the
-inputs the tensor-core route takes (bf16, head_dim 64, GQA, a window and
-an S that is not a multiple of the kernels' 64-row tiles).  Tolerance
+The route is a plain table (``kernel_for``): bf16 at every head_dim runs
+the bf16 tensor-core forward and dK/dV, with the tensor-core dQ at
+head_dim 64 and the scalar dQ at head_dims 16/32; fp32 at every head_dim
+the 3xTF32 tensor-core forward and dK/dV and the scalar dQ.  The scalar
+forward and dK/dV are on no route (``fa.OFF_ROUTE``).  The CUDA kernels
+cannot run here; what they are held to on the card is the plain version,
+and the last test holds that plain version against the JAX package's
+Pallas kernels on the inputs the tensor-core route takes (bf16 at head_dim
+16, 32 and 64, GQA, a window and an S that is not a multiple of the
+kernels' 64-row tiles).  Tolerance
 there: bf16 0.05, as tests/test_torch_flash_attention.py holds bf16.
 """
 
@@ -50,10 +51,10 @@ TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
     ("dq", torch.float32, 32, "flash_bwd_dq"),
     ("fwd", torch.float32, 16, "flash_fwd_f32tc"),
     ("dkdv", torch.float32, 16, "flash_bwd_dkdv_f32tc"),
-    ("fwd", torch.bfloat16, 32, "flash_fwd"),
-    ("dkdv", torch.bfloat16, 32, "flash_bwd_dkdv"),
-    ("fwd", torch.bfloat16, 16, "flash_fwd"),
-    ("dkdv", torch.bfloat16, 16, "flash_bwd_dkdv"),
+    ("fwd", torch.bfloat16, 32, "flash_fwd_tc"),
+    ("dkdv", torch.bfloat16, 32, "flash_bwd_dkdv_tc"),
+    ("fwd", torch.bfloat16, 16, "flash_fwd_tc"),
+    ("dkdv", torch.bfloat16, 16, "flash_bwd_dkdv_tc"),
     ("dq", torch.float32, 16, "flash_bwd_dq"),
     ("dq", torch.bfloat16, 32, "flash_bwd_dq"),
     ("dq", torch.bfloat16, 16, "flash_bwd_dq"),
@@ -64,7 +65,8 @@ def test_route_table(pass_, dtype, d, want):
 
 def test_every_kernel_is_built_counted_and_tiled():
     """Eight kernels, each with a source, a C signature, a launch counter
-    and its tiles; the route reaches every one of them."""
+    and its tiles; the route reaches every one of them but the scalar
+    twins of ``fa.OFF_ROUTE``, which it reaches nowhere."""
     assert len(kernels.SOURCES) == 8
     assert set(kernels.SOURCES) == set(kernels._SIGNATURES)
     assert set(fa.LAUNCHES) == set(kernels.SOURCES) == set(fa.KERNEL_TILES)
@@ -72,7 +74,9 @@ def test_every_kernel_is_built_counted_and_tiled():
                for p in ("fwd", "dkdv", "dq")
                for dt in (torch.float32, torch.bfloat16)
                for d in fa.KERNEL_HEAD_DIMS}
-    assert reached == set(kernels.SOURCES)
+    assert reached == set(kernels.SOURCES) - set(fa.OFF_ROUTE)
+    assert set(fa.OFF_ROUTE) == {"flash_fwd", "flash_bwd_dkdv"}
+    assert set(chip_smoke.OFF_ROUTE_SHAPE) == set(fa.OFF_ROUTE)
     # the dK/dV tensor-core entry point takes the (lse, delta) scratch
     assert len(kernels._SIGNATURES["flash_bwd_dkdv_tc"][1]) == \
         len(kernels._SIGNATURES["flash_bwd_dkdv"][1]) + 1
@@ -120,21 +124,51 @@ def test_bound_counts_the_bytes_each_kernel_moves(name):
     assert work[name][1] == sum(size[t] for t in _MOVED[name])
 
 
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_dkdv_bound_counts_the_pairs_only_where_dq_reads_them(d):
+    """The tensor-core dK/dV's pre-pass writes the (lse, delta) pairs on
+    every route, but only the tensor-core dQ (bf16 head_dim 64) reads
+    them; where the scalar dQ follows (head_dim 16/32), it recomputes
+    delta and the pairs are no part of the function's bytes."""
+    b, s, h, hkv = 1, 300, 4, 2
+    reads = fa.kernel_for("dq", torch.bfloat16, d) in fa._PAIRS_FILLED_BY
+    assert reads == (d == 64)
+    q = torch.zeros(b * h, s, d, dtype=torch.bfloat16)
+    pair_bytes = fa.pair_scratch(q).numel() * 4
+    with_pairs = chip_smoke.attention_work(b, s, h, hkv, d, True, 100, 2)
+    work = chip_smoke.attention_work(b, s, h, hkv, d, True, 100, 2,
+                                     pairs_read=reads)
+    assert work["flash_bwd_dkdv_tc"][0] == with_pairs["flash_bwd_dkdv_tc"][0]
+    assert work["flash_bwd_dkdv_tc"][1] == \
+        with_pairs["flash_bwd_dkdv_tc"][1] - (0 if reads else pair_bytes)
+    assert {n: w for n, w in work.items() if n != "flash_bwd_dkdv_tc"} == \
+        {n: w for n, w in with_pairs.items() if n != "flash_bwd_dkdv_tc"}
+    if not reads:
+        assert work["flash_bwd_dkdv_tc"] == work["flash_bwd_dkdv"]
+
+
 @pytest.mark.parametrize("name", sorted(_MOVED))
 def test_bound_takes_each_kernels_peak(name):
     """chip_smoke's bound takes the peak of the work a kernel does on its
     route: 989 TFLOP/s for bf16, 495 / 3 TFLOP/s (3xTF32) for fp32, the
-    scalar dQ's fp32 route included; bytes at 3.35 TB/s.  The shape a
-    kernel's record is taken at is one ``kernel_for`` sends to it."""
-    shape = {s["name"]: s for s in chip_smoke.SHAPES}[
-        chip_smoke.RECORD_SHAPE[name]]
-    dtype = shape["dtype"]
-    assert shape["timed"]
-    torch_dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
-    assert fa.kernel_for(chip_smoke.PASS[name], torch_dtype,
-                         shape["d"]) == name
-    want = {"bf16": 989e12, "fp32": 495e12 / 3}[dtype]
-    assert chip_smoke.PEAK[dtype] == want
+    scalar dQ's fp32 route included; bytes at 3.35 TB/s.  Each shape a
+    kernel's records are taken at is one ``kernel_for`` sends to it; an
+    off-route twin's one shape is one ``kernel_for`` sends elsewhere."""
+    shapes = {s["name"]: s for s in chip_smoke.SHAPES}
+    on_route = chip_smoke.RECORD_SHAPE.get(name, ())
+    off_route = chip_smoke.OFF_ROUTE_SHAPE.get(name)
+    assert bool(on_route) != bool(off_route)
+    for where in on_route or (off_route,):
+        shape = shapes[where]
+        dtype = shape["dtype"]
+        assert shape["timed"]
+        torch_dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
+        routed = fa.kernel_for(chip_smoke.PASS[name], torch_dtype,
+                               shape["d"])
+        assert (routed == name) == bool(on_route)
+        assert off_route is None or name in shape["forced"]
+        want = {"bf16": 989e12, "fp32": 495e12 / 3}[dtype]
+        assert chip_smoke.PEAK[dtype] == want
     # 4-byte items at the fp32 main shape: the operations bound
     work = chip_smoke.attention_work(8, 1024, 12, 12, 64, True, None, 4)
     flops, nbytes = work[name]
@@ -239,18 +273,20 @@ def test_tile_predicate_at_tensor_core_tiles(kernel, causal, window):
                                                 window), (s, i, j)
 
 
-def test_tc_route_inputs_match_jax():
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_tc_route_inputs_match_jax(d):
     """The plain version the tensor-core kernels are held to on the card,
-    at their route's inputs (bf16, head_dim 64, GQA, causal band), against
-    the JAX package's Pallas kernels in interpret mode: output and all
-    three gradients."""
+    at their route's inputs (bf16 at head_dim 16, 32 and 64, GQA, causal
+    band), against the JAX package's Pallas kernels in interpret mode:
+    output and all three gradients."""
     rng = np.random.RandomState(7)
-    b, s, h, hkv, d, window = 1, 96, 4, 2, 64, 40
+    b, s, h, hkv, window = 1, 96, 4, 2, 40
     mk = lambda heads: (rng.randn(b, s, heads, d) * 0.5).astype(np.float32)
     q, k, v = mk(h), mk(hkv), mk(hkv)
     w = rng.randn(b, s, h, d).astype(np.float32)
     kw = dict(causal=True, window=window, block_q=32, block_k=32)
     assert fa.kernel_for("fwd", torch.bfloat16, d) == "flash_fwd_tc"
+    assert fa.kernel_for("dkdv", torch.bfloat16, d) == "flash_bwd_dkdv_tc"
 
     tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
                   for x in (q, k, v))
