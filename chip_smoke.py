@@ -7,28 +7,27 @@ Drives the port's main path — one data-parallel gpt-small training step
 at full width and depth (12 layers, 12 heads, emb 768, vocab 32000, bf16,
 seq 1024, batch 8 per GPU, AdamW lr 1e-4) — its fp32 twin and gpt-nano's
 bf16 step (head_dim 32), and holds every kernel of them against its plain
-PyTorch version.  Eight kernels: the bf16 tensor-core forward and dK/dV
-(``flash_fwd_tc``, ``flash_bwd_dkdv_tc``; bf16 at head_dims 16/32/64) and
-dQ (``flash_bwd_dq_tc``; bf16 at head_dim 64), the fp32 3xTF32
-tensor-core forward and dK/dV (``flash_fwd_f32tc``,
-``flash_bwd_dkdv_f32tc``; fp32 at head_dims 16/32/64), the scalar-FMA dQ
-(``flash_bwd_dq``: fp32, and bf16 at head_dims 16/32) and the scalar-FMA
-forward and dK/dV (``flash_fwd``, ``flash_bwd_dkdv``), which no route
+PyTorch version.  Nine kernels: the bf16 tensor-core forward, dK/dV and
+dQ (``flash_fwd_tc``, ``flash_bwd_dkdv_tc``, ``flash_bwd_dq_tc``; bf16 at
+head_dims 16/32/64), the fp32 3xTF32 tensor-core forward, dK/dV and dQ
+(``flash_fwd_f32tc``, ``flash_bwd_dkdv_f32tc``, ``flash_bwd_dq_f32tc``;
+fp32 at head_dims 16/32/64), and the scalar-FMA forward, dK/dV and dQ
+(``flash_fwd``, ``flash_bwd_dkdv``, ``flash_bwd_dq``), which no route
 reaches (``fa.OFF_ROUTE``): the tensor-core kernels' yardstick, forced
 through their launch helpers.  Phases, one JSON line each:
 
 1. ``build``: compile the CUDA kernels from ``horovod_tpu_torch/csrc``
    (one nvcc per source, all at once), print the seconds taken, each
-   kernel's registers, spills and ptxas's wgmma serialization notes, and
-   the HGMMA (wgmma) and UTMALDG (TMA load) instructions in the five
-   tensor-core libraries' SASS.
+   kernel's registers, spills and ptxas's wgmma serialization notes (none
+   may appear), and the HGMMA (wgmma) and UTMALDG (TMA load) instructions
+   in the six tensor-core libraries' SASS.
 2. ``kernel_check``: each kernel against its plain version at ``SHAPES``:
    the bf16 main path (Z=96, S=1024, D=64, causal), a bf16 and an fp32
    GQA + window shape with a ragged S, the fp32 main shape (the same in
-   fp32; the scalar forward and dK/dV there too, through their launch
-   helpers), gpt-nano's head_dim 32 in fp32, bf16 at D=32 (the same as the
-   main shape at gpt-nano's head_dim), gpt-nano's own bf16 attention
-   (Z=128, S=256, D=32: ``train_nano``'s; the scalar twins forced at both)
+   fp32; the scalar twins there too, through their launch helpers),
+   gpt-nano's head_dim 32 in fp32, bf16 at D=32 (the same as the main
+   shape at gpt-nano's head_dim), gpt-nano's own bf16 attention (Z=128,
+   S=256, D=32: ``train_nano``'s; the scalar twins forced at both)
    and a bf16 GQA + window and an MQA shape at D=32 and D=16.  Each kernel
    is timed at each of its routes' shapes (``RECORD_SHAPE``; the scalar
    twins at ``OFF_ROUTE_SHAPE``) beside the plain versions and the
@@ -42,7 +41,7 @@ through their launch helpers.  Phases, one JSON line each:
    skip.
 3. ``model_check``: gpt-nano on the card, flash kernels against the plain
    reference attention: logits and gradients in fp32, and in bf16 (the
-   tensor-core forward and dK/dV at head_dim 32, the scalar dQ) within
+   tensor-core forward, dK/dV and dQ at head_dim 32) within
    ``NANO_BF16_SCALE_TOL`` of each tensor's scale, with its launches
    counted.
 4. ``train``: ``init()``, ``build_gpt_step("small", "bf16", 8, 1024)``,
@@ -62,7 +61,7 @@ through their launch helpers.  Phases, one JSON line each:
    launched.
    ``train_fp32``: ``build_gpt_step("small", "fp32", 8, 1024)``, TF32
    off, the same 7 steps: exactly 12 launches a step of the 3xTF32
-   forward and dK/dV and the scalar dQ and nothing else, losses within
+   forward, dK/dV and dQ and nothing else, losses within
    ``FP32_LOSS_RTOL`` of the same steps with reference attention, step
    time, tokens/s/GPU, MFU at 67 TFLOP/s, peak memory, one profiled step
    (the flash kernels' share of device time).  ``bench``: ``python -m
@@ -216,22 +215,26 @@ SOURCES = {
                         "horovod_tpu/ops/flash_attention.py:158"),
     "flash_bwd_dkdv_f32tc": ("horovod_tpu_torch/csrc/flash_bwd_dkdv_f32tc.cu",
                              "horovod_tpu/ops/flash_attention.py:291"),
+    "flash_bwd_dq_f32tc": ("horovod_tpu_torch/csrc/flash_bwd_dq_f32tc.cu",
+                           "horovod_tpu/ops/flash_attention.py:324"),
 }
 PASS = {"flash_fwd_tc": "fwd", "flash_fwd": "fwd", "flash_fwd_f32tc": "fwd",
         "flash_bwd_dkdv_tc": "dkdv", "flash_bwd_dkdv": "dkdv",
         "flash_bwd_dkdv_f32tc": "dkdv",
-        "flash_bwd_dq_tc": "dq", "flash_bwd_dq": "dq"}
+        "flash_bwd_dq_tc": "dq", "flash_bwd_dq": "dq",
+        "flash_bwd_dq_f32tc": "dq"}
 # tensor-core kernel -> the scalar kernel of the same function, timed at the
 # tensor-core kernel's own shapes, in its dtype (``RECORD_SHAPE``)
 SCALAR_TWIN = {"flash_fwd_tc": "flash_fwd",
                "flash_bwd_dkdv_tc": "flash_bwd_dkdv",
                "flash_bwd_dq_tc": "flash_bwd_dq",
                "flash_fwd_f32tc": "flash_fwd",
-               "flash_bwd_dkdv_f32tc": "flash_bwd_dkdv"}
+               "flash_bwd_dkdv_f32tc": "flash_bwd_dkdv",
+               "flash_bwd_dq_f32tc": "flash_bwd_dq"}
 MIN_SPEEDUP = 3.0
 # the peak of a bound, by the dtype of the shape a kernel's record is taken
 # at: bf16 work at the bf16 tensor-core rate, fp32 work at the 3xTF32 one
-# (the scalar dQ's too: the rate fp32-accurate work can reach on this card)
+# (the rate fp32-accurate work can reach on this card)
 PEAK = {"bf16": H100_BF16_PEAK, "fp32": H100_TF32X3_PEAK}
 
 
@@ -346,12 +349,13 @@ SKIP_LIMITS = {"causal_over_full": 0.7, "window_over_causal": 0.5}
 SKIP_SHAPE = {"b": 2, "s": 4096, "h": 12, "d": 64}
 MAIN_SHAPE = {"b": 8, "s": 1024, "h": 12, "d": 64}
 # dtype each kernel is timed in, at head_dim 64: a dtype of its route (the
-# scalar forward and dK/dV, on no route, in bf16, the dtype of the
-# tensor-core kernels they are the twins of; the scalar dQ in fp32)
+# scalar twins, on no route, in bf16, the dtype of the bf16 tensor-core
+# kernels they are the twins of)
 SKIP_DTYPE = {"flash_fwd_tc": "bf16", "flash_bwd_dkdv_tc": "bf16",
               "flash_bwd_dq_tc": "bf16", "flash_fwd": "bf16",
-              "flash_bwd_dkdv": "bf16", "flash_bwd_dq": "fp32",
-              "flash_fwd_f32tc": "fp32", "flash_bwd_dkdv_f32tc": "fp32"}
+              "flash_bwd_dkdv": "bf16", "flash_bwd_dq": "bf16",
+              "flash_fwd_f32tc": "fp32", "flash_bwd_dkdv_f32tc": "fp32",
+              "flash_bwd_dq_f32tc": "fp32"}
 
 
 def mask_times(fa, names, b, s, h, d, dtype):
@@ -413,8 +417,9 @@ def attention_work(b, s, h, hkv, d, causal, window, itemsize,
     kernel: the tensor-core backward kernels move other tensors than their
     scalar twins (dK/dV's pre-pass also writes the (lse, delta) pairs, dQ
     reads them in place of o and lse).  *pairs_read*: whether the route's
-    dQ reads those pairs (the tensor-core dQ does; the scalar dQ
-    recomputes delta, and then writing them is no part of dK/dV's work)."""
+    dQ reads those pairs (the bf16 tensor-core dQ does; a dQ that
+    recomputes delta does not, and then writing them is no part of
+    dK/dV's work)."""
     import torch
 
     qp = torch.arange(s)[:, None]
@@ -445,7 +450,7 @@ def attention_work(b, s, h, hkv, d, causal, window, itemsize,
         "flash_bwd_dkdv": dkdv, "flash_bwd_dkdv_f32tc": dkdv,
         # q, dO, k, v and the pairs in; dq out
         "flash_bwd_dq_tc": (dq[0], dq[1] - q_bytes - lse_bytes + pair_bytes),
-        "flash_bwd_dq": dq,
+        "flash_bwd_dq": dq, "flash_bwd_dq_f32tc": dq,
     }
 
 
@@ -457,10 +462,9 @@ def bound(flops: int, nbytes: int, peak: float):
 
 # gpt-nano at full width and depth (3 layers, 4 heads, emb 128, so head_dim
 # 32; vocab 1024), bf16, its max_len 256 as seq, batch 32 per GPU: the
-# bf16 route at head_dim 32, the tensor-core forward and dK/dV and the
-# scalar dQ
+# bf16 route at head_dim 32, the tensor-core forward, dK/dV and dQ
 NANO_STEP = ("nano", "bf16", 32, 256)
-NANO_PATH = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq")
+NANO_PATH = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc")
 
 
 # The shapes kernel_check holds the kernels at: the kernels of each one's
@@ -479,18 +483,18 @@ SHAPES = (
          dtype="fp32", causal=True, window=100, timed=False, forced=()),
     dict(name="fp32_main", b=8, s=1024, h=12, hkv=12, d=64, dtype="fp32",
          causal=True, window=None, timed=True,
-         forced=("flash_fwd", "flash_bwd_dkdv")),
+         forced=("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")),
     # gpt-nano's head_dim in fp32
     dict(name="fp32_d32", b=4, s=256, h=4, hkv=4, d=32, dtype="fp32",
          causal=True, window=None, timed=False, forced=()),
     # gpt-small's size at gpt-nano's head_dim: the speedup gate's D 32 shape
     dict(name="bf16_d32", b=8, s=1024, h=12, hkv=12, d=32, dtype="bf16",
          causal=True, window=None, timed=True,
-         forced=("flash_fwd", "flash_bwd_dkdv")),
+         forced=("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")),
     # gpt-nano's attention in ``train_nano`` (batch 32, seq 256, 4 heads)
     dict(name="bf16_nano", b=NANO_STEP[2], s=NANO_STEP[3], h=4, hkv=4, d=32,
          dtype="bf16", causal=True, window=None, timed=True,
-         forced=("flash_fwd", "flash_bwd_dkdv")),
+         forced=("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")),
     # the GQA fold and ragged S at head_dims 32 and 16
     dict(name="bf16_d32_gqa_window", b=2, s=300, h=8, hkv=2, d=32,
          dtype="bf16", causal=True, window=100, timed=False, forced=()),
@@ -500,18 +504,19 @@ SHAPES = (
 # the shapes each kernel's records (the ``kernels`` line, PERF.md) and
 # their launches come from, one for each of its routes, each the shape of
 # the run that launches it: gpt-small's bf16 attention (head_dim 64,
-# ``train``), the fp32 gpt-small step's (the 3xTF32 forward and dK/dV, the
-# scalar dQ; ``train_fp32``) and gpt-nano's bf16 head_dim 32 (the
-# tensor-core forward and dK/dV, the scalar dQ; ``train_nano``)
+# ``train``), the fp32 gpt-small step's (the 3xTF32 kernels;
+# ``train_fp32``) and gpt-nano's bf16 head_dim 32 (the bf16 tensor-core
+# kernels; ``train_nano``)
 RECORD_SHAPE = {"flash_fwd_tc": ("bf16_main", "bf16_nano"),
                 "flash_bwd_dkdv_tc": ("bf16_main", "bf16_nano"),
-                "flash_bwd_dq_tc": ("bf16_main",),
+                "flash_bwd_dq_tc": ("bf16_main", "bf16_nano"),
                 "flash_fwd_f32tc": ("fp32_main",),
                 "flash_bwd_dkdv_f32tc": ("fp32_main",),
-                "flash_bwd_dq": ("fp32_main", "bf16_nano")}
+                "flash_bwd_dq_f32tc": ("fp32_main",)}
 # the scalar twins on no route (fa.OFF_ROUTE), each recorded at the shape
 # it is forced at beside the tensor-core kernel it was the route of
-OFF_ROUTE_SHAPE = {"flash_fwd": "bf16_nano", "flash_bwd_dkdv": "bf16_nano"}
+OFF_ROUTE_SHAPE = {"flash_fwd": "bf16_nano", "flash_bwd_dkdv": "bf16_nano",
+                   "flash_bwd_dq": "bf16_nano"}
 # the shapes the speedup gate holds each tensor-core kernel to
 # ``MIN_SPEEDUP`` x its scalar twin at: gpt-small's size in each route's
 # dtype and head_dim.  At ``bf16_nano`` (kernels of a few microseconds) the
@@ -683,16 +688,16 @@ def kernel_check(fa):
                  bf["flash_bwd_dkdv_tc"] + bf["flash_bwd_dq_tc"],
              "bf16_scalar_dkdv_plus_dq":
                  bf["flash_bwd_dkdv"] + bf["flash_bwd_dq"],
-             "bf16_d32_tensor_core_dkdv_plus_scalar_dq":
-                 d32["flash_bwd_dkdv_tc"] + d32["flash_bwd_dq"],
+             "bf16_d32_tensor_core_dkdv_plus_dq":
+                 d32["flash_bwd_dkdv_tc"] + d32["flash_bwd_dq_tc"],
              "bf16_d32_scalar_dkdv_plus_dq":
                  d32["flash_bwd_dkdv"] + d32["flash_bwd_dq"],
-             "bf16_nano_tensor_core_dkdv_plus_scalar_dq":
-                 nano["flash_bwd_dkdv_tc"] + nano["flash_bwd_dq"],
+             "bf16_nano_tensor_core_dkdv_plus_dq":
+                 nano["flash_bwd_dkdv_tc"] + nano["flash_bwd_dq_tc"],
              "bf16_nano_scalar_dkdv_plus_dq":
                  nano["flash_bwd_dkdv"] + nano["flash_bwd_dq"],
-             "fp32_tensor_core_dkdv_plus_scalar_dq":
-                 f32["flash_bwd_dkdv_f32tc"] + f32["flash_bwd_dq"],
+             "fp32_tensor_core_dkdv_plus_dq":
+                 f32["flash_bwd_dkdv_f32tc"] + f32["flash_bwd_dq_f32tc"],
              "fp32_scalar_dkdv_plus_dq":
                  f32["flash_bwd_dkdv"] + f32["flash_bwd_dq"]})
     slow = {n: x for n, x in speedup.items()
@@ -704,8 +709,8 @@ def kernel_check(fa):
     return records
 
 
-# gpt-nano (3 layers, head_dim 32) in bf16 runs the tensor-core forward
-# and dK/dV and the scalar dQ: the gate against reference attention is 3%
+# gpt-nano (3 layers, head_dim 32) in bf16 runs the tensor-core forward,
+# dK/dV and dQ: the gate against reference attention is 3%
 # of each tensor's largest magnitude (measured on the CPU through the
 # plain versions: logits 1.0%, gradients 0.93%; bf16 rounds q, k, v, P and
 # the outputs at other places than the reference's einsums)
@@ -715,9 +720,9 @@ NANO_BF16_SCALE_TOL = 0.03
 def model_check(hvd_models, fa):
     """gpt-nano on the card, flash kernels against the plain reference
     attention through the whole model, logits and grads: in fp32 (the
-    3xTF32 forward and dK/dV, the scalar dQ) and in bf16 (the tensor-core
-    forward and dK/dV, the scalar dQ), each route's kernels launched once
-    a layer, counted from 0 around its flash model only."""
+    3xTF32 forward, dK/dV and dQ) and in bf16 (the tensor-core forward,
+    dK/dV and dQ), each route's kernels launched once a layer, counted
+    from 0 around its flash model only."""
     import numpy as np
     import torch
 
@@ -2540,15 +2545,20 @@ def main() -> int:
     kernels.build_all()
     build_s = time.perf_counter() - t0
     sass = {n: kernels.sass_counts(n) for n in SCALAR_TWIN}
+    ptxas = {n: kernels.ptxas_report(n).splitlines()
+             for n in kernels.SOURCES}
     emit("build", seconds=build_s, card=card,
          torch=torch.__version__, cuda=torch.version.cuda,
-         ptxas={n: kernels.ptxas_report(n).splitlines()
-                for n in kernels.SOURCES},
-         sass=sass)
+         ptxas=ptxas, sass=sass)
     missing = {n: c for n, c in sass.items() if not all(c.values())}
     if missing:
         raise AssertionError(f"tensor-core libraries without wgmma/TMA "
                              f"instructions: {missing}")
+    serialized = {n: [ln for ln in lines if "Performance Loss" in ln]
+                  for n, lines in ptxas.items()}
+    serialized = {n: lines for n, lines in serialized.items() if lines}
+    if serialized:
+        raise AssertionError(f"ptxas serialized wgmma: {serialized}")
 
     records = kernel_check(fa)
     skip_ms, skip_ratios, main_ratios = tile_skip(fa)

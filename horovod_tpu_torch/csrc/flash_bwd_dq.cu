@@ -1,4 +1,9 @@
-// Flash-attention backward, dQ pass, for Hopper (sm_90a).
+// Flash-attention backward, dQ pass, for Hopper (sm_90a), on scalar fp32
+// FMAs: on no route (ops/flash_attention.py, OFF_ROUTE).  The route takes
+// flash_bwd_dq_tc.cu for bf16 and flash_bwd_dq_f32tc.cu for fp32; this
+// kernel is built, held against its plain version and timed beside them as
+// their yardstick (chip_smoke.py, SCALAR_TWIN), launched only when named
+// through launch_dq's kernel=.
 //
 // Replaces the TPU kernel horovod_tpu/ops/flash_attention.py:
 // _flash_bwd_pallas.kernel_dq (:324-349, with the shared recompute
@@ -17,8 +22,7 @@
 // What bounds it on the H100.  3 products of 2 * D FLOPs per unmasked
 // score against q, k, v, o, dO and lse read once and dQ written once:
 // memory bound for tensor-core products, but this version's scalar fp32
-// FMAs make it bound by operations (67 TFLOP/s fp32 peak); wgmma is the
-// next step.
+// FMAs make it bound by operations (67 TFLOP/s fp32 peak).
 #include "flash_common.cuh"
 
 using namespace hvd_flash;

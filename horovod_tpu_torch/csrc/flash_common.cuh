@@ -1,8 +1,7 @@
 // Shared pieces of the flash-attention kernels: the scalar ones
 // (flash_fwd.cu, flash_bwd_dkdv.cu, flash_bwd_dq.cu) use all of it, the
-// tensor-core ones (flash_fwd_tc.cu, flash_bwd_dkdv_tc.cu,
-// flash_bwd_dq_tc.cu) kNegInf, kv_row, tile_needed, masked and the dtype
-// codes.
+// tensor-core ones (flash_{fwd,bwd_dkdv,bwd_dq}_tc.cu and _f32tc.cu)
+// kNegInf, kv_row, tile_needed, masked and the dtype codes.
 //
 // Layout: folded [Z, S, D] row-major, contiguous.  Z = batch * heads for
 // q/o/dq and batch * kv_heads for k/v/dk/dv; kv_row() routes a q row to

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_fwd_tc.cu, flash_bwd_dkdv_tc.cu, flash_bwd_dq_tc.cu): mbarriers,
+// (flash_{fwd,bwd_dkdv,bwd_dq}_tc.cu and _f32tc.cu): mbarriers,
 // TMA loads, wgmma descriptors and the bf16 wgmma forms those kernels use,
 // fp32 accumulators throughout: m64n64k16 SS (A and B from shared memory;
 // every score product, whose N is 64 keys or queries) and m64nNk16 RS (A
@@ -30,9 +30,10 @@
 // fragment for k-slice kk is the same layout rounded to bf16 pairs:
 // {d[8kk+0,1], d[8kk+2,3], d[8kk+4,5], d[8kk+6,7]} (pack_a).
 //
-// fp32 on the tensor cores (flash_fwd_f32tc.cu, flash_bwd_dkdv_f32tc.cu):
-// the .tf32 wgmma shapes m64nNk8, N in {16, 32, 64}, three products a
-// product (3xTF32), on F32Tile layouts; see "3xTF32" below.
+// fp32 on the tensor cores (flash_fwd_f32tc.cu, flash_bwd_dkdv_f32tc.cu,
+// flash_bwd_dq_f32tc.cu): the .tf32 wgmma shapes m64nNk8, N in {16, 32,
+// 64}, three products a product (3xTF32), on F32Tile layouts; see
+// "3xTF32" below.
 #pragma once
 
 #include <cuda.h>
@@ -284,9 +285,11 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
 //
 // Registers.  ptxas serializes every wgmma of a kernel (each waits for the
 // last) when the accumulators and A fragments of a pipeline stage do not
-// fit beside the rest, or when some path reads an accumulator while its
-// products are in flight; the kernels keep stages short and their waits
-// unconditional, and an accumulator is its own hi A fragment (a_hi).
+// fit beside the rest, when some path reads an accumulator while its
+// products are in flight, or when an accumulator is left undefined on a
+// path that skips its products; the kernels keep stages short and their
+// waits unconditional, zero such accumulators first, and an accumulator is
+// its own hi A fragment (a_hi).
 
 // Layout.  The .tf32 (like every 32-bit) wgmma operand in shared memory is
 // K-major only: there is no transpose bit for 32-bit types, so both

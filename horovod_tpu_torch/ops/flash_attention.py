@@ -13,20 +13,19 @@ replace the three Pallas kernels:
   for bf16, ``flash_bwd_dkdv_f32tc`` (``csrc/flash_bwd_dkdv_f32tc.cu``) for
   fp32
 * ``kernel_dq`` <- ``flash_bwd_dq_tc`` (``csrc/flash_bwd_dq_tc.cu``) for
-  bf16 at head_dim 64, ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``, scalar
-  fp32 FMAs) otherwise
+  bf16, ``flash_bwd_dq_f32tc`` (``csrc/flash_bwd_dq_f32tc.cu``) for fp32
 
-:func:`kernel_for` is the whole route table; the bf16 forward and dK/dV
-are one source each, instantiated at every head_dim of
-:data:`KERNEL_HEAD_DIMS`.  ``wgmma`` has no fp32 form; the fp32 kernels
+:func:`kernel_for` is the whole route table; the bf16 kernels are one
+source each, instantiated at every head_dim of :data:`KERNEL_HEAD_DIMS`,
+and so are the fp32 ones.  ``wgmma`` has no fp32 form; the fp32 kernels
 take each product as three TF32 products (hi*hi + hi*lo + lo*hi of a
 split x = hi + lo), which holds the fp32 tolerance where a single TF32
-product would not.  The fp32 dQ and the bf16 dQ at head_dims
-16/32 stay on the scalar kernel for now (ROADMAP B).  The scalar forward
-and dK/dV (``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dkdv.cu``) are on no
-route (:data:`OFF_ROUTE`): built, counted and held against their plain
-versions, they are launched only when named through the launch helpers'
-``kernel=``, as the yardstick the tensor-core kernels are timed against.
+product would not.  No route reaches a scalar kernel: the scalar forward,
+dK/dV and dQ (``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dkdv.cu``,
+``csrc/flash_bwd_dq.cu``) are :data:`OFF_ROUTE`: built, counted and held
+against their plain versions, they are launched only when named through
+the launch helpers' ``kernel=``, as the yardstick the tensor-core kernels
+are timed against.
 
 Dispatch is by the device of the tensors: CUDA tensors launch the kernels
 (or raise), CPU tensors take the plain versions below — a port of the
@@ -84,13 +83,15 @@ KERNEL_TILES = {
     "flash_bwd_dq_tc": (64, 64),
     "flash_fwd_f32tc": (64, 32),
     "flash_bwd_dkdv_f32tc": (32, 128),
+    "flash_bwd_dq_f32tc": (128, 32),
 }
-# kernels no route reaches: the scalar twins of the bf16 tensor-core
-# forward and dK/dV, launched only through the helpers' ``kernel=``
-OFF_ROUTE = ("flash_fwd", "flash_bwd_dkdv")
+# kernels no route reaches: the scalar twins of the tensor-core kernels,
+# launched only through the helpers' ``kernel=``
+OFF_ROUTE = ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq")
 # kernels fed by TMA and bulk copies, which need 16-byte aligned tensors
 _TC_KERNELS = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
-               "flash_fwd_f32tc", "flash_bwd_dkdv_f32tc")
+               "flash_fwd_f32tc", "flash_bwd_dkdv_f32tc",
+               "flash_bwd_dq_f32tc")
 # a dQ kernel that reads the (lse, delta) scratch (pair_scratch) -> the
 # dK/dV kernel whose pre-pass fills it (launch_dkdv_for_dq)
 _PAIRS_FILLED_BY = {"flash_bwd_dq_tc": "flash_bwd_dkdv_tc"}
@@ -122,10 +123,9 @@ def _check_type(dtype: torch.dtype, head_dim: int) -> None:
 
 def kernel_for(pass_: str, dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that runs pass ``"fwd"``, ``"dkdv"`` or ``"dq"`` on
-    inputs of ``dtype`` and ``head_dim``: the bf16 tensor-core forward and
-    dK/dV for bf16, with the tensor-core dQ at head_dim 64 and the scalar
-    dQ at head_dims 16/32; the 3xTF32 forward and dK/dV with the scalar dQ
-    for fp32.  Raises ``ValueError`` for what no kernel takes."""
+    inputs of ``dtype`` and ``head_dim``: the bf16 tensor-core kernels for
+    bf16, the 3xTF32 tensor-core kernels for fp32, at every head_dim.
+    Raises ``ValueError`` for what no kernel takes."""
     _check_type(dtype, head_dim)
     bf16 = dtype == torch.bfloat16
     if pass_ == "fwd":
@@ -133,8 +133,7 @@ def kernel_for(pass_: str, dtype: torch.dtype, head_dim: int) -> str:
     if pass_ == "dkdv":
         return "flash_bwd_dkdv_tc" if bf16 else "flash_bwd_dkdv_f32tc"
     if pass_ == "dq":
-        return ("flash_bwd_dq_tc" if bf16 and head_dim == 64
-                else "flash_bwd_dq")
+        return "flash_bwd_dq_tc" if bf16 else "flash_bwd_dq_f32tc"
     raise ValueError(f"unknown flash pass {pass_!r}")
 
 
@@ -307,8 +306,8 @@ def _checked_pairs(name, q, pairs) -> torch.Tensor:
 
 
 # The launch helpers take ``kernel=`` only so that chip_smoke.py can hold
-# and time the scalar kernels (OFF_ROUTE among them) at the tensor-core
-# kernels' shapes; the port's own calls leave it to kernel_for.
+# and time the scalar kernels (OFF_ROUTE) at the tensor-core kernels'
+# shapes; the port's own calls leave it to kernel_for.
 
 
 def launch_fwd(q, k, v, o, lse, causal, scale, h, hkv, window, kernel=None):

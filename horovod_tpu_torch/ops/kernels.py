@@ -35,6 +35,7 @@ SOURCES = {
     "flash_bwd_dq_tc": "flash_bwd_dq_tc.cu",
     "flash_fwd_f32tc": "flash_fwd_f32tc.cu",
     "flash_bwd_dkdv_f32tc": "flash_bwd_dkdv_f32tc.cu",
+    "flash_bwd_dq_f32tc": "flash_bwd_dq_f32tc.cu",
 }
 _HEADERS = ("flash_common.cuh", "hopper_tc.cuh")
 _FLAGS = (
@@ -63,6 +64,8 @@ _SIGNATURES = {
                         [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
     "flash_bwd_dkdv_f32tc": ("hvd_flash_bwd_dkdv_f32tc",
                              [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+    "flash_bwd_dq_f32tc": ("hvd_flash_bwd_dq_f32tc",
+                           [_P] * 7 + [_I] * 7 + [_F, _I, _P]),
 }
 
 _lock = threading.Lock()

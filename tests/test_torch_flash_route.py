@@ -2,16 +2,15 @@
 tensor-core kernels' tiles (horovod_tpu_torch.ops.flash_attention).
 
 The route is a plain table (``kernel_for``): bf16 at every head_dim runs
-the bf16 tensor-core forward and dK/dV, with the tensor-core dQ at
-head_dim 64 and the scalar dQ at head_dims 16/32; fp32 at every head_dim
-the 3xTF32 tensor-core forward and dK/dV and the scalar dQ.  The scalar
-forward and dK/dV are on no route (``fa.OFF_ROUTE``).  The CUDA kernels
-cannot run here; what they are held to on the card is the plain version,
-and the last test holds that plain version against the JAX package's
-Pallas kernels on the inputs the tensor-core route takes (bf16 at head_dim
-16, 32 and 64, GQA, a window and an S that is not a multiple of the
-kernels' 64-row tiles).  Tolerance
-there: bf16 0.05, as tests/test_torch_flash_attention.py holds bf16.
+the bf16 tensor-core forward, dK/dV and dQ; fp32 at every head_dim the
+3xTF32 tensor-core forward, dK/dV and dQ.  The scalar forward, dK/dV and
+dQ are on no route (``fa.OFF_ROUTE``).  The CUDA kernels cannot run here;
+what they are held to on the card is the plain version, and the last test
+holds that plain version against the JAX package's Pallas kernels on the
+inputs the tensor-core routes take (bf16 and fp32 at head_dim 16, 32 and
+64, GQA, a window and an S that is not a multiple of the kernels' 64-row
+tiles).  Tolerances there: bf16 0.05 and fp32 1e-5, as
+tests/test_torch_flash_attention.py holds them.
 """
 
 from __future__ import annotations
@@ -35,8 +34,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (the repo root's on-card smoke run)
 
 BF16_TOL = 0.05
+FP32_TOL = 1e-5
 TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
-      "flash_fwd_f32tc", "flash_bwd_dkdv_f32tc")
+      "flash_fwd_f32tc", "flash_bwd_dkdv_f32tc", "flash_bwd_dq_f32tc")
 
 
 @pytest.mark.parametrize("pass_,dtype,d,want", [
@@ -45,29 +45,29 @@ TC = ("flash_fwd_tc", "flash_bwd_dkdv_tc", "flash_bwd_dq_tc",
     ("dq", torch.bfloat16, 64, "flash_bwd_dq_tc"),
     ("fwd", torch.float32, 64, "flash_fwd_f32tc"),
     ("dkdv", torch.float32, 64, "flash_bwd_dkdv_f32tc"),
-    ("dq", torch.float32, 64, "flash_bwd_dq"),
+    ("dq", torch.float32, 64, "flash_bwd_dq_f32tc"),
     ("fwd", torch.float32, 32, "flash_fwd_f32tc"),
     ("dkdv", torch.float32, 32, "flash_bwd_dkdv_f32tc"),
-    ("dq", torch.float32, 32, "flash_bwd_dq"),
+    ("dq", torch.float32, 32, "flash_bwd_dq_f32tc"),
     ("fwd", torch.float32, 16, "flash_fwd_f32tc"),
     ("dkdv", torch.float32, 16, "flash_bwd_dkdv_f32tc"),
     ("fwd", torch.bfloat16, 32, "flash_fwd_tc"),
     ("dkdv", torch.bfloat16, 32, "flash_bwd_dkdv_tc"),
     ("fwd", torch.bfloat16, 16, "flash_fwd_tc"),
     ("dkdv", torch.bfloat16, 16, "flash_bwd_dkdv_tc"),
-    ("dq", torch.float32, 16, "flash_bwd_dq"),
-    ("dq", torch.bfloat16, 32, "flash_bwd_dq"),
-    ("dq", torch.bfloat16, 16, "flash_bwd_dq"),
+    ("dq", torch.float32, 16, "flash_bwd_dq_f32tc"),
+    ("dq", torch.bfloat16, 32, "flash_bwd_dq_tc"),
+    ("dq", torch.bfloat16, 16, "flash_bwd_dq_tc"),
 ])
 def test_route_table(pass_, dtype, d, want):
     assert fa.kernel_for(pass_, dtype, d) == want
 
 
 def test_every_kernel_is_built_counted_and_tiled():
-    """Eight kernels, each with a source, a C signature, a launch counter
+    """Nine kernels, each with a source, a C signature, a launch counter
     and its tiles; the route reaches every one of them but the scalar
     twins of ``fa.OFF_ROUTE``, which it reaches nowhere."""
-    assert len(kernels.SOURCES) == 8
+    assert len(kernels.SOURCES) == 9
     assert set(kernels.SOURCES) == set(kernels._SIGNATURES)
     assert set(fa.LAUNCHES) == set(kernels.SOURCES) == set(fa.KERNEL_TILES)
     reached = {fa.kernel_for(p, dt, d)
@@ -75,7 +75,9 @@ def test_every_kernel_is_built_counted_and_tiled():
                for dt in (torch.float32, torch.bfloat16)
                for d in fa.KERNEL_HEAD_DIMS}
     assert reached == set(kernels.SOURCES) - set(fa.OFF_ROUTE)
-    assert set(fa.OFF_ROUTE) == {"flash_fwd", "flash_bwd_dkdv"}
+    assert set(fa.OFF_ROUTE) == {"flash_fwd", "flash_bwd_dkdv",
+                                 "flash_bwd_dq"}
+    assert set(fa._TC_KERNELS) == set(kernels.SOURCES) - set(fa.OFF_ROUTE)
     assert set(chip_smoke.OFF_ROUTE_SHAPE) == set(fa.OFF_ROUTE)
     # the dK/dV tensor-core entry point takes the (lse, delta) scratch
     assert len(kernels._SIGNATURES["flash_bwd_dkdv_tc"][1]) == \
@@ -88,7 +90,8 @@ def test_every_kernel_is_built_counted_and_tiled():
         kernels._SIGNATURES["flash_bwd_dq"][1][7:]
     # the fp32 tensor-core kernels take the scalar kernels' arguments
     for name, twin in (("flash_fwd_f32tc", "flash_fwd"),
-                       ("flash_bwd_dkdv_f32tc", "flash_bwd_dkdv")):
+                       ("flash_bwd_dkdv_f32tc", "flash_bwd_dkdv"),
+                       ("flash_bwd_dq_f32tc", "flash_bwd_dq")):
         assert kernels._SIGNATURES[name][1] == kernels._SIGNATURES[twin][1]
 
 
@@ -103,6 +106,7 @@ _MOVED = {
     "flash_bwd_dq": ("q", "k", "v", "o", "lse", "do", "dq"),
     "flash_fwd_f32tc": ("q", "k", "v", "o", "lse"),
     "flash_bwd_dkdv_f32tc": ("q", "k", "v", "o", "lse", "do", "dk", "dv"),
+    "flash_bwd_dq_f32tc": ("q", "k", "v", "o", "lse", "do", "dq"),
 }
 
 
@@ -126,25 +130,31 @@ def test_bound_counts_the_bytes_each_kernel_moves(name):
 
 @pytest.mark.parametrize("d", [16, 32, 64])
 def test_dkdv_bound_counts_the_pairs_only_where_dq_reads_them(d):
-    """The tensor-core dK/dV's pre-pass writes the (lse, delta) pairs on
-    every route, but only the tensor-core dQ (bf16 head_dim 64) reads
-    them; where the scalar dQ follows (head_dim 16/32), it recomputes
-    delta and the pairs are no part of the function's bytes."""
+    """The bf16 tensor-core dK/dV's pre-pass writes the (lse, delta) pairs
+    and the bf16 tensor-core dQ reads them, at every head_dim: they are
+    part of the bf16 dK/dV's bytes.  The fp32 dQ recomputes delta and
+    reads no pairs, and the fp32 dK/dV writes none; a dK/dV's bound counts
+    the pairs only where its dQ reads them."""
     b, s, h, hkv = 1, 300, 4, 2
-    reads = fa.kernel_for("dq", torch.bfloat16, d) in fa._PAIRS_FILLED_BY
-    assert reads == (d == 64)
+    assert fa.kernel_for("dq", torch.bfloat16, d) in fa._PAIRS_FILLED_BY
+    assert fa.kernel_for("dq", torch.float32, d) not in fa._PAIRS_FILLED_BY
+    assert fa.kernel_for("dkdv", torch.float32, d) not in fa._PAIR_KERNELS
     q = torch.zeros(b * h, s, d, dtype=torch.bfloat16)
     pair_bytes = fa.pair_scratch(q).numel() * 4
     with_pairs = chip_smoke.attention_work(b, s, h, hkv, d, True, 100, 2)
-    work = chip_smoke.attention_work(b, s, h, hkv, d, True, 100, 2,
-                                     pairs_read=reads)
-    assert work["flash_bwd_dkdv_tc"][0] == with_pairs["flash_bwd_dkdv_tc"][0]
-    assert work["flash_bwd_dkdv_tc"][1] == \
-        with_pairs["flash_bwd_dkdv_tc"][1] - (0 if reads else pair_bytes)
-    assert {n: w for n, w in work.items() if n != "flash_bwd_dkdv_tc"} == \
-        {n: w for n, w in with_pairs.items() if n != "flash_bwd_dkdv_tc"}
-    if not reads:
-        assert work["flash_bwd_dkdv_tc"] == work["flash_bwd_dkdv"]
+    without = chip_smoke.attention_work(b, s, h, hkv, d, True, 100, 2,
+                                        pairs_read=False)
+    assert with_pairs["flash_bwd_dkdv_tc"] == (
+        without["flash_bwd_dkdv_tc"][0],
+        without["flash_bwd_dkdv_tc"][1] + pair_bytes)
+    assert without["flash_bwd_dkdv_tc"] == without["flash_bwd_dkdv"]
+    assert {n: w for n, w in with_pairs.items() if n != "flash_bwd_dkdv_tc"} \
+        == {n: w for n, w in without.items() if n != "flash_bwd_dkdv_tc"}
+    # the fp32 route's dK/dV and dQ move the scalar pair's bytes
+    fp32 = chip_smoke.attention_work(b, s, h, hkv, d, True, 100, 4,
+                                     pairs_read=False)
+    assert fp32["flash_bwd_dkdv_f32tc"] == fp32["flash_bwd_dkdv"]
+    assert fp32["flash_bwd_dq_f32tc"] == fp32["flash_bwd_dq"]
 
 
 @pytest.mark.parametrize("name", sorted(_MOVED))
@@ -273,37 +283,50 @@ def test_tile_predicate_at_tensor_core_tiles(kernel, causal, window):
                                                 window), (s, i, j)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64])
-def test_tc_route_inputs_match_jax(d):
+@pytest.mark.parametrize("dtype,d", [
+    pytest.param(torch.bfloat16, 16, id="16"),
+    pytest.param(torch.bfloat16, 32, id="32"),
+    pytest.param(torch.bfloat16, 64, id="64"),
+    pytest.param(torch.float32, 16, id="fp32-16"),
+    pytest.param(torch.float32, 32, id="fp32-32"),
+    pytest.param(torch.float32, 64, id="fp32-64"),
+])
+def test_tc_route_inputs_match_jax(dtype, d):
     """The plain version the tensor-core kernels are held to on the card,
-    at their route's inputs (bf16 at head_dim 16, 32 and 64, GQA, causal
-    band), against the JAX package's Pallas kernels in interpret mode:
-    output and all three gradients."""
+    at their routes' inputs (bf16 and fp32 at head_dim 16, 32 and 64, GQA,
+    causal band, S not a multiple of 64), against the JAX package's Pallas
+    kernels in interpret mode: output and all three gradients."""
     rng = np.random.RandomState(7)
     b, s, h, hkv, window = 1, 96, 4, 2, 40
     mk = lambda heads: (rng.randn(b, s, heads, d) * 0.5).astype(np.float32)
     q, k, v = mk(h), mk(hkv), mk(hkv)
     w = rng.randn(b, s, h, d).astype(np.float32)
     kw = dict(causal=True, window=window, block_q=32, block_k=32)
-    assert fa.kernel_for("fwd", torch.bfloat16, d) == "flash_fwd_tc"
-    assert fa.kernel_for("dkdv", torch.bfloat16, d) == "flash_bwd_dkdv_tc"
+    bf16 = dtype == torch.bfloat16
+    route = {p: fa.kernel_for(p, dtype, d) for p in ("fwd", "dkdv", "dq")}
+    assert route == ({"fwd": "flash_fwd_tc", "dkdv": "flash_bwd_dkdv_tc",
+                      "dq": "flash_bwd_dq_tc"} if bf16 else
+                     {"fwd": "flash_fwd_f32tc",
+                      "dkdv": "flash_bwd_dkdv_f32tc",
+                      "dq": "flash_bwd_dq_f32tc"})
+    tol = BF16_TOL if bf16 else FP32_TOL
 
-    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    tq, tk, tv = (torch.from_numpy(x).to(dtype).requires_grad_()
                   for x in (q, k, v))
     out = fa.flash_attention(tq, tk, tv, **kw)
     (out.float() * torch.from_numpy(w)).sum().backward()
 
-    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
     loss = lambda a, b_, c: (jax_flash(a, b_, c, interpret=True, **kw)
                              .astype(jnp.float32) * jnp.asarray(w)).sum()
     want_out = jax_flash(jq, jk, jv, interpret=True, **kw)
     want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
     np.testing.assert_allclose(out.detach().float().numpy(),
                                np.asarray(want_out, np.float32),
-                               atol=BF16_TOL, rtol=BF16_TOL)
+                               atol=tol, rtol=tol)
     for name, got, ref in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
         assert got.grad.shape == ref.shape
         np.testing.assert_allclose(got.grad.float().numpy(),
                                    np.asarray(ref, np.float32),
-                                   atol=BF16_TOL, rtol=BF16_TOL,
-                                   err_msg=name)
+                                   atol=tol, rtol=tol, err_msg=name)

@@ -12,11 +12,10 @@ another order; the fp32 tensor-core kernels take each product as three
 TF32 products, about 2^-22 relative from fp32), bf16 1e-2 (outputs
 rounded to bf16 after those sums; the bf16 tensor-core kernels also round
 P and dS to bf16 before their second product).  bf16 runs the bf16
-tensor-core forward and dK/dV at every head_dim, with the tensor-core dQ
-at head_dim 64 and the scalar dQ at head_dims 16/32 (``fa.kernel_for``);
-fp32 the 3xTF32 forward and dK/dV and the scalar dQ.  The scalar forward
-and dK/dV, on no route (``fa.OFF_ROUTE``), are held against the plain
-versions through their launch helpers.
+tensor-core forward, dK/dV and dQ at every head_dim (``fa.kernel_for``);
+fp32 the 3xTF32 forward, dK/dV and dQ.  The scalar forward, dK/dV and dQ,
+on no route (``fa.OFF_ROUTE``), are held against the plain versions
+through their launch helpers.
 
 The next tests drive gpt-nano at head_dim 64 (2 heads, bf16) through the
 training path on the card, in a one-GPU NCCL world: the overlap plane's
@@ -72,8 +71,7 @@ CASES = [
     (2, 160, 4, 4, 16, torch.float32, True, None),
     (1, 300, 8, 2, 32, torch.float32, True, 100),   # ragged S, GQA, band
     (2, 97, 4, 2, 16, torch.float32, True, 20),     # ragged S, GQA, band
-    # bf16 at head_dims 16/32: the tensor-core forward and dK/dV, the
-    # scalar dQ
+    # bf16 at head_dims 16/32: the tensor-core forward, dK/dV and dQ
     (1, 130, 4, 4, 32, torch.bfloat16, True, 64),
     (1, 33, 4, 4, 16, torch.bfloat16, False, None),
     (2, 300, 8, 2, 32, torch.bfloat16, True, 100),   # ragged S, GQA, band
@@ -157,9 +155,8 @@ def test_batch_of_one_from_a_fused_projection(cuda, dtype):
 @pytest.mark.parametrize("case", GQA_CASES)
 def test_backward_is_deterministic(cuda, case):
     """No atomics: two runs give the same bits (GQA folds in one block),
-    on every route: fp32's 3xTF32 forward and dK/dV with the scalar dQ,
-    the bf16 tensor-core kernels at head_dim 64, the bf16 tensor-core
-    forward and dK/dV with the scalar dQ at head_dims 16/32."""
+    on every route: fp32's 3xTF32 kernels, the bf16 tensor-core kernels at
+    head_dim 64 and at head_dims 16/32."""
     q, k, v, do, args = _inputs(case, cuda)
     o, lse = fa.flash_fwd(q, k, v, *args)
     first = fa.flash_bwd(q, k, v, o, lse, do, *args)
@@ -179,15 +176,15 @@ def test_masked_tiles_are_skipped(cuda):
 
 @pytest.mark.parametrize("dtype,d,launched", [
     (torch.float32, 64, ("flash_fwd_f32tc", "flash_bwd_dkdv_f32tc",
-                         "flash_bwd_dq")),
+                         "flash_bwd_dq_f32tc")),
     (torch.float32, 32, ("flash_fwd_f32tc", "flash_bwd_dkdv_f32tc",
-                         "flash_bwd_dq")),
+                         "flash_bwd_dq_f32tc")),
     (torch.bfloat16, 64, ("flash_fwd_tc", "flash_bwd_dkdv_tc",
                           "flash_bwd_dq_tc")),
     (torch.bfloat16, 32, ("flash_fwd_tc", "flash_bwd_dkdv_tc",
-                          "flash_bwd_dq")),
+                          "flash_bwd_dq_tc")),
     (torch.bfloat16, 16, ("flash_fwd_tc", "flash_bwd_dkdv_tc",
-                          "flash_bwd_dq")),
+                          "flash_bwd_dq_tc")),
 ])
 def test_autograd_launches_each_kernel_once(cuda, dtype, d, launched):
     b, s, h = 2, 128, 4
@@ -207,23 +204,25 @@ TWIN_CASES = [c for c in CASES if c[5] == torch.bfloat16 and c[4] < 64] + [
 
 @pytest.mark.parametrize("case", TWIN_CASES)
 def test_scalar_twins_match_plain(cuda, case):
-    """The scalar forward and dK/dV, forced through their launch helpers,
-    against the plain versions; nothing else launches."""
+    """The scalar forward, dK/dV and dQ, forced through their launch
+    helpers, against the plain versions; nothing else launches."""
     q, k, v, do, args = _inputs(case, cuda)
     causal, scale, _, bk, h, hkv, window = args
     cfg = (causal, scale, h, hkv, window)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, *args)
-    _, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal,
-                                       scale, bk, h, hkv, window)
+    dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, o_p, lse_p, do, causal,
+                                          scale, bk, h, hkv, window)
     o, lse = torch.empty_like(q), torch.empty_like(lse_p)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fa.reset_launch_counts()
     fa.launch_fwd(q, k, v, o, lse, *cfg, kernel="flash_fwd")
     fa.launch_dkdv(q, k, v, o_p, lse_p, do, dk, dv, *cfg,
                    kernel="flash_bwd_dkdv")
+    fa.launch_dq(q, k, v, o_p, lse_p, do, dq, *cfg, kernel="flash_bwd_dq")
     assert fa.LAUNCHES == {n: int(n in fa.OFF_ROUTE) for n in fa.LAUNCHES}
     _close(o, o_p, q.dtype, "o")
     _close(lse, lse_p, torch.float32, "lse")
+    _close(dq, dq_p, q.dtype, "dq")
     _close(dk, dk_p, q.dtype, "dk")
     _close(dv, dv_p, q.dtype, "dv")
 
