@@ -128,7 +128,31 @@ through their launch helpers.  Phases, one JSON line each:
    memory beside bf16's.  Then ``act_store`` on the card against the CPU
    on ``act_store_grid``, values and gradients, NaN where NaN.
 
-12. ``serve_check`` (fp32, TF32 off): the serving path, which runs no
+12. ``launcher``: the port's launcher, ``python -m horovod_tpu_torch.run``:
+   ``--check-build`` (NCCL, gloo, the card and the built kernels must be
+   reported), then ``-np 1 python -m horovod_tpu_torch.bench --model
+   gpt-nano --seq-len 256 --batch-size 32``, whose record, read back
+   through the launcher's ``[0]`` output tag, must show the launcher's
+   rendezvous environment, ``cuda:0`` and exactly ``NANO_PATH``, 3 a step.
+   ``elastic``: gpt-small bf16 as ``train`` builds it, 12 steps under
+   ``elastic.run`` from an ``elastic.State`` of the model, AdamW, the step
+   and the losses (step k's tokens from ``RandomState(k)``; a commit every
+   4 steps, the replica pushed at each; a sharded save at step 4), run
+   three times through ``python -m horovod_tpu_torch.run --elastic -np 1
+   --ckpt-dir D --ckpt-replica python chip_smoke.py --elastic-worker``:
+   clean; with rank 0 killed in step 6 (``worker_exit:step=6:rank=0``),
+   where the respawned worker restores from its peer replica; and with
+   that kill and every replica push dropped, where it restores from the
+   ``hvdtpu-sharded-ckpt-v1`` manifest on disk.  The faulted runs' 12
+   losses, parameters and AdamW state must equal the clean run's bit for
+   bit, every incarnation must launch exactly ``MAIN_PATH`` (12 a step),
+   and the launcher must respawn once in each faulted run and never in
+   the clean one.  Printed: the snapshot's bytes, commit, replica push,
+   sharded save and restore times, time to recover, the median step
+   beside ``train``'s, each run's wall time.  The workers load the
+   kernels this run built and compile none.
+
+13. ``serve_check`` (fp32, TF32 off): the serving path, which runs no
    kernel of this repo (decode and prefill attention are fp32 einsums, as
    the reference's).  gpt-small (reference attention, seed-0 weights) in
    a contiguous ``SlotEngine`` of 8 slots serving 12 greedy requests of
@@ -141,7 +165,7 @@ through their launch helpers.  Phases, one JSON line each:
    requests at 2 layers on the card and on the CPU from the same weights:
    logits of every emission within ``SERVE_LOGIT_RTOL``, tokens by the
    margin rule.
-13. ``serve`` (bf16): gpt-small as ``train`` builds it (learned positions,
+14. ``serve`` (bf16): gpt-small as ``train`` builds it (learned positions,
    seed 0) behind a 16-slot ``SlotEngine``, contiguous (``cache_len``
    1024) and then paged (512 pages of 16 rows, half the worst case, so
    admission waits for pages), serving 48 requests enqueued at step 0
@@ -159,7 +183,7 @@ through their launch helpers.  Phases, one JSON line each:
    the step of most live rows (read after the loop), peak memory, and,
    untapped, one decode step and one 512-token admission profiled as
    ``profile_step`` does.
-14. ``sampler_check``: ``ops/prng.py`` and ``serve/sampling.py`` on the
+15. ``sampler_check``: ``ops/prng.py`` and ``serve/sampling.py`` on the
    card against the CPU: keys, folds, splits and 32000 random bits equal
    on a grid of seeds, rids and emission indices; Gumbel noise within
    ``GUMBEL_ULPS`` ulp (at the scale max(|g|, 1)); ``sample_token`` on 256
@@ -2480,6 +2504,326 @@ FAMILIES = (("flash", ("flash_",)), ("batch_norm", ("batch_norm",)),
             ("elementwise", ("elementwise", "copy", "fill")))
 
 
+def hvdrun(*args, env=None, timeout: int = 600):
+    """``python -m horovod_tpu_torch.run *args`` (the port's launcher) in
+    its own process: ``(completed process, wall seconds)``."""
+    import os
+
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.run", *args]
+    full_env = dict(os.environ, **(env or {}))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=timeout, env=full_env)
+    return out, time.perf_counter() - t0
+
+
+def tagged(stdout: str, rank: int = 0) -> list:
+    """The JSON objects rank ``rank`` printed, read back through the
+    launcher's ``[rank]`` output tags."""
+    tag = f"[{rank}]"
+    return [json.loads(ln[len(tag):]) for ln in stdout.splitlines()
+            if ln.startswith(tag + "{")]
+
+
+def launcher_phase() -> dict:
+    """``--check-build``, then ``bench --model gpt-nano`` through ``-np 1``
+    of the port's launcher: the worker ran on ``cuda:0`` under the
+    launcher's rendezvous environment and launched exactly ``NANO_PATH``
+    (3 a step); its record is read back through the tagged output."""
+    out, _ = hvdrun("--check-build", timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"--check-build exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    report = out.stdout
+    print(report, flush=True)
+    for want in ("[X] NCCL", "[X] gloo", "[X] CUDA device",
+                 "[X] flash-attention kernels built"):
+        if want not in report:
+            raise AssertionError(f"--check-build lacks {want!r}")
+    args = ("--model", "gpt-nano", "--seq-len", str(NANO_STEP[3]),
+            "--batch-size", str(NANO_STEP[2]))
+    out, wall = hvdrun("-np", "1", sys.executable, "-m",
+                       "horovod_tpu_torch.bench", *args)
+    if out.returncode != 0:
+        raise AssertionError(f"hvdrun -np 1 bench exited {out.returncode}:"
+                             f"\n{out.stderr[-4000:]}")
+    records = tagged(out.stdout)
+    if len(records) != 1:
+        raise AssertionError(f"expected one tagged bench record, got "
+                             f"{out.stdout[-4000:]}")
+    record = records[0]
+    env = record["rendezvous_env"]
+    want_env = {"HVDTPU_RANK": "0", "HVDTPU_SIZE": "1",
+                "HVDTPU_LOCAL_RANK": "0", "HVDTPU_LOCAL_SIZE": "1"}
+    if {k: env.get(k) for k in want_env} != want_env \
+            or "HVDTPU_COORDINATOR" not in env:
+        raise AssertionError(f"the worker saw {env}, not the launcher's "
+                             f"rendezvous environment")
+    if record["device_index"] != 0:
+        raise AssertionError(f"the worker ran on {record['device_index']}")
+    from horovod_tpu_torch.bench import _parser
+    from horovod_tpu_torch.models import GPT_CONFIGS
+
+    # each kernel of NANO_PATH once per layer and step, over the bench's
+    # default warm-up and timed steps
+    defaults = _parser().parse_args(["--model", "gpt-nano"])
+    want = {n: GPT_CONFIGS[NANO_STEP[0]].num_layers
+            * (defaults.warmup + defaults.iters) for n in NANO_PATH}
+    if record["attention"] != "kernels" or record["flash_launches"] != want:
+        raise AssertionError(f"hvdrun bench launched "
+                             f"{record['flash_launches']}, not {want}")
+    emit("launcher", check_build=report.splitlines(),
+         command="hvdrun -np 1 python -m horovod_tpu_torch.bench "
+         + " ".join(args), wall_s=wall, record=record)
+    return record
+
+
+# The elastic run: gpt-small bf16 at full width and depth, 12 steps under
+# elastic.run, a commit every 4 (the replica pushed at each), a sharded
+# save at step 4; step k's tokens are RandomState(k)'s, so a replayed step
+# sees its own batch.
+ELASTIC_STEPS, ELASTIC_COMMIT_EVERY, ELASTIC_SAVE_AT = 12, 4, 4
+# rank 0 dies in its 6th collective (step 6's loss allreduce), after the
+# commit of step 4 and before step 8's
+ELASTIC_FAULT = "worker_exit:step=6:rank=0"
+# every replica push of the first incarnation is dropped: the respawned
+# worker must restore from the disk tier
+ELASTIC_DROP = "replica_push:rank=0:action=drop_replica:count=99"
+ELASTIC_RUNS = (("clean", "", "none"),
+                ("peer", ELASTIC_FAULT, "peer"),
+                ("disk", f"{ELASTIC_FAULT},{ELASTIC_DROP}", "disk"))
+
+
+def elastic_tokens(k: int, vocab: int, device):
+    """Step ``k``'s batch: ``RandomState(k)``'s tokens."""
+    import numpy as np
+    import torch
+
+    toks = np.random.RandomState(k).randint(
+        0, vocab, size=(GPT_STEP[2], GPT_STEP[3] + 1))
+    return torch.from_numpy(toks).to(device)
+
+
+def digest(tensors) -> str:
+    """sha256 of the bytes of ``tensors``, in order: equal digests are
+    equal values, bit for bit."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().to("cpu").contiguous().reshape(-1)
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def elastic_worker() -> int:
+    """``python chip_smoke.py --elastic-worker``: the worker the
+    ``elastic`` phase spawns through ``python -m horovod_tpu_torch.run
+    --elastic``.  Loads the kernels the parent built (never builds),
+    trains ``ELASTIC_STEPS`` steps of ``GPT_STEP`` under ``elastic.run``
+    from an ``elastic.State`` of the model, the optimizer, the step and
+    the losses, and prints one JSON line per event (tagged ``[0]`` by the
+    launcher): ``pre_allreduce`` just before each step's loss allreduce
+    (the point where an injected ``worker_exit`` fires), ``step`` after
+    it, ``commit``, ``save``, ``restore`` and the final ``result``."""
+    import os
+
+    import torch
+
+    from horovod_tpu_torch import _obs, elastic
+    from horovod_tpu_torch.ckpt import tree
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import kernels
+    from horovod_tpu_torch.train import build_gpt_step
+
+    def say(event, **fields):
+        print(json.dumps({"event": event, "t": time.time(), **fields}),
+              flush=True)
+
+    missing = [n for n, ok in kernels.built().items() if not ok]
+    if missing:
+        raise RuntimeError(f"elastic worker: kernels not built: {missing}")
+    kernels.build_all()  # loads the parent's libraries; compiles nothing
+    ctx = elastic.context()
+    ctx.start_heartbeat()
+    step, (model, opt, _), _ = build_gpt_step(*GPT_STEP)
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    state = elastic.State(model=model, opt=opt, step=0, losses=[])
+    device = next(model.parameters()).device
+    say("start", epoch=int(os.environ.get("HVDTPU_ELASTIC_EPOCH", "0")),
+        device=str(device))
+    fa.reset_launch_counts()   # this incarnation's steps start here
+    steps_run = [0]
+    step_ms = []
+
+    @elastic.run
+    def loop(state):
+        if state.last_restore is not None:
+            say("restore", **state.last_restore)
+        while state.step < ELASTIC_STEPS:
+            k = state.step
+            toks = elastic_tokens(k, vocab, device)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, _, loss = step(state.model, state.opt, toks)
+            loss = float(loss)          # waits for the device
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            steps_run[0] += 1
+            want = {n: layers * steps_run[0] if n in MAIN_PATH else 0
+                    for n in fa.LAUNCHES}
+            if fa.LAUNCHES != want:
+                raise AssertionError(f"launches {fa.LAUNCHES} != {want}")
+            say("pre_allreduce", k=k)
+            ctx.allreduce(loss, name=f"loss{k}")
+            state.losses.append(loss)
+            state.step += 1
+            say("step", k=k, loss=loss, ms=step_ms[-1])
+            if state.step % ELASTIC_COMMIT_EVERY == 0:
+                t0 = time.perf_counter()
+                state.commit()
+                ms = (time.perf_counter() - t0) * 1e3
+                say("commit", k=k, commits=state.commits, ms=ms,
+                    snapshot_bytes=sum(
+                        x.numel() * x.element_size()
+                        for x in tree.flatten(state._snapshot)[0]
+                        if isinstance(x, torch.Tensor)))
+            if state.step == ELASTIC_SAVE_AT:
+                t0 = time.perf_counter()
+                save = state.save_sharded()
+                save.wait()
+                say("save", k=k, ms=(time.perf_counter() - t0) * 1e3,
+                    bytes=sum(s["bytes"] for s in save.manifest["shards"]),
+                    schema=save.manifest["schema"])
+
+    loop(state)
+    reg = _obs.get_registry()
+    push_ms = reg.histogram("ckpt.replica_push_ms")
+    opt_state = [t for per in opt.state_dict()["state"].values()
+                 for _, t in sorted(per.items())]
+    say("result", losses=list(state.losses), steps_run=steps_run[0],
+        launches=dict(fa.LAUNCHES), step_ms=step_ms,
+        last_restore=state.last_restore,
+        params_sha256=digest(model.state_dict().values()),
+        adamw_sha256=digest(opt_state),
+        replica_pushes=push_ms.count, replica_push_ms_sum=push_ms.sum,
+        replica_push_bytes=reg.counter("ckpt.replica_push_bytes").value)
+    ctx.stop_heartbeat()
+    return 0
+
+
+def elastic_events(stdout: str) -> list:
+    """The worker's events of one elastic run, every incarnation's, in
+    the order printed."""
+    return [r for r in tagged(stdout) if "event" in r]
+
+
+def elastic_phase(train_step_ms: float) -> dict:
+    """``ELASTIC_RUNS``: the same elastic gpt-small job three times
+    through ``python -m horovod_tpu_torch.run --elastic -np 1 --ckpt-dir D
+    --ckpt-replica python chip_smoke.py --elastic-worker`` — clean, with
+    rank 0 killed in step 6 (the respawned worker restores from its peer
+    replica), and with that kill and every replica push dropped (it
+    restores from the sharded manifest on disk).  Gates: exit 0; the
+    faulted runs' 12 losses, parameters and AdamW state equal the clean
+    run's bit for bit; every incarnation launched exactly ``MAIN_PATH``,
+    each kernel once per layer and step; one respawn in each faulted run
+    and none in the clean one; the restore's source; the manifest's
+    schema.  Times: commit, replica push, sharded save, restore, time to
+    recover (from the dying worker's last line, printed just before the
+    allreduce it dies in, to the end of its successor's first step), the
+    median step beside ``train``'s, each run's wall time."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    from horovod_tpu_torch.ckpt import sharded
+    from horovod_tpu_torch.ops import kernels
+
+    release()
+    root = tempfile.mkdtemp(prefix="elastic_", dir=kernels.build_dir())
+    runs = {}
+    try:
+        for name, spec, source in ELASTIC_RUNS:
+            ckpt_dir = os.path.join(root, name)
+            env = {"HVDTPU_FAULT_SPEC": spec}
+            out, wall = hvdrun(
+                "--elastic", "-np", "1", "--ckpt-dir", ckpt_dir,
+                "--ckpt-replica", sys.executable,
+                os.path.abspath(__file__), "--elastic-worker", env=env)
+            if out.returncode != 0:
+                raise AssertionError(
+                    f"elastic run {name!r} exited {out.returncode}:\n"
+                    f"{out.stderr[-6000:]}")
+            events = elastic_events(out.stdout)
+            respawns = sum("elastic: respawned rank" in ln
+                           for ln in out.stderr.splitlines()
+                           if not ln.startswith("["))
+            result = [e for e in events if e["event"] == "result"]
+            if len(result) != 1:
+                raise AssertionError(f"run {name!r}: no result\n"
+                                     f"{out.stdout[-4000:]}")
+            result = result[0]
+            starts = [e for e in events if e["event"] == "start"]
+            steps = [e for e in events if e["event"] == "step"]
+            restore = result["last_restore"]
+            run = {"fault_spec": spec, "wall_s": wall, "respawns": respawns,
+                   "incarnations": len(starts),
+                   "snapshot_bytes": max(e["snapshot_bytes"] for e in events
+                                         if e["event"] == "commit"),
+                   "commit_ms": [e["ms"] for e in events
+                                 if e["event"] == "commit"],
+                   "save": [{k: e[k] for k in ("ms", "bytes", "schema")}
+                            for e in events if e["event"] == "save"],
+                   "restore": restore,
+                   "step_ms_median": statistics.median(result["step_ms"]),
+                   **{k: result[k] for k in (
+                       "losses", "steps_run", "launches", "params_sha256",
+                       "adamw_sha256", "replica_pushes",
+                       "replica_push_ms_sum", "replica_push_bytes")}}
+            want_respawns = 0 if source == "none" else 1
+            if respawns != want_respawns or \
+                    run["incarnations"] != want_respawns + 1:
+                raise AssertionError(
+                    f"run {name!r}: {respawns} respawns, "
+                    f"{run['incarnations']} incarnations")
+            if restore["source"] != source:
+                raise AssertionError(f"run {name!r} restored from "
+                                     f"{restore['source']}, not {source}")
+            if len(run["losses"]) != ELASTIC_STEPS:
+                raise AssertionError(f"run {name!r}: losses {run['losses']}")
+            if source != "none":
+                # the dying worker's last line, then its successor's first
+                # step
+                died = max(e["t"] for e in events
+                           if e["event"] == "pre_allreduce"
+                           and e["t"] < starts[1]["t"])
+                first = min(e["t"] for e in steps if e["t"] > starts[1]["t"])
+                run["time_to_recover_s"] = first - died
+            manifest = sharded.load_manifest(
+                ckpt_dir, sharded.latest_step(ckpt_dir))
+            run["manifest_schema"] = manifest["schema"]
+            if manifest["schema"] != sharded.SCHEMA:
+                raise AssertionError(f"run {name!r}: manifest {manifest}")
+            runs[name] = run
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    clean = runs["clean"]
+    for name in ("peer", "disk"):
+        for key in ("losses", "params_sha256", "adamw_sha256"):
+            if runs[name][key] != clean[key]:
+                raise AssertionError(
+                    f"run {name!r}: {key} {runs[name][key]} != the clean "
+                    f"run's {clean[key]}")
+    emit("elastic", card=card_line(), model="gpt-small", dtype="bf16",
+         batch_per_gpu=GPT_STEP[2], seq=GPT_STEP[3], steps=ELASTIC_STEPS,
+         commit_every=ELASTIC_COMMIT_EVERY, save_at=ELASTIC_SAVE_AT,
+         train_step_ms=train_step_ms, bit_for_bit=True, runs=runs)
+    return runs
+
+
 def profile_step(state, step, step_ms: float, top: int = 12) -> dict:
     """One more step under torch.profiler: device time by kernel, the
     share of the timed (unprofiled) step the device was busy, the share of
@@ -2529,11 +2873,16 @@ def profile_step(state, step, step_ms: float, top: int = 12) -> dict:
                           for ms, n, c in cpu[:top]])
 
 
-def main() -> int:
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    if list(argv) == ["--elastic-worker"]:
+        return elastic_worker()
+    if argv:
+        print(f"chip_smoke: unknown arguments {list(argv)}", file=sys.stderr)
         return 2
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import models as hvd_models
@@ -2589,6 +2938,8 @@ def main() -> int:
     release()
     fp8(fa, run, resnet_off)
     release()
+    launcher_phase()
+    elastic_phase(run["step_ms"])
     serve_check()
     serve(fa)
     sampler_check()
@@ -2611,4 +2962,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

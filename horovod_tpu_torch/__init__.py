@@ -26,13 +26,19 @@ and fp8 activation storage; then the eager named-tensor engine
 (``runtime/``: negotiation, tensor fusion, the response cache, schedule
 replay, ``join``) behind the asynchronous named API (``allreduce_async``,
 ``synchronize``, ...) and the ``horovod.torch``-compatible surface
-(``interop.torch``, whose hook ``DistributedOptimizer`` rides the engine).
+(``interop.torch``, whose hook ``DistributedOptimizer`` rides the engine);
+then the launcher (``python -m horovod_tpu_torch.run``, static and
+``--elastic``), elastic training (``elastic``: ``State``, ``run``, the KV
+rendezvous), the checkpoint tiers (``checkpoint``: ``save_checkpoint`` and
+the ``Store``; ``ckpt``: the sharded format and the peer replicas) and
+the training callbacks (``callbacks``).
 
 The names of the reference's top level that the port does not carry yet
 are in :data:`NOT_PORTED`, each with its ROADMAP item: reading one raises
 :class:`NotPortedError` naming it.
 """
 
+from . import callbacks
 from .basics import (
     CROSS_AXIS,
     DP_AXIS,
@@ -68,6 +74,15 @@ from .basics import (
     slice_size,
     xla_collectives_built,
 )
+from .checkpoint import (
+    LocalStore,
+    Store,
+    latest_checkpoint_step,
+    restore_checkpoint,
+    save_checkpoint,
+    save_checkpoint_async,
+)
+from .exceptions import NotPortedError
 from .ops.collectives import (
     Adasum,
     Average,
@@ -131,23 +146,15 @@ __all__ = [
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "OverlapPlan",
     "overlap", "SyncBatchNorm", "NOT_PORTED", "NotPortedError",
+    "Store", "LocalStore", "save_checkpoint", "save_checkpoint_async",
+    "restore_checkpoint", "latest_checkpoint_step", "callbacks",
 ]
-
-
-class NotPortedError(NotImplementedError, AttributeError):
-    """A name of the reference's top level that the port does not carry
-    yet.  An ``AttributeError`` too, so ``hasattr`` answers False."""
 
 
 # Names of the reference's top level (horovod_tpu/__init__.py) still to
 # port: name -> (ROADMAP item, what it is).  Keep in step with ROADMAP's
 # table of the same names.
 NOT_PORTED = {
-    **{name: ("A10", "checkpoints and the stores")
-       for name in ("Store", "LocalStore", "save_checkpoint",
-                    "save_checkpoint_async", "restore_checkpoint",
-                    "latest_checkpoint_step")},
-    "callbacks": ("A10", "the training callbacks"),
     "Estimator": ("A13", "the estimator frontend"),
     "Model": ("A13", "the estimator frontend"),
     "obs": ("A13", "the observability planes (the runtime calls their "

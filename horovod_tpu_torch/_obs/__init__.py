@@ -1,6 +1,6 @@
-"""Observability hooks of the eager runtime, as stubs (counterpart of
+"""Observability hooks of the runtime (counterpart of
 ``horovod_tpu/obs``, ROADMAP A13).  Private: the top level's ``obs``
-raises ``NotPortedError`` until A13 ports the planes and this module
+raises ``NotPortedError`` until A13 ports the planes and this package
 becomes ``obs``.
 
 The runtime modules call the reference's hooks under the reference's
@@ -10,20 +10,20 @@ names — ``get_registry()`` counters, gauges and histograms,
 the planes replaces the bodies here and no call site.  Until then:
 
 * the registry is in memory only (no dump, no scrape, no live stream):
-  its instruments hold their values, which the engine's tests read;
-* the flight recorder, progress beat, tracer and straggler attribution
-  record nothing;
-* ``pathspec`` carries the two path rules the timeline and the autotune
-  log need (copies of ``horovod_tpu/obs/pathspec.py``'s ``resolve`` and
-  ``epoch_tag``).
+  its instruments hold their values, which the engine's and the
+  checkpoint tiers' callers read;
+* the flight recorder, tracer and straggler attribution record nothing;
+* ``progress`` is the reference's collective-path progress beat, whole
+  (:mod:`.progress`): the elastic launcher's deadlock watchdog reads it;
+* ``pathspec`` carries the path rules the timeline and the autotune log
+  need and the atomic writers of the checkpoint tiers (:mod:`.pathspec`).
 """
 
 from __future__ import annotations
 
-import os
 import threading
 from types import SimpleNamespace
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Tuple
 
 __all__ = ["get_registry", "CollectorRetired",
            "flightrec", "progress", "trace", "straggler", "pathspec"]
@@ -114,42 +114,7 @@ def _noop(*args, **kwargs) -> None:
 
 
 flightrec = SimpleNamespace(record=_noop, record_exception=_noop)
-progress = SimpleNamespace(tick=_noop)
 trace = SimpleNamespace(enabled=lambda: False, add_span=_noop)
-straggler = SimpleNamespace(record=_noop)
+straggler = SimpleNamespace(record=_noop, record_waits=_noop, reset=_noop)
 
-
-def _resolve(raw: str, stem: str, rank, epoch: Optional[str] = None) -> str:
-    """This rank's file for the env value ``raw``: a ``{rank}`` template,
-    a directory (``<stem>.rank.<k>.json`` inside), or a plain path with
-    ``.rank.<k>`` before the extension; epoch-tagged under the elastic
-    launcher (``HVDTPU_ELASTIC_EPOCH``)."""
-    rank = str(rank)
-    if epoch is None:
-        epoch = os.environ.get("HVDTPU_ELASTIC_EPOCH")
-    tag = (f"e{epoch}.rank.{rank}" if epoch not in (None, "")
-           else f"rank.{rank}")
-    if "{rank}" in raw:
-        path = raw.replace("{rank}", rank)
-        if epoch not in (None, ""):
-            base, ext = os.path.splitext(path)
-            path = f"{base}.e{epoch}{ext}"
-        return path
-    if raw.endswith(os.sep) or os.path.isdir(raw):
-        return os.path.join(raw, f"{stem}.{tag}.json")
-    base, ext = os.path.splitext(raw)
-    return f"{base}.{tag}{ext or '.json'}"
-
-
-def _epoch_tag(path: str, epoch: Optional[str] = None) -> str:
-    """``path`` with ``.e<E>`` before the extension when an elastic epoch
-    is active; ``path`` otherwise."""
-    if epoch is None:
-        epoch = os.environ.get("HVDTPU_ELASTIC_EPOCH")
-    if epoch in (None, ""):
-        return path
-    base, ext = os.path.splitext(path)
-    return f"{base}.e{epoch}{ext}"
-
-
-pathspec = SimpleNamespace(resolve=_resolve, epoch_tag=_epoch_tag)
+from . import pathspec, progress  # noqa: E402

@@ -258,7 +258,14 @@ def _engine_groups(w: _World, backend: str, local) -> Optional[EngineGroups]:
                         crosses[w.local_rank])
 
 
-def _resolve_device(device, local_rank: int) -> torch.device:
+def _resolve_device(device, local_rank: int, environ=None) -> torch.device:
+    """``device`` (``None``: this process's GPU, ``cuda:local_rank``).  An
+    elastic worker (``HVDTPU_ELASTIC_RANK`` set) runs a world of one of
+    its own, so ``local_rank`` is 0 there: it takes the local slot the
+    elastic launcher gave it (``HVDTPU_LOCAL_RANK``), round-robin over
+    the host's GPUs (its collectives ride the launcher's KV store, not
+    NCCL, so two workers may share a GPU)."""
+    environ = os.environ if environ is None else environ
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -266,6 +273,10 @@ def _resolve_device(device, local_rank: int) -> torch.device:
                 "horovod_tpu_torch.init(): no CUDA device is visible; pass "
                 "device='cpu' to run on the CPU"
             )
+        if dev.index is None and environ.get("HVDTPU_ELASTIC_RANK") \
+                and not environ.get(envmod.SIZE):
+            local_rank = (int(environ.get(envmod.LOCAL_RANK) or 0)
+                          % torch.cuda.device_count())
         if dev.index is None:
             dev = torch.device("cuda", local_rank)
         torch.cuda.set_device(dev)

@@ -228,6 +228,12 @@ def run(args) -> dict:
         "mfu": round(flops / step_s / peak, 4) if peak else None,
         **extra,
         "device": name,
+        "device_index": dev.index,
+        # the rendezvous environment this process was started with (a
+        # launcher's, or none)
+        "rendezvous_env": {k: os.environ[k] for k in (
+            envmod.RANK, envmod.SIZE, envmod.LOCAL_RANK, envmod.LOCAL_SIZE,
+            envmod.COORDINATOR) if k in os.environ},
         "n_gpus": static["n_chips"],
         "batch_size": args.batch_size,
         "overlap_mode": args.overlap,

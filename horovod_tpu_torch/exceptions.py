@@ -2,18 +2,27 @@
 
 The same names and hierarchy, so code written against Elastic Horovod's
 split catches the same things here; the elastic driver that raises the
-last three is not ported yet (ROADMAP A10).  All subclass
-``RuntimeError``.
+last three is ``elastic/`` (``context.py``, ``run.py``).  All but
+:class:`NotPortedError`, which names a part of the reference the port
+does not carry yet, subclass ``RuntimeError``.
 """
 
 from __future__ import annotations
 
 __all__ = [
+    "NotPortedError",
     "NotInitializedError",
     "HorovodShutdownError",
     "RankDroppedError",
     "WorkersAvailableException",
 ]
+
+
+class NotPortedError(NotImplementedError, AttributeError):
+    """A part of the reference the port does not carry yet: a top-level
+    name, or a launcher flag whose plane is not ported.  Its message
+    names the ROADMAP item.  An ``AttributeError`` too, so ``hasattr``
+    answers False for a name."""
 
 
 class NotInitializedError(RuntimeError):

@@ -20,7 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "library", "ptxas_report", "sass_counts"]
+__all__ = ["SOURCES", "build_all", "build_dir", "built", "library",
+           "ptxas_report", "sass_counts"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
@@ -138,6 +139,18 @@ def build_all() -> None:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
         for n in todo:
             _load(n, paths[n])
+
+
+def build_dir() -> Path:
+    """Where the kernel libraries are built (git-ignored)."""
+    return _BUILD
+
+
+def built() -> dict:
+    """Kernel library -> whether this checkout holds its build from the
+    current sources and flags (a process that finds them all loads them
+    and compiles nothing)."""
+    return {n: _lib_path(n).exists() for n in SOURCES}
 
 
 def library(name: str):

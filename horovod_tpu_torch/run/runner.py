@@ -1,0 +1,999 @@
+"""`hvdrun` CLI of the port (counterpart of ``horovod_tpu/run/runner.py``;
+reference: horovod/run/runner.py:221-452 arg surface, bin/horovodrun).
+
+Usage::
+
+    python -m horovod_tpu_torch.run -np 4 python train.py
+    python -m horovod_tpu_torch.run -np 8 -H host1:4,host2:4 python train.py
+    python -m horovod_tpu_torch.run --elastic -np 2 --ckpt-replica \\
+        python train.py
+
+Static jobs: every slot gets the ``HVDTPU_*`` rendezvous environment
+(rank, size, local and cross coordinates, and the coordinator address),
+and ``horovod_tpu_torch.init()`` in each worker opens the
+``torch.distributed`` world on it: NCCL on ``cuda:local_rank``, or gloo
+with ``device="cpu"``.  Elastic jobs (``--elastic``): the workers meet in
+the launcher's KV store (``elastic/context.py``), which detects failures,
+blacklists hosts and respawns ranks into a re-minted epoch.
+
+Every runtime knob maps onto an ``HVDTPU_*`` env var for all ranks
+(``config_parser.py``); a YAML ``--config-file`` layers under explicit CLI
+flags.  The reference's flags whose planes the port does not carry (the
+serving plane, the observability planes, NIC discovery) parse, and raise
+:class:`~horovod_tpu_torch.exceptions.NotPortedError` naming their ROADMAP
+item before anything spawns.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+import socket
+import sys
+import time
+from typing import Dict, List, Optional
+
+from ..exceptions import NotPortedError
+from ..utils import env as envmod
+from ..utils.logging import get_logger
+from . import config_parser
+from .allocate import SlotInfo, allocate, is_local_host, parse_hostfile, \
+    parse_hosts
+from .blacklist import HostBlacklist
+from .config_parser import _StoreOverrideAction, _StoreTrueOverrideAction
+from .exec import ProcessSet, make_ssh_command
+
+LOG = get_logger("run")
+
+# Fixed default for remote coordinators, where the launcher cannot probe a
+# free port on the target host; overridable with --coordinator-port.
+DEFAULT_COORDINATOR_PORT = 29500
+
+# env families that travel to a remote rank over ssh: the launcher's own
+# and the ones torch, CUDA and NCCL read
+TRAVEL_ENV = ("HVDTPU_", "CUDA_", "NCCL_", "TORCH_")
+
+__all__ = ["parse_args", "check_ported", "check_build", "build_slot_env",
+           "launch_job", "launch_elastic_job", "ElasticJobResult", "main"]
+
+
+def _not_ported(parser, flags: List[str], **kwargs) -> None:
+    """Flags of the reference whose plane is not ported: they parse (so
+    the error names the item, not "unrecognized arguments") and
+    :func:`check_ported` refuses them."""
+    dest = kwargs.pop("dest")
+    item = config_parser.NOT_PORTED_KNOBS[dest][1]
+    parser.add_argument(*flags, dest=dest, default=None,
+                        help=f"not ported yet (ROADMAP {item})", **kwargs)
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        prog="hvdrun",
+        description=(
+            "Launch a horovod_tpu_torch distributed job: one process per "
+            "slot (one GPU each), wired to a torch.distributed world."
+        ),
+    )
+    parser.add_argument("-v", "--version", action="store_true", dest="version")
+    parser.add_argument(
+        "-np", "--num-proc", type=int, dest="np",
+        help="Total number of worker processes.",
+    )
+    parser.add_argument(
+        "-H", "--hosts", action=_StoreOverrideAction, dest="hosts",
+        help='Host list with slots, e.g. "h1:2,h2:2". Default: localhost '
+             "with np slots.",
+    )
+    parser.add_argument(
+        "-hostfile", "--hostfile", action=_StoreOverrideAction, dest="hostfile",
+        help='Hostfile with lines "hostname slots=N".',
+    )
+    parser.add_argument(
+        "--ssh-port", type=int, action=_StoreOverrideAction, dest="ssh_port"
+    )
+    parser.add_argument(
+        "--coordinator-port", type=int, action=_StoreOverrideAction,
+        dest="coordinator_port", default=None,
+        help=f"Port of the torch.distributed TCP store on the first host "
+             f"(default: probe a free port locally, {DEFAULT_COORDINATOR_PORT} "
+             f"when the first host is remote).",
+    )
+    parser.add_argument(
+        "--start-timeout", type=int, action=_StoreOverrideAction,
+        dest="start_timeout", default=None,
+        help="Seconds each rank waits for the whole world to form "
+             "(HVDTPU_START_TIMEOUT, the init_process_group timeout; "
+             "default 300).",
+    )
+    parser.add_argument(
+        "--config-file", action=_StoreOverrideAction, dest="config_file"
+    )
+    parser.add_argument(
+        "--check-build", action="store_true", dest="check_build",
+        help="Print the capability report and exit (reference "
+             "runner.py:115-150).",
+    )
+    _not_ported(parser, ["--discover-nics"], action="store_true",
+                dest="discover_nics")
+    parser.add_argument("--verbose", action="store_true", dest="verbose")
+
+    elastic = parser.add_argument_group("elastic fault tolerance")
+    elastic.add_argument(
+        "--elastic", action="store_true", dest="elastic",
+        help="Launch in elastic mode: per-rank failure detection, host "
+             "blacklisting, bounded respawn into a re-minted rendezvous "
+             "epoch (workers use the horovod_tpu_torch.elastic API).",
+    )
+    elastic.add_argument(
+        "--min-workers", type=int, action=_StoreOverrideAction,
+        dest="min_workers", default=None,
+        help="Smallest world the elastic job may shrink to once the "
+             "respawn budget is spent (default: np — never shrink).",
+    )
+    _not_ported(elastic, ["--max-workers"], type=int, dest="max_workers")
+    elastic.add_argument(
+        "--max-elastic-retries", type=int, action=_StoreOverrideAction,
+        dest="max_elastic_retries", default=None,
+        help="Total failed-rank respawns across the job (default 3).",
+    )
+    elastic.add_argument(
+        "--blacklist-cooldown-secs", type=float,
+        action=_StoreOverrideAction,
+        dest="blacklist_cooldown_secs", default=None,
+        help="Base host-blacklist cooldown; doubles per repeat failure "
+             "(default 10).",
+    )
+    elastic.add_argument(
+        "--progress-timeout-secs", type=float,
+        action=_StoreOverrideAction,
+        dest="progress_timeout_secs", default=None,
+        help="Steady-state progress-beat budget: a rank whose process "
+             "heartbeat lives but whose collectives-completed counter "
+             "has not advanced for this long is declared deadlocked and "
+             "respawned (default 300; 0 disables).",
+    )
+    elastic.add_argument(
+        "--progress-grace-secs", type=float,
+        action=_StoreOverrideAction,
+        dest="progress_grace_secs", default=None,
+        help="The same budget while the worker reports an init/compile "
+             "phase (default 0 = never kill during those phases).",
+    )
+    _not_ported(elastic, ["--dump-grace-secs"], type=float,
+                dest="dump_grace_secs")
+    parser.add_argument(
+        "--output-filename", action=_StoreOverrideAction,
+        dest="output_filename", default=None,
+        help="Also write every rank's output to "
+             "<output_filename>/rank.<rank>/<stdout|stderr> (rank "
+             "zero-padded; reference gloo_run.py:204-217).",
+    )
+
+    params = parser.add_argument_group("tunable parameters")
+    params.add_argument(
+        "--fusion-threshold-mb", type=int, action=_StoreOverrideAction,
+        dest="fusion_threshold_mb", default=None,
+    )
+    params.add_argument(
+        "--cycle-time-ms", type=float, action=_StoreOverrideAction,
+        dest="cycle_time_ms", default=None,
+    )
+    params.add_argument(
+        "--cache-capacity", type=int, action=_StoreOverrideAction,
+        dest="cache_capacity", default=None,
+    )
+    params.add_argument(
+        "--hierarchical-allreduce", action=_StoreTrueOverrideAction,
+        dest="hierarchical_allreduce", default=None,
+        help="Pin the eager engine's two-level allreduce on.",
+    )
+    params.add_argument(
+        "--num-slices", type=int, action=_StoreOverrideAction,
+        dest="num_slices", default=None,
+        help="Slice partition of the world: that many contiguous equal "
+             "blocks of ranks.  Must divide -np.",
+    )
+    params.add_argument(
+        "--dcn-compression", action=_StoreOverrideAction,
+        dest="dcn_compression", default=None,
+        choices=["none", "bf16", "fp16"],
+        help="Wire dtype of the cross leg of the two-level allreduce "
+             "(default none).",
+    )
+    params.add_argument(
+        "--no-schedule-replay", action=_StoreTrueOverrideAction,
+        dest="no_schedule_replay", default=None,
+        help="Disable the eager engine's steady-state schedule replay.",
+    )
+    params.add_argument(
+        "--schedule-replay-cycles", type=int, action=_StoreOverrideAction,
+        dest="schedule_replay_cycles", default=None,
+        help="Consecutive bitwise-identical cycles before a replay "
+             "epoch opens (default 50).",
+    )
+
+    serve = parser.add_argument_group("serving (not ported: ROADMAP A12b)")
+    _not_ported(serve, ["--serve"], action="store_true", dest="serve")
+    for flag, kind in (("--serve-model", str), ("--serve-slots", int),
+                       ("--serve-max-len", int), ("--serve-seed", int),
+                       ("--serve-width", int), ("--serve-page-size", int),
+                       ("--serve-kv-pages", int), ("--serve-kv-mode", str),
+                       ("--serve-weights-dir", str),
+                       ("--serve-swap-poll-steps", int),
+                       ("--serve-tenant-budget", int),
+                       ("--slo-ttft-ms", float), ("--slo-tpot-ms", float),
+                       ("--slo-objective", float), ("--slo-class", str),
+                       ("--scale-up-queue", int),
+                       ("--scale-down-idle-secs", float),
+                       ("--scale-cooldown-secs", float)):
+        _not_ported(serve, [flag], type=kind,
+                    dest=flag[2:].replace("-", "_"))
+    _not_ported(serve, ["--frontends"], type=int, dest="serve_frontends")
+    _not_ported(serve, ["--serve-autoscale"], action="store_true",
+                dest="serve_autoscale")
+
+    ckpt = parser.add_argument_group("checkpointing")
+    ckpt.add_argument(
+        "--ckpt-dir", action=_StoreOverrideAction, dest="ckpt_dir",
+        default=None,
+        help="Sharded-checkpoint directory (HVDTPU_CKPT_DIR): every "
+             "rank writes only its own shard; rank 0 commits the "
+             "manifest last; elastic State.sync falls back to the "
+             "newest valid manifest here when no live peer replica "
+             "exists.",
+    )
+    ckpt.add_argument(
+        "--ckpt-replica", action=_StoreTrueOverrideAction,
+        dest="ckpt_replica", default=None,
+        help="Peer-replica recovery tier: after every State.commit "
+             "each rank pushes its committed snapshot to its replica key "
+             "over the HMAC-signed KV path, so a respawned rank restores "
+             "from a live copy instead of from disk.",
+    )
+    ckpt.add_argument(
+        "--ckpt-replica-chunk-kb", type=int, action=_StoreOverrideAction,
+        dest="ckpt_replica_chunk_kb", default=None,
+        help="Replica push chunk size in KiB (default 1024).",
+    )
+    ckpt.add_argument(
+        "--ckpt-commit-timeout-secs", type=float,
+        action=_StoreOverrideAction,
+        dest="ckpt_commit_timeout_secs", default=None,
+        help="Seconds each rank waits for the sharded manifest to "
+             "commit (default 120).",
+    )
+
+    timeline = parser.add_argument_group("timeline")
+    timeline.add_argument(
+        "--timeline-filename", action=_StoreOverrideAction,
+        dest="timeline_filename", default=None,
+        help="Per-rank Chrome trace of the eager engine: each rank writes "
+             "its own file derived from this value (template with "
+             "{rank}, directory, or plain path getting a rank tag).",
+    )
+    timeline.add_argument(
+        "--timeline-mark-cycles", action=_StoreTrueOverrideAction,
+        dest="timeline_mark_cycles", default=None,
+    )
+
+    obs_group = parser.add_argument_group(
+        "observability (not ported: ROADMAP A13)")
+    for flag, kind in (("--metrics-dump", str), ("--flightrec-dump", str),
+                       ("--live-stats-secs", float), ("--live-port", int),
+                       ("--live-history-file", str),
+                       ("--alert-skew-ms", float),
+                       ("--trace-sample-rate", float),
+                       ("--health", str), ("--health-check-steps", int),
+                       ("--divergence-action", str)):
+        _not_ported(obs_group, [flag], type=kind,
+                    dest=flag[2:].replace("-", "_"))
+    _not_ported(obs_group, ["--trace"], type=str, dest="trace")
+    _not_ported(obs_group, ["--stats-summary"], action="store_true",
+                dest="stats_summary")
+
+    stall = parser.add_argument_group("stall check")
+    stall.add_argument(
+        "--no-stall-check", action=_StoreTrueOverrideAction,
+        dest="no_stall_check", default=None,
+    )
+    stall.add_argument(
+        "--stall-check-warning-time-seconds", type=int,
+        action=_StoreOverrideAction,
+        dest="stall_check_warning_time_seconds", default=None,
+    )
+    stall.add_argument(
+        "--stall-check-shutdown-time-seconds", type=int,
+        action=_StoreOverrideAction,
+        dest="stall_check_shutdown_time_seconds", default=None,
+    )
+
+    autotune = parser.add_argument_group("autotune")
+    autotune.add_argument(
+        "--autotune", action=_StoreTrueOverrideAction, dest="autotune",
+        default=None,
+    )
+    autotune.add_argument(
+        "--autotune-log-file", action=_StoreOverrideAction,
+        dest="autotune_log_file", default=None,
+    )
+    for flag, kind in (("--autotune-warmup-samples", int),
+                       ("--autotune-steps-per-sample", int),
+                       ("--autotune-bayes-opt-max-samples", int),
+                       ("--autotune-gaussian-process-noise", float),
+                       ("--autotune-drift-threshold", float),
+                       ("--autotune-drift-samples", int)):
+        autotune.add_argument(
+            flag, type=kind, action=_StoreOverrideAction,
+            dest=flag[2:].replace("-", "_"), default=None,
+        )
+
+    logging_group = parser.add_argument_group("logging")
+    logging_group.add_argument(
+        "--log-level", action=_StoreOverrideAction, dest="log_level",
+        default=None,
+        choices=["trace", "debug", "info", "warning", "error", "fatal"],
+    )
+
+    parser.add_argument(
+        "command", nargs=argparse.REMAINDER,
+        help="Command to run on every slot (e.g. python train.py).",
+    )
+    args = parser.parse_args(argv)
+    config_parser.apply_config_file(args, getattr(args, "config_file", None))
+    return args
+
+
+def check_ported(args: argparse.Namespace) -> None:
+    """Raise :class:`NotPortedError` naming the ROADMAP item of the first
+    flag set whose plane the port does not carry."""
+    for attr, (_, item, plane) in config_parser.NOT_PORTED_KNOBS.items():
+        value = getattr(args, attr, None)
+        if value is not None and value is not False:  # 0 is a setting
+            flag = "--" + attr.replace("_", "-")
+            if attr == "serve_frontends":
+                flag = "--frontends"
+            raise NotPortedError(
+                f"hvdrun {flag} is not ported yet (ROADMAP {item}: {plane})")
+
+
+def check_build() -> str:
+    """Capability report (reference horovodrun --check-build): torch,
+    CUDA, NCCL and gloo, and whether the CUDA kernels are built in this
+    checkout."""
+    import torch  # noqa: PLC0415
+    import torch.distributed as dist  # noqa: PLC0415
+
+    from .. import __version__  # noqa: PLC0415
+    from ..ops import kernels  # noqa: PLC0415
+
+    def mark(ok: bool) -> str:
+        return "X" if ok else " "
+
+    cuda = torch.cuda.is_available()
+    nccl = dist.is_available() and dist.is_nccl_available()
+    nccl_version = None
+    if nccl and cuda:
+        nccl_version = ".".join(map(str, torch.cuda.nccl.version()))
+    built = kernels.built()
+    gpus = [torch.cuda.get_device_name(i)
+            for i in range(torch.cuda.device_count())] if cuda else []
+    lines = [
+        f"horovod_tpu_torch v{__version__}:",
+        "",
+        f"    torch {torch.__version__}, CUDA {torch.version.cuda}",
+        f"    GPUs: {', '.join(gpus) if gpus else 'none visible'}",
+        "",
+        "Available backends:",
+        f"    [{mark(nccl)}] NCCL"
+        + (f" {nccl_version}" if nccl_version else ""),
+        f"    [{mark(dist.is_available() and dist.is_gloo_available())}] "
+        "gloo",
+        "Available features:",
+        f"    [{mark(cuda)}] CUDA device",
+        f"    [{mark(all(built.values()))}] flash-attention kernels built "
+        f"({sum(built.values())} of {len(built)} under "
+        f"{kernels.build_dir()})",
+        "    [X] eager per-op engine (negotiation, fusion, join, timeline)",
+        "    [X] elastic launcher, KV rendezvous, checkpoint tiers",
+        "    [ ] serving plane (ROADMAP A12b)",
+    ]
+    return "\n".join(lines)
+
+
+def _pick_free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
+def _resolve_host_slots(
+    hosts: Optional[str], hostfile: Optional[str], default: str
+):
+    """hosts/hostfile/default cascade (reference hostfile/LSF
+    resolution, runner.py:552-627)."""
+    if hostfile:
+        return parse_hostfile(hostfile)
+    if hosts:
+        return parse_hosts(hosts)
+    return parse_hosts(default)
+
+
+def build_slot_env(
+    slot: SlotInfo,
+    coordinator: str,
+    base_env: Dict[str, str],
+) -> Dict[str, str]:
+    """Per-slot environment (reference gloo_run.py:143-165,257-269:
+    HOROVOD_RANK/SIZE/..., rendezvous addr/port)."""
+    env = dict(base_env)
+    env.update(
+        {
+            "HVDTPU_RANK": str(slot.rank),
+            "HVDTPU_SIZE": str(slot.size),
+            "HVDTPU_LOCAL_RANK": str(slot.local_rank),
+            "HVDTPU_LOCAL_SIZE": str(slot.local_size),
+            "HVDTPU_CROSS_RANK": str(slot.cross_rank),
+            "HVDTPU_CROSS_SIZE": str(slot.cross_size),
+            "HVDTPU_COORDINATOR": coordinator,
+        }
+    )
+    return env
+
+
+def launch_job(
+    command: List[str],
+    np: int,
+    hosts: Optional[str] = None,
+    hostfile: Optional[str] = None,
+    *,
+    env: Optional[Dict[str, str]] = None,
+    ssh_port: Optional[int] = None,
+    start_timeout: Optional[float] = None,
+    job_timeout: Optional[float] = None,
+    coordinator_port: Optional[int] = None,
+    tag_output: bool = True,
+    output_filename: Optional[str] = None,
+) -> Dict[int, int]:
+    """Allocate slots, spawn workers, wait for completion (reference
+    gloo_run.launch_gloo, gloo_run.py:237-304).
+
+    ``start_timeout`` bounds world formation (exported as
+    HVDTPU_START_TIMEOUT, the workers' ``init_process_group`` timeout);
+    ``job_timeout`` is a whole-job watchdog — unset means run forever.
+    The first slot's host runs the ``torch.distributed`` TCP store at the
+    coordinator address."""
+    host_slots = _resolve_host_slots(hosts, hostfile, f"localhost:{np}")
+    slots = allocate(host_slots, np)
+
+    first_host = slots[0].hostname
+    if is_local_host(first_host):
+        coord_host = "127.0.0.1"
+        port = coordinator_port or _pick_free_port()
+    else:
+        # The store binds on the remote first host, where we cannot
+        # probe; use the fixed (overridable) port.
+        coord_host = first_host
+        port = coordinator_port or DEFAULT_COORDINATOR_PORT
+    coordinator = f"{coord_host}:{port}"
+
+    base_env = dict(os.environ)
+    if env:
+        base_env.update(env)
+    if start_timeout is not None:
+        base_env[envmod.START_TIMEOUT] = str(int(start_timeout))
+    if output_filename:
+        os.makedirs(output_filename, exist_ok=True)
+
+    procs = ProcessSet()
+    procs.install_signal_handlers()
+    for slot in slots:
+        slot_env = build_slot_env(slot, coordinator, base_env)
+        _spawn_worker(
+            procs, slot.rank, slot.hostname, command, slot_env, base_env,
+            ssh_port=ssh_port, tag_output=tag_output,
+            output_dir=output_filename, num_proc=np,
+        )
+    return procs.wait(timeout=job_timeout)
+
+
+def _spawn_worker(
+    procs, rank: int, host: str, command: List[str],
+    worker_env: Dict[str, str], local_env: Dict[str, str], *,
+    ssh_port: Optional[int], tag_output: bool,
+    output_dir: Optional[str], num_proc: int,
+) -> None:
+    """Shared local/ssh rank spawn for :func:`launch_job` and the
+    elastic monitor.  Local ranks get ``worker_env`` directly; remote
+    ranks go over ssh with env inlined (reference gloo_run
+    get_remote_command) — only the :data:`TRAVEL_ENV` families travel,
+    a full env copy would break the remote shell.  ``local_env`` is what
+    the local ssh client process itself runs under."""
+    if is_local_host(host):
+        procs.launch(rank, command, worker_env, tag_output=tag_output,
+                     output_dir=output_dir, num_proc=num_proc)
+        return
+    travel = {k: v for k, v in worker_env.items()
+              if k.startswith(TRAVEL_ENV)}
+    ssh_cmd, stdin_data = make_ssh_command(host, command, travel, ssh_port)
+    procs.launch(rank, ssh_cmd, local_env, tag_output=tag_output,
+                 stdin_data=stdin_data, output_dir=output_dir,
+                 num_proc=num_proc)
+
+
+class ElasticJobResult:
+    """What an elastic run leaves behind: per-rank exit codes of the
+    FINAL incarnation of each rank, the last epoch, the world (every
+    rank that completed and delivered a result), and the recovery
+    trace — a deterministic event list (no timestamps) so two runs with
+    the same fault spec compare equal."""
+
+    def __init__(self):
+        self.exit_codes: Dict[int, int] = {}
+        self.epoch = 0
+        self.world: List[int] = []
+        self.trace: List[tuple] = []
+
+    def __repr__(self):  # pragma: no cover - debugging aid
+        return (f"ElasticJobResult(epoch={self.epoch}, "
+                f"world={self.world}, trace={self.trace})")
+
+
+def launch_elastic_job(
+    command: List[str],
+    np: int,
+    hosts: Optional[str] = None,
+    hostfile: Optional[str] = None,
+    *,
+    env: Optional[Dict[str, str]] = None,
+    ssh_port: Optional[int] = None,
+    min_workers: Optional[int] = None,
+    max_retries: int = 3,
+    heartbeat_timeout: float = 60.0,
+    progress_timeout: float = 300.0,
+    progress_grace: float = 0.0,
+    blacklist_cooldown: float = 10.0,
+    dump_grace_secs: Optional[float] = None,
+    job_timeout: Optional[float] = None,
+    kv_server=None,
+    tag_output: bool = True,
+    output_filename: Optional[str] = None,
+    max_workers: Optional[int] = None,
+    autoscale: Optional[dict] = None,
+    serve_ingest: bool = False,
+    serve_frontends: int = 1,
+    front_door=None,
+    live_stats_secs: Optional[float] = None,
+    live_history: Optional[str] = None,
+) -> ElasticJobResult:
+    """Elastic counterpart of :func:`launch_job`: per-rank failure
+    detection (exit code + KV heartbeat + collective-path progress
+    beat), host blacklisting with exponential-backoff re-admission, and
+    bounded respawn of failed ranks into a re-minted rendezvous epoch.
+
+    Worker contract: each rank runs ``command`` with the
+    ``HVDTPU_ELASTIC_*`` env (see elastic/context.py) and coordinates
+    through the launcher's KV store; no ``torch.distributed`` world is
+    bootstrapped (its membership cannot survive a rank death).  Each rank
+    also gets its slot's ``HVDTPU_LOCAL_RANK``, which picks its GPU.
+
+    ``min_workers``: once the respawn budget is spent, the job may
+    continue with a SHRUNKEN world as long as at least this many ranks
+    survive (default np — any unrecoverable failure aborts).
+    ``max_retries`` bounds total respawns across the job.
+    ``progress_timeout`` / ``progress_grace``: the workload-aware
+    progress-beat policy (``_obs.progress.ProgressPolicy``).  Worker
+    beats piggyback the collectives-completed counter and phase; a rank
+    whose beat thread lives but whose counter is frozen in steady state
+    for ``progress_timeout`` seconds has a deadlocked training thread and
+    is killed and respawned directly.  ``progress_grace`` is the same
+    window for init/compile phases (0 = never kill there).
+    A rank declared dead is killed at once (SIGKILL to its process
+    group).
+    ``kv_server``: a caller-started rendezvous server already seeded
+    with job payloads (the ``elastic.launch`` path); created and stopped
+    here when None.
+
+    The reference's keywords of unported planes raise
+    :class:`NotPortedError` when set: ``dump_grace_secs`` (A13: the
+    window in which the flight recorder dumps before the kill),
+    ``max_workers``, ``autoscale``,
+    ``serve_ingest``, ``serve_frontends`` and ``front_door`` (ROADMAP
+    A12b, the serving plane), ``live_stats_secs`` and ``live_history``
+    (A13, the live telemetry plane).
+    """
+    for name, value, idle, item in (
+            ("max_workers", max_workers, None, "A12b"),
+            ("autoscale", autoscale, None, "A12b"),
+            ("serve_ingest", serve_ingest, False, "A12b"),
+            ("serve_frontends", serve_frontends, 1, "A12b"),
+            ("front_door", front_door, None, "A12b"),
+            ("live_stats_secs", live_stats_secs, None, "A13"),
+            ("live_history", live_history, None, "A13"),
+            ("dump_grace_secs", dump_grace_secs, None, "A13")):
+        if value != idle:
+            raise NotPortedError(
+                f"launch_elastic_job({name}=...) is not ported yet "
+                f"(ROADMAP {item})")
+    from .._obs import get_registry  # noqa: PLC0415
+    from .._obs.progress import ProgressPolicy, beat_epoch  # noqa: PLC0415
+    from .rendezvous import (  # noqa: PLC0415
+        KVStoreClient, KVStoreServer, SECRET_ENV,
+    )
+
+    if min_workers is None:
+        min_workers = np
+    if not 1 <= min_workers <= np:
+        raise ValueError(
+            f"min_workers must be in [1, np]; got {min_workers} for np={np}"
+        )
+
+    host_slots = _resolve_host_slots(hosts, hostfile, f"localhost:{np}")
+    slots = allocate(host_slots, np)
+    host_of: Dict[int, str] = {s.rank: s.hostname for s in slots}
+    slot_of: Dict[int, SlotInfo] = {s.rank: s for s in slots}
+    host_order: List[str] = []
+    for hs in host_slots:
+        if hs.hostname not in host_order:
+            host_order.append(hs.hostname)
+    all_local = all(is_local_host(h) for h in host_order)
+
+    owns_server = kv_server is None
+    if owns_server:
+        kv_server = KVStoreServer(bind_all=not all_local)
+        kv_server.start()
+    port = kv_server.port
+    kv = KVStoreClient(f"127.0.0.1:{port}", kv_server.secret)
+    if all_local:
+        kv_addr = f"127.0.0.1:{port}"
+    else:
+        from .allocate import routable_ip  # noqa: PLC0415
+
+        probe = next((h for h in host_order if not is_local_host(h)),
+                     "127.0.0.1")
+        kv_addr = f"{routable_ip(probe)}:{port}"
+
+    base_env = dict(os.environ)
+    if env:
+        base_env.update(env)
+    base_env[SECRET_ENV] = kv_server.secret
+    base_env["HVDTPU_ELASTIC_KV"] = kv_addr
+    if output_filename:
+        os.makedirs(output_filename, exist_ok=True)
+
+    metrics = get_registry()
+    result = ElasticJobResult()
+    trace = result.trace
+    blacklist = HostBlacklist(cooldown_base=blacklist_cooldown)
+
+    # Slice-aware blacklisting (multislice jobs): a failure is recorded
+    # against its rank's slice too, and a quorum of dead hosts within
+    # one slice blacklists the whole slice — same contiguous-block
+    # rank->slice rule as basics.resolve_slice_partition.
+    try:
+        num_slices = int(base_env.get(envmod.NUM_SLICES) or 0)
+    except ValueError:
+        num_slices = 0
+    if num_slices <= 0:
+        try:
+            ssize = int(base_env.get(envmod.SLICE_SIZE) or 0)
+        except ValueError:
+            ssize = 0
+        num_slices = np // ssize if ssize > 0 and np % ssize == 0 else 0
+    slice_of: Dict[int, int] = {}
+    if num_slices > 1 and np % num_slices == 0:
+        from .allocate import slice_assignment  # noqa: PLC0415
+
+        slice_of = dict(enumerate(slice_assignment(np, num_slices)))
+
+    def record_rank_failure(rank: int, host: str) -> int:
+        sid = slice_of.get(rank)
+        if sid is None:
+            return blacklist.record_failure(host)
+        members = sorted(
+            {host_of[r] for r, s in slice_of.items()
+             if s == sid and r in host_of}
+        )
+        return blacklist.record_failure(
+            host, slice_id=sid, slice_hosts=members
+        )
+    progress_policy = ProgressPolicy(progress_timeout, progress_grace)
+    procs = ProcessSet()
+    procs.install_signal_handlers()
+
+    def mint_epoch(epoch: int, world: List[int]) -> None:
+        # World before epoch: a worker that sees the new epoch number
+        # must find its membership already published.
+        kv.put("elastic", f"world_{epoch}", pickle.dumps(sorted(world)))
+        kv.put("elastic", "epoch", str(epoch).encode())
+        metrics.counter("launcher.epochs_minted").inc()
+
+    # rank -> epoch its CURRENT incarnation was spawned into; beats
+    # stamped with an older epoch are a dead predecessor's leftovers.
+    spawn_epoch: Dict[int, int] = {}
+
+    def spawn(rank: int, host: str, epoch: int) -> None:
+        spawn_epoch[rank] = epoch
+        worker_env = dict(base_env)
+        worker_env.update({
+            "HVDTPU_ELASTIC_RANK": str(rank),
+            "HVDTPU_ELASTIC_EPOCH": str(epoch),
+            "HVDTPU_ELASTIC_NP": str(np),
+            # the slot's GPU on its host (basics._resolve_device)
+            envmod.LOCAL_RANK: str(slot_of[rank].local_rank),
+            envmod.LOCAL_SIZE: str(slot_of[rank].local_size),
+        })
+        # Epoch-qualified capture dir: a respawn must not truncate the
+        # dead incarnation's logs — they are the primary evidence of
+        # why it died.
+        out_dir = (os.path.join(output_filename, f"epoch.{epoch}")
+                   if output_filename else None)
+        _spawn_worker(
+            procs, rank, host, command, worker_env, base_env,
+            ssh_port=ssh_port, tag_output=tag_output,
+            output_dir=out_dir, num_proc=np,
+        )
+
+    def posted_error(rank: int, up_to_epoch: int) -> Optional[str]:
+        """A worker that RAISED (vs crashed) posted its traceback, a
+        pickled string, under an epoch-qualified key before exiting;
+        that diagnostic both aborts the job and wins over the generic
+        exit-code error."""
+        for e in range(up_to_epoch + 1):
+            raw = kv.get("elastic", f"error_{rank}_{e}")
+            if raw is not None:
+                return pickle.loads(raw)
+        return None
+
+    epoch = 0
+    world = list(range(np))
+    finished: Dict[int, int] = {}
+    hb_seen: Dict[int, tuple] = {}
+    hb_next_scan = 0.0
+    respawns_used = 0
+    deadline = time.monotonic() + job_timeout if job_timeout else None
+
+    try:
+        mint_epoch(epoch, world)
+        for rank in world:
+            spawn(rank, host_of[rank], epoch)
+            trace.append(("spawn", rank, epoch, host_of[rank]))
+
+        while True:
+            for rank, rc in procs.poll_exits():
+                if rc == 0:
+                    finished[rank] = 0
+                    continue
+                tb = posted_error(rank, epoch)
+                if tb is not None:
+                    raise RuntimeError(
+                        f"elastic rank {rank} raised:\n{tb}"
+                    )
+                host = host_of[rank]
+                count = record_rank_failure(rank, host)
+                metrics.counter("launcher.rank_failures").inc()
+                metrics.counter("launcher.blacklists").inc()
+                trace.append(("failure", rank, rc, epoch))
+                trace.append(("blacklist", host, count))
+                LOG.warning(
+                    "elastic: rank %d on %s exited %d (failure %d on "
+                    "this host)", rank, host, rc, count,
+                )
+                alive = procs.alive_ranks()
+                contributed = set(finished)
+                if not alive and contributed:
+                    # Every peer already exited 0: a replacement would
+                    # have no survivor to sync state from and would
+                    # retrain alone from initial values.  The committed
+                    # result is already replicated across the finished
+                    # ranks — finish with them instead of respawning.
+                    if len(contributed) < min_workers:
+                        raise RuntimeError(
+                            f"elastic job lost rank {rank} after only "
+                            f"{len(contributed)} workers finished "
+                            f"(< min_workers={min_workers})"
+                        )
+                    epoch += 1
+                    world = sorted(contributed)
+                    mint_epoch(epoch, world)
+                    trace.append(("shrink", epoch, tuple(world)))
+                    LOG.warning(
+                        "elastic: rank %d died after all peers finished; "
+                        "completing with %d/%d workers", rank,
+                        len(world), np,
+                    )
+                    continue
+                if respawns_used < max_retries:
+                    respawns_used += 1
+                    new_host = blacklist.select(host_order, prefer=host)
+                    host_of[rank] = new_host
+                    epoch += 1
+                    world = sorted(set(alive) | {rank})
+                    mint_epoch(epoch, world)
+                    # The dead incarnation's last observed beat must not
+                    # count against the successor's first-beat window.
+                    hb_seen.pop(rank, None)
+                    progress_policy.forget(rank)
+                    spawn(rank, new_host, epoch)
+                    metrics.counter("launcher.respawns").inc()
+                    trace.append(("respawn", rank, epoch, new_host))
+                    LOG.warning("elastic: respawned rank %d on %s into "
+                                "epoch %d", rank, new_host, epoch)
+                elif len(set(alive) | contributed) >= min_workers:
+                    # Budget spent: continue with the shrunken world
+                    # (the dead rank's slot is dropped for good).
+                    # min_workers counts CONTRIBUTING ranks — alive ones
+                    # plus those that already delivered a result.
+                    epoch += 1
+                    world = sorted(alive)
+                    mint_epoch(epoch, world)
+                    trace.append(("shrink", epoch, tuple(world)))
+                    LOG.warning(
+                        "elastic: respawn budget spent; continuing with "
+                        "%d/%d workers", len(world), np,
+                    )
+                else:
+                    raise RuntimeError(
+                        f"elastic job lost rank {rank} with the respawn "
+                        f"budget spent and only "
+                        f"{len(set(alive) | contributed)} workers "
+                        f"contributing (< min_workers={min_workers})"
+                    )
+            hb_enabled = bool(heartbeat_timeout and heartbeat_timeout > 0)
+            if ((hb_enabled or progress_policy.enabled)
+                    and time.monotonic() >= hb_next_scan):
+                # Beats only change once per worker heartbeat period, so
+                # scanning them on every 50 ms monitor tick is np wasted
+                # KV round-trips; exits stay on the fast tick.  The scan
+                # runs for EITHER rule: disabling the process-heartbeat
+                # rule must not silently disable deadlock detection.
+                hb_next_scan = time.monotonic() + min(
+                    1.0,
+                    heartbeat_timeout / 4 if hb_enabled else 1.0,
+                )
+                # Staleness is judged entirely on the launcher's clock —
+                # the window starts when the launcher OBSERVES a new beat
+                # value, never by comparing against the worker's wall
+                # clock (cross-host skew > timeout would otherwise kill
+                # healthy remote workers in a loop).
+                now = time.monotonic()
+                for rank in procs.alive_ranks():
+                    raw = kv.get("elastic", f"hb_{rank}")
+                    if raw is None:
+                        continue  # not beating yet (still importing)
+                    be = beat_epoch(raw)
+                    if be is not None and be < spawn_epoch.get(rank, 0):
+                        # A dead incarnation's leftover beat: the
+                        # respawned successor has not beaten yet.
+                        continue
+                    # Rule 1 — process liveness: the beat body changing
+                    # at all proves the beat thread (and process) lives.
+                    seen = hb_seen.get(rank)
+                    if seen is None or seen[0] != raw:
+                        hb_seen[rank] = (raw, now)
+                    elif hb_enabled and now - seen[1] > heartbeat_timeout:
+                        trace.append(("heartbeat_lost", rank, epoch))
+                        metrics.counter("launcher.heartbeat_lost").inc()
+                        LOG.warning(
+                            "elastic: rank %d heartbeat stale > %.0fs; "
+                            "declaring it dead", rank, heartbeat_timeout,
+                        )
+                        hb_seen.pop(rank, None)
+                        progress_policy.forget(rank)
+                        procs.terminate_rank(rank)
+                        continue
+                    # Rule 2 — training-thread liveness: a live beat with
+                    # a frozen progress counter in steady state is a
+                    # deadlocked training thread.  Kill it now, instead
+                    # of letting every peer discover it through
+                    # collective timeouts.
+                    reason = progress_policy.observe(rank, raw, now)
+                    if reason is not None:
+                        trace.append(("progress_lost", rank, epoch))
+                        metrics.counter("launcher.progress_lost").inc()
+                        LOG.warning(
+                            "elastic: rank %d training thread declared "
+                            "dead: %s", rank, reason,
+                        )
+                        hb_seen.pop(rank, None)
+                        progress_policy.forget(rank)
+                        procs.terminate_rank(rank)
+            if all(r in finished for r in world):
+                result.exit_codes = dict(finished)
+                result.epoch = epoch
+                # Every rank that delivered a result — not just the last
+                # rendezvous world, which drops ranks that finished
+                # before a late respawn/shrink re-formed it.
+                result.world = sorted(finished)
+                return result
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"elastic job timed out after {job_timeout}s "
+                    f"(finished={sorted(finished)}, world={world})"
+                )
+            time.sleep(0.05)
+    except BaseException:
+        procs.terminate()
+        raise
+    finally:
+        if owns_server:
+            kv_server.stop()
+
+
+def _or(value, default):
+    # `x or default` would coerce an EXPLICIT 0 (zero respawns / zero
+    # cooldown) back to the default.
+    return default if value is None else value
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    check_ported(args)
+    if args.version:
+        from .. import __version__  # noqa: PLC0415
+
+        print(__version__)
+        return 0
+    if args.check_build:
+        print(check_build())
+        return 0
+    if not args.np:
+        print("error: -np is required", file=sys.stderr)
+        return 2
+    command = list(args.command)
+    if command and command[0] == "--":
+        command = command[1:]
+    if not command:
+        print("error: no command given", file=sys.stderr)
+        return 2
+    if args.verbose and not args.log_level:
+        args.log_level = "debug"
+    if args.log_level:
+        os.environ[envmod.LOG_LEVEL] = args.log_level
+    if getattr(args, "num_slices", None):
+        # Refuse a bad partition HERE, before spawning anything — every
+        # worker would otherwise discover it independently and downgrade.
+        from .allocate import slice_assignment  # noqa: PLC0415
+
+        try:
+            slice_assignment(args.np, args.num_slices)
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+
+    env: Dict[str, str] = {}
+    config_parser.set_env_from_args(env, args)
+    try:
+        LOG.info("launching %d processes: %s", args.np, " ".join(command))
+        if args.elastic:
+            launch_elastic_job(
+                command,
+                args.np,
+                hosts=args.hosts,
+                hostfile=args.hostfile,
+                env=env,
+                ssh_port=args.ssh_port,
+                min_workers=args.min_workers,
+                max_retries=_or(args.max_elastic_retries, 3),
+                blacklist_cooldown=_or(args.blacklist_cooldown_secs, 10.0),
+                progress_timeout=_or(args.progress_timeout_secs, 300.0),
+                progress_grace=_or(args.progress_grace_secs, 0.0),
+                output_filename=args.output_filename,
+            )
+            return 0
+        launch_job(
+            command,
+            args.np,
+            hosts=args.hosts,
+            hostfile=args.hostfile,
+            env=env,
+            ssh_port=args.ssh_port,
+            start_timeout=args.start_timeout,
+            coordinator_port=args.coordinator_port,
+            output_filename=args.output_filename,
+        )
+        return 0
+    except (RuntimeError, ValueError, TimeoutError, OSError) as exc:
+        print(f"hvdrun: {exc}", file=sys.stderr)
+        return 1

@@ -1,5 +1,5 @@
 """Test-support machinery shipped with the package: the deterministic
-fault-injection registry (the part of ``horovod_tpu/testing/faults.py``
-that the eager engine's enqueue point needs)."""
+fault-injection registry (the points of ``horovod_tpu/testing/faults.py``
+that the port wires)."""
 
 from . import faults  # noqa: F401

@@ -65,6 +65,22 @@ AUTOTUNE_DRIFT_SAMPLES = "HVDTPU_AUTOTUNE_DRIFT_SAMPLES"
 SCHEDULE_REPLAY = "HVDTPU_SCHEDULE_REPLAY"
 SCHEDULE_REPLAY_CYCLES = "HVDTPU_SCHEDULE_REPLAY_CYCLES"
 DEFAULT_REPLAY_CYCLES = 50
+# Logging (utils/logging.py)
+LOG_LEVEL = "HVDTPU_LOG_LEVEL"
+
+# Sharded checkpoint + peer-replica recovery tier (ckpt/,
+# horovod_tpu/utils/env.py:97-109): CKPT_DIR is the sharded-manifest
+# directory the elastic State saves to and falls back to on restore when
+# no live peer holds a valid replica; CKPT_REPLICA turns on the replica
+# push after every commit (chunked at CKPT_REPLICA_CHUNK_KB over the
+# signed KV path); CKPT_COMMIT_TIMEOUT bounds the manifest-commit wait.
+CKPT_DIR = "HVDTPU_CKPT_DIR"
+CKPT_REPLICA = "HVDTPU_CKPT_REPLICA"
+CKPT_REPLICA_CHUNK_KB = "HVDTPU_CKPT_REPLICA_CHUNK_KB"
+DEFAULT_REPLICA_CHUNK_KB = 1024
+CKPT_COMMIT_TIMEOUT = "HVDTPU_CKPT_COMMIT_TIMEOUT_SECS"
+DEFAULT_CKPT_COMMIT_TIMEOUT = 120.0
+
 # Which eager engine (``_engine_registry``): auto / python; ``native``, the
 # C++ engine, is not ported yet.
 EAGER_ENGINE = "HVDTPU_EAGER_ENGINE"

@@ -1069,3 +1069,131 @@ def interop_worker(state_np, tokens, steps, bn_xs, bn_ws, env):
     out["sync_bn"] = (y.detach().numpy(), x.grad.numpy(),
                       bn.running_mean.numpy(), bn.running_var.numpy())
     return out
+
+
+def elastic_state_worker(modes, total, commit_at):
+    """``elastic.State`` on gpt-nano at 2 layers (fp32, AdamW) in each
+    overlap mode of ``modes``: the losses of ``total`` uninterrupted steps
+    (step k on ``RandomState(k)``'s tokens); the same steps after
+    ``restore()`` rewound two steps to the initial snapshot (an empty
+    optimizer state); the steps from ``commit_at`` on after a commit, two
+    more steps and a ``restore()``; and a fresh model and optimizer (a
+    respawned worker) that adopt the committed snapshot through
+    ``sync()``.  With each, whether the live tensors kept their
+    identities: the parameter objects, their storage (ZeRO-1's flat
+    buffers) and their gradients' storage (the buckets)."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.elastic.context import LocalContext
+    from horovod_tpu_torch.elastic.state import State, dumps_snapshot
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.optim import DistributedOptimizer
+    from horovod_tpu_torch.optim.overlap import OverlapPlan
+    from horovod_tpu_torch.train import lm_loss, make_adamw
+
+    def build(mode):
+        model = gpt("nano", device="cpu", dtype=torch.float32,
+                    num_layers=2, flash_block_q=16, flash_block_k=16)
+        if mode == "off":
+            return model, DistributedOptimizer(make_adamw(model.parameters()))
+        return model, OverlapPlan(model.parameters(), make_adamw, mode=mode,
+                                  bucket_mb=0.05)
+
+    def step(model, opt, k):
+        toks = torch.from_numpy(np.random.RandomState(k).randint(
+            0, 1024, (2, 17)))
+        opt.zero_grad()
+        loss = lm_loss(model, toks)
+        loss.backward()
+        opt.step()
+        return loss.item()
+
+    def ids(model, mode):
+        # the gradients' storage is fixed only where they view a bucket
+        # (under "off" each backward allocates them anew)
+        ps = list(model.parameters())
+        return ([id(p) for p in ps], [p.data_ptr() for p in ps],
+                [p.grad.data_ptr() for p in ps] if mode != "off" else None)
+
+    out = {}
+    for mode in modes:
+        model, opt = build(mode)
+        ref = [step(model, opt, k) for k in range(total)]
+
+        model, opt = build(mode)
+        state = State(model=model, opt=opt, step=0)
+        step(model, opt, 0)
+        before = ids(model, mode)
+        step(model, opt, 1)
+        state.restore()
+        restored_empty = ids(model, mode) == before
+        from_start = [step(model, opt, k) for k in range(total)]
+
+        model, opt = build(mode)
+        state = State(model=model, opt=opt, step=0)
+        for k in range(commit_at):
+            step(model, opt, k)
+        state.step = commit_at
+        state.commit()
+        before = ids(model, mode)
+        step(model, opt, commit_at)
+        step(model, opt, commit_at + 1)
+        state.restore()
+        restored = ids(model, mode) == before and state.step == commit_at
+        rolled_back = [step(model, opt, k) for k in range(commit_at, total)]
+        blob = dumps_snapshot(state._snapshot, state.commits)
+
+        class Peer(LocalContext):
+            def sync_state(self, make_blob, commit_count):
+                return blob
+
+        model2, opt2 = build(mode)
+        step(model2, opt2, 0)  # gradients exist (the bucket views)
+        before = ids(model2, mode)
+        state2 = State(model=model2, opt=opt2, step=0)
+        state2.sync(Peer())
+        adopted = (ids(model2, mode) == before and state2.step == commit_at
+                   and state2.last_restore["source"] == "peer")
+        after_adopt = [step(model2, opt2, k) for k in range(commit_at, total)]
+        out[mode] = {"ref": ref, "from_start": from_start,
+                     "rolled_back": rolled_back, "after_adopt": after_adopt,
+                     "identities_kept": [restored_empty, restored, adopted]}
+    return out
+
+
+def checkpoint_worker(directory, fault):
+    """A 2-rank world's checkpoint round: rank 0 saves, every rank
+    restores (rank 0 reads, the others receive the broadcast), metrics are
+    averaged; then with ``fault`` (an ``HVDTPU_FAULT_SPEC``) armed, an
+    async save whose rank-0 write fails must raise at ``wait()`` on every
+    rank."""
+    import os
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import callbacks
+    from horovod_tpu_torch.testing import faults
+
+    r = hvd.rank()
+    state = {"w": torch.arange(4.0) * (r + 1),
+             "step": torch.tensor(3, dtype=torch.int32)}
+    hvd.save_checkpoint(directory, state, 3)
+    out = hvd.restore_checkpoint(directory, {
+        "w": torch.zeros(4), "step": torch.tensor(0, dtype=torch.int32)})
+    avg = callbacks.metric_average(float(r))
+    synced = callbacks.BroadcastGlobalVariablesCallback(0)(
+        {"v": torch.full((2,), float(r))})
+    os.environ[faults.SPEC_ENV] = fault
+    faults.reset()
+    handle = hvd.save_checkpoint_async(directory, state, 5)
+    try:
+        handle.wait()
+        raised, msg = False, ""
+    except Exception as exc:  # noqa: BLE001 - the contract under test
+        raised, msg = True, str(exc)
+    return {"restored": out["w"].tolist(), "step": int(out["step"]),
+            "avg": avg,
+            "synced": synced["v"].tolist(), "raised": raised, "msg": msg,
+            "latest": hvd.latest_checkpoint_step(directory)}

@@ -3,8 +3,12 @@ horovod_tpu, and the port never falls back to the CPU on its own.
 
 The import check runs in a fresh isolated interpreter (``python -I -B``: no
 site customisation that could preload JAX) with ``jax``, ``flax``,
-``optax`` and ``horovod_tpu`` blocked in ``sys.modules``; a static pass
-over the sources also catches imports inside functions.
+``optax`` and ``horovod_tpu`` blocked in ``sys.modules``, and with them
+``cloudpickle``, ``orbax`` and ``ml_dtypes``, which the card's machine may
+lack: only the functions that ship a callable (``elastic.launch`` and its
+worker) import cloudpickle, and nothing may import it when a module is
+imported.  A static pass over the sources also catches imports inside
+functions.
 """
 
 from __future__ import annotations
@@ -17,7 +21,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "horovod_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu", "orbax",
+             "ml_dtypes")
+# not on the card's machine, so never imported at a module's top level
+LAZY_ONLY = ("cloudpickle",)
 
 _SCRIPT = textwrap.dedent("""
     import importlib, json, pkgutil, sys
@@ -47,7 +54,7 @@ _SCRIPT = textwrap.dedent("""
 
 
 def _run_isolated():
-    code = _SCRIPT.format(repo=str(REPO), forbidden=FORBIDDEN)
+    code = _SCRIPT.format(repo=str(REPO), forbidden=FORBIDDEN + LAZY_ONLY)
     # -B: -I ignores PYTHONDONTWRITEBYTECODE, and the interpreter must not
     # write bytecode caches next to the installed packages
     out = subprocess.run([sys.executable, "-I", "-B", "-c", code],
@@ -66,7 +73,14 @@ def test_every_module_imports_without_jax():
                 "runtime.controller", "runtime.device_plane",
                 "runtime.messages", "runtime.response_cache",
                 "runtime.timeline", "ops.eager", "interop.torch",
-                "_engine_registry", "_obs", "testing.faults"):
+                "_engine_registry", "_obs", "_obs.progress",
+                "_obs.pathspec", "testing.faults", "run.runner",
+                "run.rendezvous", "run.allocate", "run.blacklist",
+                "run.config_parser", "run.exec", "run.__main__",
+                "elastic.context", "elastic.state", "elastic.run",
+                "elastic.launch", "elastic.worker", "ckpt.sharded",
+                "ckpt.replica", "ckpt.tree", "checkpoint", "callbacks",
+                "utils.logging"):
         assert f"horovod_tpu_torch.{mod}" in res["modules"], mod
     assert res["leaked"] == []
     # causal pairs of gpt-small's attention x 4 * head_dim
@@ -82,9 +96,9 @@ def test_gpu_entry_points_refuse_to_run_without_a_gpu():
     assert res["smoke_rc"] == 2
 
 
-def _imports(path: Path):
+def _imports(path: Path, top_level_only: bool = False):
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
+    for node in (tree.body if top_level_only else ast.walk(tree)):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -100,3 +114,7 @@ def test_no_source_names_a_forbidden_import():
     bad = [(str(f.relative_to(REPO)), name) for f in files
            for name in _imports(f) if name.split(".")[0] in FORBIDDEN]
     assert bad == []
+    eager = [(str(f.relative_to(REPO)), name) for f in files
+             for name in _imports(f, top_level_only=True)
+             if name.split(".")[0] in LAZY_ONLY]
+    assert eager == []

@@ -77,6 +77,24 @@ def test_the_eager_names_are_ported():
     assert not any(item == "A9" for item, _ in hvd.NOT_PORTED.values())
 
 
+A10_NAMES = ("Store", "LocalStore", "save_checkpoint",
+             "save_checkpoint_async", "restore_checkpoint",
+             "latest_checkpoint_step")
+
+
+def test_the_checkpoint_names_are_ported():
+    """ROADMAP A10: the checkpoint names are the port's own, from
+    ``checkpoint``, ``callbacks`` is the port's module, and none of them
+    is in the table any more."""
+    from horovod_tpu_torch import callbacks, checkpoint
+
+    for name in A10_NAMES:
+        assert name not in hvd.NOT_PORTED
+        assert getattr(hvd, name) is getattr(checkpoint, name)
+    assert hvd.callbacks is callbacks
+    assert not any(item == "A10" for item, _ in hvd.NOT_PORTED.values())
+
+
 def test_the_table_holds_only_reference_names():
     assert set(hvd.NOT_PORTED) <= set(REFERENCE_NAMES)
 
