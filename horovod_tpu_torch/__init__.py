@@ -31,7 +31,11 @@ then the launcher (``python -m horovod_tpu_torch.run``, static and
 ``--elastic``), elastic training (``elastic``: ``State``, ``run``, the KV
 rendezvous), the checkpoint tiers (``checkpoint``: ``save_checkpoint`` and
 the ``Store``; ``ckpt``: the sharded format and the peer replicas) and
-the training callbacks (``callbacks``).
+the training callbacks (``callbacks``); then serving (``serve``: decode,
+the slot engine, the front door, the elastic serving fleet behind
+``python -m horovod_tpu_torch.run --elastic --serve``, ``ServeJob`` and
+the weight hot-swap), the function-shipping ``run.run(fn, np=...)`` and
+``cluster``.
 
 The names of the reference's top level that the port does not carry yet
 are in :data:`NOT_PORTED`, each with its ROADMAP item: reading one raises

@@ -16,7 +16,13 @@ the planes replaces the bodies here and no call site.  Until then:
 * ``progress`` is the reference's collective-path progress beat, whole
   (:mod:`.progress`): the elastic launcher's deadlock watchdog reads it;
 * ``pathspec`` carries the path rules the timeline and the autotune log
-  need and the atomic writers of the checkpoint tiers (:mod:`.pathspec`).
+  need and the atomic writers of the checkpoint tiers (:mod:`.pathspec`);
+* the serving plane's: ``slo`` (:mod:`.slo`, whole: the ``--slo-*``
+  objectives and their burn-rate books), ``goodput`` (:mod:`.goodput`:
+  ``TokenGoodput`` whole, the wall-clock ledger's hooks record nothing),
+  ``memplane`` (:mod:`.memplane`: ``alloc_guard`` keeps its ``mem_alloc``
+  fault point, the census records nothing) and ``profile``
+  (:mod:`.profile`: ``MFUProfiler`` records nothing).
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from types import SimpleNamespace
 from typing import Callable, Dict, List, Tuple
 
 __all__ = ["get_registry", "CollectorRetired",
-           "flightrec", "progress", "trace", "straggler", "pathspec"]
+           "flightrec", "progress", "trace", "straggler", "pathspec",
+           "slo", "goodput", "memplane", "profile"]
 
 
 class Counter:
@@ -114,7 +121,9 @@ def _noop(*args, **kwargs) -> None:
 
 
 flightrec = SimpleNamespace(record=_noop, record_exception=_noop)
-trace = SimpleNamespace(enabled=lambda: False, add_span=_noop)
+trace = SimpleNamespace(enabled=lambda: False, add_span=_noop,
+                        sampled=lambda *args: False,
+                        sample_rate=lambda: 1.0)
 straggler = SimpleNamespace(record=_noop, record_waits=_noop, reset=_noop)
 
-from . import pathspec, progress  # noqa: E402
+from . import goodput, memplane, pathspec, profile, progress, slo  # noqa: E402,I001

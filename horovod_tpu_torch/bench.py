@@ -20,6 +20,20 @@ CPU runs their plain versions).  Conv records also carry
 ``flops_per_image`` (:func:`conv_flops_per_image`) and ``vs_baseline``,
 the value over Horovod's published 103.55 images/s per GPU
 (``bench.py:7-14``).  Every number is this run's.
+
+``--serve`` is the reference's open-loop serving benchmark
+(``bench.py:675-1059``): a :class:`~.serve.ServeJob` fleet of
+``--serve-np`` ranks serving ``--model`` (gpt-nano: the reference's own
+2-layer fp32 serving model) gets ``--serve-requests`` mixed-length prompts
+(``--seed``) at Poisson arrivals of ``--serve-rate`` a second, submitted
+on schedule whatever the fleet's backlog, while a poller stamps each
+request's first token and completion.  One JSON record: generated
+tokens/s (``value``), requests/s, TTFT and TPOT percentiles on the
+client's clock, the paged pool's KV waste, the front door's per-shard
+counts; ``--serve-scaling`` adds the same traffic at np = w and 2w.
+
+    python -m horovod_tpu_torch.bench --serve --model gpt-small \\
+        --serve-slots 16 --serve-requests 48 --serve-rate 3
 """
 
 from __future__ import annotations
@@ -36,7 +50,8 @@ from .optim.overlap import MODES
 from .utils import env as envmod
 
 __all__ = ["PEAK_FLOPS", "BASELINE_IMAGES_PER_SEC", "conv_flops_per_image",
-           "model_flops_per_step", "peak_flops", "main"]
+           "model_flops_per_step", "peak_flops", "serve_spec", "serve_trace",
+           "serve_main", "main"]
 
 # Dense peak FLOP/s by device-name substring and compute dtype: NVIDIA's
 # H100 SXM data sheet (bf16 tensor cores; fp32 outside them).  fp32 runs
@@ -138,7 +153,45 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--grad-bucket-mb", type=float, default=None,
                    help="bucket cap for --overlap (default: "
                    "HVDTPU_GRAD_BUCKET_MB or 16)")
-    p.add_argument("--serve", action="store_true")
+    p.add_argument("--serve", action="store_true",
+                   help="serving-plane benchmark: open-loop arrivals "
+                   "through the continuous-batching fleet; lands ttft/tpot "
+                   "percentiles and tokens/sec instead of a training step "
+                   "time")
+    p.add_argument("--serve-np", type=int, default=1,
+                   help="serving ranks (elastic fleet size)")
+    p.add_argument("--serve-slots", type=int, default=4,
+                   help="decode slot pool size per rank")
+    p.add_argument("--serve-requests", type=int, default=16,
+                   help="requests in the open-loop arrival trace")
+    p.add_argument("--serve-rate", type=float, default=4.0,
+                   help="mean arrival rate, requests/sec (seeded "
+                   "exponential gaps)")
+    p.add_argument("--serve-width", type=int, default=0,
+                   help="width-sharded fleet (0 = replicated): np//width "
+                   "serving groups; a width above 1 is not ported (A11)")
+    p.add_argument("--serve-kv-mode", default="paged",
+                   choices=["paged", "contiguous"],
+                   help="KV layout (paged = block tables; contiguous = "
+                   "worst-case rows)")
+    p.add_argument("--serve-page-size", type=int, default=8,
+                   help="KV page size in token rows (paged mode)")
+    p.add_argument("--serve-kv-pages", type=int, default=0,
+                   help="KV page-pool size (0 = worst case)")
+    p.add_argument("--serve-scaling", action="store_true",
+                   help="run the same workload at np=w and np=2w (w = "
+                   "--serve-width or 1) and embed the fleet-scaling "
+                   "tokens/sec ratio")
+    p.add_argument("--serve-scaling-attempts", type=int, default=2,
+                   help="best-of-N runs per scaling leg")
+    p.add_argument("--frontends", type=int, default=0,
+                   dest="serve_frontends",
+                   help="sharded front door: run the workload with F "
+                   "frontend ingest shards; F>1 also runs an F=1 leg on "
+                   "the same trace and embeds the comparison")
+    p.add_argument("--seed", type=int, default=42,
+                   help="seed of the serving trace (arrival gaps, prompt "
+                   "lengths and tokens, budgets)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (a check of the path; its numbers "
                    "are no device's)")
@@ -146,9 +199,10 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _check_ported(args) -> None:
-    if args.serve:
+    if args.serve and args.serve_width > 1:
         raise NotImplementedError(
-            "--serve is not ported yet (ROADMAP A12b: the serving plane)")
+            "--serve-width > 1 is not ported yet (ROADMAP A11: tensor "
+            "parallelism)")
     if args.moe_experts:
         raise NotImplementedError(
             "--moe-experts is not ported yet (ROADMAP A11)")
@@ -252,6 +306,305 @@ def run(args) -> dict:
     return record
 
 
+# seconds one serving run may take, start-up included
+SERVE_TIMEOUT = 900.0
+
+# The reference's serving-bench model (root bench.py:689-692): gpt-nano
+# cut to 2 layers, 4 heads, emb 64, vocab 512, fp32.
+SERVE_NANO = dict(num_layers=2, num_heads=4, emb_dim=64, max_len=256,
+                  vocab_size=512, attention_impl="reference",
+                  dtype=torch.float32)
+
+
+def serve_spec(args) -> dict:
+    """The fleet's spec: ``--model`` (gpt-nano is the reference's serving
+    model, ``SERVE_NANO``; the others at full width and depth in
+    ``--dtype``), with the pool and page flags."""
+    size = args.model[len("gpt-"):]
+    if size == "nano":
+        overrides = dict(SERVE_NANO)
+    else:
+        overrides = {"attention_impl": "reference",
+                     "dtype": {"bf16": torch.bfloat16,
+                               "fp32": torch.float32}[args.dtype]}
+    spec = {"size": size, "overrides": overrides, "seed": 0,
+            "num_slots": args.serve_slots, "idle_secs": 0.005,
+            # Stream batching at 8: the first token still publishes
+            # immediately (ttft is real), steady-state streaming costs
+            # half the signed puts.
+            "stream_every": 8,
+            "kv_mode": args.serve_kv_mode,
+            "page_size": args.serve_page_size}
+    if args.serve_kv_pages:
+        spec["kv_pages"] = args.serve_kv_pages
+    if args.cpu:
+        spec["device"] = "cpu"
+    return spec
+
+
+def serve_trace(args, vocab: int):
+    """``(gaps, prompts, budgets)`` of the open-loop trace from ``--seed``:
+    exponential gaps at ``--serve-rate``, prompts of 16-48 tokens, budgets
+    16-32 (the reference's mix)."""
+    import numpy as np
+
+    n = args.serve_requests
+    rng = np.random.RandomState(args.seed)
+    gaps = rng.exponential(1.0 / args.serve_rate, n)
+    prompts = [rng.randint(0, vocab, rng.randint(16, 49)).tolist()
+               for _ in range(n)]
+    budgets = [int(rng.randint(16, 33)) for _ in range(n)]
+    return gaps, prompts, budgets
+
+
+def _pct(xs, q):
+    import numpy as np
+
+    return round(float(np.percentile(xs, q)), 2) if xs else None
+
+
+def _run_serve_load(args, np_: int, width: int, frontends: int = 1) -> dict:
+    """One fleet under one open-loop workload (the reference's
+    ``_run_serve_load``): launch ``np_`` serving ranks (``width`` >= 1:
+    np_//width serving groups), submit the trace, and measure ttft, tpot,
+    tokens/s and requests/s on the client clock.  Returns the raw
+    measurement the record (or the scaling comparison) embeds."""
+    import threading
+
+    from .models import GPT_CONFIGS
+    from .serve import ServeJob
+
+    spec = serve_spec(args)
+    spec["width"] = width
+    spec["frontends"] = max(int(frontends), 1)
+    size = spec["size"]
+    vocab = spec["overrides"].get("vocab_size",
+                                  GPT_CONFIGS[size].vocab_size)
+    # one intra-op thread a CPU worker: the fleet's processes share the
+    # host, and a scaling comparison must not measure their contention
+    env = {"OMP_NUM_THREADS": "1"} if args.cpu else None
+    gaps, prompts, budgets = serve_trace(args, vocab)
+    n_req = args.serve_requests
+    job = ServeJob(spec, np=np_, env=env, timeout=SERVE_TIMEOUT).start()
+    deadline = time.monotonic() + SERVE_TIMEOUT
+    # Warm-up outside the measured window: one request per prompt bucket
+    # the trace hits (16/32/64), on every group.
+    groups = max(np_ // width, 1) if width else 1
+    warm = [job.client.submit([7] * warm_len, max_new_tokens=9)
+            for warm_len in (10, 20, 40) for _ in range(groups)]
+    submit_t: dict = {}
+    rids: list = []
+    fd_stats: dict = {}
+    try:
+        for rid in warm:
+            job.client.result(rid, timeout=max(deadline - time.monotonic(),
+                                               1.0))
+
+        def _submitter():
+            t = time.perf_counter()
+            for i in range(n_req):
+                t += gaps[i]
+                now = time.perf_counter()
+                if t > now:
+                    time.sleep(t - now)
+                rid = job.client.submit(prompts[i],
+                                        max_new_tokens=budgets[i])
+                submit_t[rid] = time.perf_counter()
+                rids.append(rid)
+
+        sub = threading.Thread(target=_submitter, daemon=True)
+        t_start = time.perf_counter()
+        t_start_wall = time.time()
+        sub.start()
+        first_t: dict = {}
+        done: dict = {}
+        while len(done) < n_req:
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"serve bench: {len(done)}/{n_req} requests finished "
+                    f"within {SERVE_TIMEOUT} s")
+            for rid in list(rids):
+                if rid in done:
+                    continue
+                doc = job.client.poll(rid)
+                if doc is None:
+                    continue
+                if doc.get("tokens") and rid not in first_t:
+                    first_t[rid] = time.perf_counter()
+                if doc.get("done"):
+                    done[rid] = (time.perf_counter(),
+                                 len(doc.get("tokens", [])),
+                                 doc.get("t_done"))
+            # a sweep costs the store a signed get per pending request:
+            # sweeping again at once would make this client the store's
+            # biggest tenant
+            time.sleep(0.01)
+        sub.join(timeout=10)
+        total_tokens = sum(n for _, n, _ in done.values())
+        # Throughput from the leaders' completion stamps against the
+        # client's submit clock (one host, one clock): the client's own
+        # polling cadence would otherwise be the largest term.
+        server_ends = [t for _, _, t in done.values() if t]
+        if server_ends:
+            elapsed = max(server_ends) - t_start_wall
+        else:
+            elapsed = max(t for t, _, _ in done.values()) - t_start
+        # Sustained rate: tokens completed in the p20-p80 completion
+        # window over its duration (ramp and drain excluded).
+        sustained = None
+        if len(server_ends) >= 10:
+            ends = sorted((t, n) for _, n, t in done.values() if t)
+            lo = ends[int(len(ends) * 0.2)][0]
+            hi = ends[int(len(ends) * 0.8)][0]
+            mid_tokens = sum(n for t, n in ends if lo < t <= hi)
+            if hi > lo:
+                sustained = mid_tokens / (hi - lo)
+        ttft = [(first_t[r] - submit_t[r]) * 1000.0
+                for r in rids if r in first_t]
+        tpot = [(done[r][0] - first_t[r]) / max(done[r][1] - 1, 1) * 1000.0
+                for r in rids if r in first_t and done[r][1] > 1]
+        results, _ = job.stop(timeout=max(deadline - time.monotonic(), 30))
+        fd_stats = job.front_door.stats()
+    finally:
+        job.shutdown()
+
+    meas = {
+        "np": np_,
+        "width": width,
+        "frontends": max(int(frontends), 1),
+        "groups": groups,
+        "slots": args.serve_slots,
+        "requests": n_req,
+        "arrival_rate_per_sec": args.serve_rate,
+        "total_tokens": total_tokens,
+        "elapsed_s": elapsed,
+        "tokens_per_sec": round(total_tokens / max(elapsed, 1e-9), 2),
+        "requests_per_sec": round(n_req / max(elapsed, 1e-9), 3),
+        "sustained_tokens_per_sec": (round(sustained, 2)
+                                     if sustained else None),
+        "ttft_ms": {"p50": _pct(ttft, 50), "p90": _pct(ttft, 90),
+                    "p99": _pct(ttft, 99)},
+        "tpot_ms": {"p50": _pct(tpot, 50), "p90": _pct(tpot, 90),
+                    "p99": _pct(tpot, 99)},
+    }
+    if fd_stats:
+        meas["frontdoor"] = {
+            "frontends": fd_stats.get("frontends"),
+            "fd_epoch": fd_stats.get("fd_epoch"),
+            "takeovers": fd_stats.get("takeovers"),
+            "ingested_by_shard": {
+                str(s): n for s, n in sorted(
+                    (fd_stats.get("ingested_by_shard") or {}).items())},
+        }
+    ranks = sorted(results or {})
+    meas["_results"] = results or {}
+    if ranks:
+        meas["completed_per_rank"] = {
+            str(r): results[r]["completed"] for r in ranks}
+        meas["admitted_while_busy"] = max(
+            results[r].get("admitted_while_busy", 0) for r in ranks)
+        kvs = [results[r]["kv"] for r in ranks if results[r].get("kv")]
+        if kvs:
+            meas["kv"] = {
+                "mode": kvs[0].get("mode"),
+                "waste_ratio_mean": round(max(
+                    k.get("waste_ratio_mean", 0.0) for k in kvs), 4),
+                "contiguous_equiv_waste_mean": round(max(
+                    k.get("contiguous_equiv_waste_mean", 0.0)
+                    for k in kvs), 4),
+                "page_size": kvs[0].get("page_size"),
+                "num_pages": kvs[0].get("num_pages"),
+                "pool_bytes": kvs[0].get("pool_bytes"),
+            }
+    return meas
+
+
+def serve_main(args) -> dict:
+    """``--serve`` (the reference's ``_serve_bench``): one fleet under the
+    open-loop trace, or the front-door comparison (``--frontends`` F > 1:
+    the same trace through one pump and through F), or ``--serve-scaling``
+    (np = w and 2w, best of ``--serve-scaling-attempts`` each).  The
+    record."""
+    width = int(args.serve_width or 0)
+    fd = max(int(args.serve_frontends or 0), 0)
+    scaling = frontdoor_scaling = None
+    where = "cpu" if args.cpu else "device measurement"
+    if fd > 1 and not args.serve_scaling:
+        single = _run_serve_load(args, args.serve_np, width, frontends=1)
+        single.pop("_results", None)
+        main = _run_serve_load(args, args.serve_np, width, frontends=fd)
+        results = main.pop("_results")
+        frontdoor_scaling = {
+            "f1": {k: v for k, v in single.items()
+                   if k != "completed_per_rank"},
+            f"f{fd}": {k: v for k, v in main.items()
+                       if k != "completed_per_rank"},
+            "tokens_per_sec_ratio": round(
+                main["tokens_per_sec"] / max(single["tokens_per_sec"],
+                                             1e-9), 3),
+            "provenance": where,
+        }
+    elif args.serve_scaling:
+        w = max(width, 1)
+        attempts = max(int(args.serve_scaling_attempts), 1)
+
+        def _rate(m):
+            return m["sustained_tokens_per_sec"] or m["tokens_per_sec"]
+
+        base = max((_run_serve_load(args, w, w) for _ in range(attempts)),
+                   key=_rate)
+        doubled = max((_run_serve_load(args, 2 * w, w)
+                       for _ in range(attempts)), key=_rate)
+        both = (base["sustained_tokens_per_sec"] is not None
+                and doubled["sustained_tokens_per_sec"] is not None)
+        main, results = doubled, doubled.pop("_results")
+        base.pop("_results", None)
+        scaling = {
+            "np_w": {k: v for k, v in base.items()
+                     if k != "completed_per_rank"},
+            "np_2w": {k: v for k, v in doubled.items()
+                      if k != "completed_per_rank"},
+            "tokens_per_sec_ratio": round(
+                _rate(doubled) / max(_rate(base), 1e-9), 3),
+            "ratio_basis": ("sustained (p20-p80 completion window)"
+                            if both else "makespan tokens_per_sec"),
+            "best_of": attempts,
+            "provenance": where,
+        }
+    else:
+        main = _run_serve_load(args, args.serve_np, width,
+                               frontends=max(fd, 1))
+        results = main.pop("_results")
+    size = args.model[len("gpt-"):]
+    out = {
+        "metric": f"serve_{size}_tokens_per_sec",
+        "value": main["tokens_per_sec"],
+        "unit": "tokens/sec",
+        "device": ("cpu" if args.cpu
+                   else torch.cuda.get_device_name(0)),
+        "dtype": "fp32" if size == "nano" else args.dtype,
+        "seed": args.seed,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "serve": main,
+    }
+    if scaling is not None:
+        out["serve"]["scaling"] = scaling
+    if frontdoor_scaling is not None:
+        out["serve"]["frontdoor_scaling"] = frontdoor_scaling
+    ranks = sorted(results or {})
+    if ranks:
+        mem = results[ranks[0]].get("memory")
+        if mem:
+            out["memory"] = mem
+        sched = results[ranks[0]].get("sched_ms") or []
+        out["serve"]["sched_ms_median"] = (
+            _pct(sched, 50) if sched else None)
+    if args.cpu:
+        out["degraded"] = True
+    return out
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.overlap is None:
@@ -262,6 +615,14 @@ def main(argv=None) -> int:
     if args.batch_size is None:
         args.batch_size = 8 if args.model.startswith("gpt-") else 128
     _check_ported(args)
+    if args.serve:
+        if not args.model.startswith("gpt-"):
+            raise SystemExit("--serve serves a GPT model (--model gpt-*)")
+        if not args.cpu and not torch.cuda.is_available():
+            raise SystemExit("--serve: no CUDA device is visible; pass "
+                             "--cpu to serve on the CPU")
+        print(json.dumps(serve_main(args)), flush=True)
+        return 0
     from . import basics
 
     try:

@@ -33,8 +33,9 @@ Minimal elastic training loop::
 
         return loop(state)
 
-Importing this package needs no cloudpickle: only :func:`launch` (and
-its worker), which ship a function, import it.
+Importing this package needs no cloudpickle: ``run/api.py`` imports it
+only to ship a function by value (:func:`launch`), and only where it is
+installed.
 """
 
 from .context import (  # noqa: F401

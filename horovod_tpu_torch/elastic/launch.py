@@ -4,55 +4,29 @@ port of ``horovod_tpu/elastic/launch.py``).
 Pickles the function into the launcher's rendezvous store, drives
 ``run/runner.py:launch_elastic_job`` (failure detection, blacklist,
 respawn, epoch minting), and collects per-rank results from the ranks
-that survived to the final world.  The function travels by cloudpickle,
-imported inside :func:`launch` only: the rest of the package works
-without it.
+that survived to the final world.
 
 Returns ``(results, job)`` where ``results`` maps rank -> value for
 every rank of the final world (a shrunken job returns fewer entries)
 and ``job`` is the :class:`~..run.runner.ElasticJobResult` whose
 ``trace`` is the deterministic recovery event list chaos tests compare
-across runs.
+across runs.  The function travels as ``run/api.py``'s ``_pickle_func``
+ships it (cloudpickle only where a function must travel by value).
 """
 
 from __future__ import annotations
 
+import pickle
 import sys
 from typing import Any, Dict, Optional, Tuple
 
+from ..run.api import _pickle_func
 from ..run.rendezvous import KVStoreClient, KVStoreServer
 from ..run.runner import ElasticJobResult, launch_elastic_job
 
 _SCOPE = "elastic"
 
 __all__ = ["launch"]
-
-
-def _pickle_func(func, args, kwargs) -> bytes:
-    """Serialize by value when the defining module won't be importable in
-    the workers (a test file, a script outside PYTHONPATH): the copy of
-    ``horovod_tpu/run/api.py``'s ``_pickle_func``."""
-    import cloudpickle  # noqa: PLC0415
-
-    module_name = getattr(func, "__module__", None)
-    module = sys.modules.get(module_name) if module_name else None
-    registered = False
-    if (
-        module is not None
-        and module_name not in ("__main__", "builtins")
-        and not module_name.startswith("horovod_tpu")
-        and module_name not in sys.stdlib_module_names
-    ):
-        try:
-            cloudpickle.register_pickle_by_value(module)
-            registered = True
-        except Exception:
-            pass
-    try:
-        return cloudpickle.dumps((func, args, kwargs))
-    finally:
-        if registered:
-            cloudpickle.unregister_pickle_by_value(module)
 
 
 def launch(
@@ -82,8 +56,6 @@ def launch(
     raises :class:`NotPortedError` when set (ROADMAP A13: the launcher
     has no flight recorder to give the window to).
     """
-    import cloudpickle  # noqa: PLC0415
-
     from ..run.allocate import is_local_host  # noqa: PLC0415
     from ..run.runner import _resolve_host_slots  # noqa: PLC0415
 
@@ -114,7 +86,7 @@ def launch(
         results: Dict[int, Any] = {}
         for rank in job.world:
             blob = kv.wait(_SCOPE, f"result_{rank}", timeout=30)
-            ok, value = cloudpickle.loads(blob)
+            ok, value = pickle.loads(blob)
             if not ok:  # pragma: no cover - monitor aborts first
                 raise RuntimeError(f"rank {rank} raised:\n{value}")
             results[rank] = value

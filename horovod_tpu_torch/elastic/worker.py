@@ -7,9 +7,10 @@ built from the spawn env before the user function runs, the heartbeat
 starts at once (so the launcher can tell "slow to import" from "hung"),
 and failure *results* are posted under an epoch-qualified key so the
 launcher can tell a user exception (abort the job, surface the
-traceback) from a crash (respawn the rank).  The function and its result
-travel as cloudpickles, imported here and not at module level: command
-mode (``python -m horovod_tpu_torch.run --elastic ... cmd``) needs none.
+traceback) from a crash (respawn the rank).  The function is read with
+``pickle`` (what ``cloudpickle.loads`` is; a function shipped by value
+imports cloudpickle as it unpickles) and the result is written by
+``run/api.py``'s ``_dumps`` (cloudpickle where it is installed).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ _SCOPE = "elastic"
 
 
 def main() -> int:
-    import cloudpickle  # noqa: PLC0415
+    from ..run.api import _dumps  # noqa: PLC0415
 
     ctx = _set_ambient()
     if not isinstance(ctx, ElasticContext):  # pragma: no cover - misuse
@@ -37,11 +38,10 @@ def main() -> int:
     ctx.start_heartbeat()
     maybe_fail("task_fn", rank=ctx.rank)
     blob = ctx.kv.wait(_SCOPE, "func", timeout=60)
-    func, args, kwargs = cloudpickle.loads(blob)
+    func, args, kwargs = pickle.loads(blob)
     try:
         result = func(*args, **kwargs)
-        ctx.kv.put(_SCOPE, f"result_{ctx.rank}",
-                   cloudpickle.dumps((True, result)))
+        ctx.kv.put(_SCOPE, f"result_{ctx.rank}", _dumps((True, result)))
         return 0
     except HorovodShutdownError:
         # World breakage that outlived the elastic retry budget (or a

@@ -82,33 +82,40 @@ _ARG_ENV_MAP = {
         "autotune.drift-samples",
     ),
     "log_level": (envmod.LOG_LEVEL, "logging.level"),
+    "serve_model": (envmod.SERVE_MODEL, "serve.model"),
+    "serve_slots": (envmod.SERVE_SLOTS, "serve.slots"),
+    "serve_max_len": (envmod.SERVE_MAX_LEN, "serve.max-len"),
+    "serve_seed": (envmod.SERVE_SEED, "serve.seed"),
+    "serve_kv_mode": (envmod.SERVE_KV_MODE, "serve.kv-mode"),
+    "serve_page_size": (envmod.SERVE_PAGE_SIZE, "serve.page-size"),
+    "serve_kv_pages": (envmod.SERVE_KV_PAGES, "serve.kv-pages"),
+    "serve_weights_dir": (envmod.SERVE_WEIGHTS_DIR, "serve.weights-dir"),
+    "serve_swap_poll_steps": (
+        envmod.SERVE_SWAP_POLL_STEPS,
+        "serve.swap-poll-steps",
+    ),
+    "serve_frontends": (envmod.SERVE_FRONTENDS, "serve.frontends"),
+    "serve_tenant_budget": (
+        envmod.SERVE_TENANT_BUDGET,
+        "serve.tenant-budget",
+    ),
+    "slo_ttft_ms": (envmod.SERVE_SLO_TTFT_MS, "serve.slo-ttft-ms"),
+    "slo_tpot_ms": (envmod.SERVE_SLO_TPOT_MS, "serve.slo-tpot-ms"),
+    "slo_objective": (envmod.SERVE_SLO_OBJECTIVE, "serve.slo-objective"),
+    "slo_class": (envmod.SERVE_SLO_CLASS, "serve.slo-class"),
 }
 
-_SERVE = ("A12b", "the serving plane")
 _OBS = ("A13", "the observability planes")
+_AUTOSCALE = ("A13", "serving autoscale, whose controller reads the live "
+              "telemetry plane")
 # The reference's knobs whose planes are not ported: arg attribute ->
 # (yaml section.key or None, ROADMAP item, plane).  Setting one, on the
 # command line or in a config file, raises NotPortedError before anything
 # spawns (runner.check_ported); none is accepted and then ignored.
 NOT_PORTED_KNOBS = {
-    **{attr: (key, *_SERVE) for attr, key in (
-        ("serve", None),
-        ("serve_model", "serve.model"),
-        ("serve_slots", "serve.slots"),
-        ("serve_max_len", "serve.max-len"),
-        ("serve_seed", "serve.seed"),
-        ("serve_kv_mode", "serve.kv-mode"),
-        ("serve_page_size", "serve.page-size"),
-        ("serve_kv_pages", "serve.kv-pages"),
-        ("serve_width", "serve.width"),
-        ("serve_weights_dir", "serve.weights-dir"),
-        ("serve_swap_poll_steps", "serve.swap-poll-steps"),
-        ("serve_frontends", "serve.frontends"),
-        ("serve_tenant_budget", "serve.tenant-budget"),
-        ("slo_ttft_ms", "serve.slo-ttft-ms"),
-        ("slo_tpot_ms", "serve.slo-tpot-ms"),
-        ("slo_objective", "serve.slo-objective"),
-        ("slo_class", "serve.slo-class"),
+    "serve_width": ("serve.width", "A11", "width-sharded serving fleets "
+                    "(tensor parallelism)"),
+    **{attr: (key, *_AUTOSCALE) for attr, key in (
         ("serve_autoscale", "serve.autoscale"),
         ("max_workers", "serve.max-workers"),
         ("scale_up_queue", "serve.scale-up-queue"),
@@ -131,7 +138,6 @@ NOT_PORTED_KNOBS = {
     )},
     "dump_grace_secs": (None, "A13", "the flight recorder's dump before "
                         "a hung rank is killed"),
-    "discover_nics": (None, "1b", "NIC discovery (run/driver_service.py)"),
 }
 
 

@@ -18,8 +18,12 @@ blacklists hosts and respawns ranks into a re-minted epoch.
 
 Every runtime knob maps onto an ``HVDTPU_*`` env var for all ranks
 (``config_parser.py``); a YAML ``--config-file`` layers under explicit CLI
-flags.  The reference's flags whose planes the port does not carry (the
-serving plane, the observability planes, NIC discovery) parse, and raise
+flags.  ``--serve`` (which implies ``--elastic``) runs a serving fleet:
+the launcher's front door ingests client requests into the store, and each
+rank runs ``python -m horovod_tpu_torch.serve`` unless a command is given.
+``--discover-nics`` prints the interfaces every host can reach.  The
+reference's flags whose planes the port does not carry (width-sharded
+serving, serving autoscale, the observability planes) parse, and raise
 :class:`~horovod_tpu_torch.exceptions.NotPortedError` naming their ROADMAP
 item before anything spawns.
 """
@@ -54,8 +58,9 @@ DEFAULT_COORDINATOR_PORT = 29500
 # and the ones torch, CUDA and NCCL read
 TRAVEL_ENV = ("HVDTPU_", "CUDA_", "NCCL_", "TORCH_")
 
-__all__ = ["parse_args", "check_ported", "check_build", "build_slot_env",
-           "launch_job", "launch_elastic_job", "ElasticJobResult", "main"]
+__all__ = ["parse_args", "check_ported", "check_build", "discover_nics",
+           "build_slot_env", "launch_job", "launch_elastic_job",
+           "ElasticJobResult", "main"]
 
 
 def _not_ported(parser, flags: List[str], **kwargs) -> None:
@@ -115,8 +120,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="Print the capability report and exit (reference "
              "runner.py:115-150).",
     )
-    _not_ported(parser, ["--discover-nics"], action="store_true",
-                dest="discover_nics")
+    parser.add_argument(
+        "--discover-nics", action="store_true", dest="discover_nics",
+        help="Start a task server on every host (-H/--hostfile), ring-probe "
+             "interface reachability, print the NICs usable by every host, "
+             "and exit (reference driver/task NIC discovery, "
+             "driver_service.py:128-197).",
+    )
     parser.add_argument("--verbose", action="store_true", dest="verbose")
 
     elastic = parser.add_argument_group("elastic fault tolerance")
@@ -214,25 +224,80 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
              "epoch opens (default 50).",
     )
 
-    serve = parser.add_argument_group("serving (not ported: ROADMAP A12b)")
-    _not_ported(serve, ["--serve"], action="store_true", dest="serve")
-    for flag, kind in (("--serve-model", str), ("--serve-slots", int),
-                       ("--serve-max-len", int), ("--serve-seed", int),
-                       ("--serve-width", int), ("--serve-page-size", int),
-                       ("--serve-kv-pages", int), ("--serve-kv-mode", str),
-                       ("--serve-weights-dir", str),
-                       ("--serve-swap-poll-steps", int),
-                       ("--serve-tenant-budget", int),
-                       ("--slo-ttft-ms", float), ("--slo-tpot-ms", float),
-                       ("--slo-objective", float), ("--slo-class", str),
-                       ("--scale-up-queue", int),
+    serve = parser.add_argument_group("serving")
+    serve.add_argument(
+        "--serve", action="store_true", dest="serve",
+        help="Serving mode: implies --elastic, arms the request ingest "
+             "front door on the rendezvous store (clients submit over the "
+             "signed KV protocol, horovod_tpu_torch.serve.ServeClient), and "
+             "defaults the worker command to `python -m "
+             "horovod_tpu_torch.serve` — a continuous-batching inference "
+             "fleet where a dead rank respawns and replays its in-flight "
+             "requests instead of dropping traffic.",
+    )
+    for flag, kind, help_ in (
+            ("--serve-model", str, "gpt() model family entry every serving "
+             "rank builds (HVDTPU_SERVE_MODEL, default nano)."),
+            ("--serve-slots", int, "Decode slot pool size per rank — the "
+             "max simultaneous in-flight requests (HVDTPU_SERVE_SLOTS, "
+             "default 4)."),
+            ("--serve-max-len", int, "Slot KV-cache length in tokens "
+             "(HVDTPU_SERVE_MAX_LEN; default: the model's max_len)."),
+            ("--serve-seed", int, "Weights init seed AND the per-request "
+             "sampling root — identical on every rank by construction "
+             "(HVDTPU_SERVE_SEED, default 0)."),
+            ("--serve-page-size", int, "KV page size in token rows "
+             "(HVDTPU_SERVE_PAGE_SIZE, default 16)."),
+            ("--serve-kv-pages", int, "KV page-pool size "
+             "(HVDTPU_SERVE_KV_PAGES; default: the worst case, slots x "
+             "pages-per-slot).  Admission capacity is judged in free "
+             "pages."),
+            ("--serve-weights-dir", str, "Weight hot-swap source "
+             "(HVDTPU_SERVE_WEIGHTS_DIR): a sharded-checkpoint directory "
+             "versions are published into "
+             "(horovod_tpu_torch.serve.publish_weights).  The fleet polls "
+             "it between decode steps and flips on a version-stamped step; "
+             "a failed or dying swap rolls the whole fleet back."),
+            ("--serve-swap-poll-steps", int, "Serving steps between "
+             "hot-swap manifest polls (HVDTPU_SERVE_SWAP_POLL_STEPS, "
+             "default 16)."),
+            ("--serve-tenant-budget", int, "Tenant-aware admission "
+             "(HVDTPU_SERVE_TENANT_BUDGET, default off = plain FCFS): "
+             "per-tenant token budget per scheduling window."),
+            ("--slo-ttft-ms", float, "Time-to-first-token SLO ceiling in "
+             "ms for --slo-class requests (HVDTPU_SERVE_SLO_TTFT_MS)."),
+            ("--slo-tpot-ms", float, "Per-output-token SLO ceiling in ms "
+             "for --slo-class requests (HVDTPU_SERVE_SLO_TPOT_MS)."),
+            ("--slo-objective", float, "Fraction of requests that must "
+             "meet the SLO ceilings (HVDTPU_SERVE_SLO_OBJECTIVE, default "
+             "0.99)."),
+            ("--slo-class", str, "Which SLO class the ceilings apply to "
+             "(HVDTPU_SERVE_SLO_CLASS, default interactive).")):
+        serve.add_argument(flag, type=kind, action=_StoreOverrideAction,
+                           dest=flag[2:].replace("-", "_"), default=None,
+                           help=help_)
+    serve.add_argument(
+        "--serve-kv-mode", action=_StoreOverrideAction,
+        dest="serve_kv_mode", default=None, choices=["paged", "contiguous"],
+        help="KV cache layout (HVDTPU_SERVE_KV_MODE, default paged).",
+    )
+    serve.add_argument(
+        "--frontends", type=int, action=_StoreOverrideAction,
+        dest="serve_frontends", default=None,
+        help="Front-door shard count F (HVDTPU_SERVE_FRONTENDS, default "
+             "1): F launcher-resident ingest pumps each own the "
+             "request-log partition crc32(rid) %% F; clients route by the "
+             "same hash.  A dead frontend's shards are adopted by the "
+             "lowest survivor and the serving epoch is re-minted.",
+    )
+    _not_ported(serve, ["--serve-width"], type=int, dest="serve_width")
+    _not_ported(serve, ["--serve-autoscale"], action="store_true",
+                dest="serve_autoscale")
+    for flag, kind in (("--scale-up-queue", int),
                        ("--scale-down-idle-secs", float),
                        ("--scale-cooldown-secs", float)):
         _not_ported(serve, [flag], type=kind,
                     dest=flag[2:].replace("-", "_"))
-    _not_ported(serve, ["--frontends"], type=int, dest="serve_frontends")
-    _not_ported(serve, ["--serve-autoscale"], action="store_true",
-                dest="serve_autoscale")
 
     ckpt = parser.add_argument_group("checkpointing")
     ckpt.add_argument(
@@ -352,8 +417,6 @@ def check_ported(args: argparse.Namespace) -> None:
         value = getattr(args, attr, None)
         if value is not None and value is not False:  # 0 is a setting
             flag = "--" + attr.replace("_", "-")
-            if attr == "serve_frontends":
-                flag = "--frontends"
             raise NotPortedError(
                 f"hvdrun {flag} is not ported yet (ROADMAP {item}: {plane})")
 
@@ -397,7 +460,7 @@ def check_build() -> str:
         f"{kernels.build_dir()})",
         "    [X] eager per-op engine (negotiation, fusion, join, timeline)",
         "    [X] elastic launcher, KV rendezvous, checkpoint tiers",
-        "    [ ] serving plane (ROADMAP A12b)",
+        "    [X] serving plane (continuous-batching inference, --serve)",
     ]
     return "\n".join(lines)
 
@@ -411,13 +474,112 @@ def _pick_free_port() -> int:
 def _resolve_host_slots(
     hosts: Optional[str], hostfile: Optional[str], default: str
 ):
-    """hosts/hostfile/default cascade (reference hostfile/LSF
-    resolution, runner.py:552-627)."""
+    """hosts/hostfile/default cascade shared by the launchers and
+    :func:`discover_nics` (reference hostfile/LSF resolution,
+    runner.py:552-627)."""
     if hostfile:
         return parse_hostfile(hostfile)
     if hosts:
         return parse_hosts(hosts)
     return parse_hosts(default)
+
+
+def _read_port_line(p, deadline: float) -> Optional[int]:
+    """Read the HVDTPU_TASK_PORT= line with a real deadline — readline has
+    no timeout, so it runs on a reaper thread joined with the remaining
+    time (a hung ssh channel must not wedge discovery)."""
+    import threading  # noqa: PLC0415
+
+    result: List[Optional[int]] = [None]
+
+    def reader():
+        while True:
+            line = p.stdout.readline()
+            if not line:
+                return
+            if line.startswith(b"HVDTPU_TASK_PORT="):
+                result[0] = int(line.strip().split(b"=", 1)[1])
+                return
+
+    t = threading.Thread(target=reader, daemon=True)
+    t.start()
+    t.join(max(deadline - time.time(), 0.1))
+    return result[0]
+
+
+def discover_nics(
+    hosts: Optional[str] = None,
+    hostfile: Optional[str] = None,
+    *,
+    ssh_port: Optional[int] = None,
+    timeout: float = 30.0,
+) -> List[str]:
+    """Start a task server on every job host, ring-probe reachability,
+    return the interfaces usable by all (reference _run's NIC discovery,
+    runner.py:552-627 + driver/driver_service.py:128-197)."""
+    import subprocess  # noqa: PLC0415
+
+    from . import driver_service as ds  # noqa: PLC0415
+
+    host_slots = _resolve_host_slots(hosts, hostfile, "localhost:1")
+    hostnames = [hs.hostname for hs in host_slots]
+
+    key = ds.make_secret()
+    server_cmd = [sys.executable, "-m", "horovod_tpu_torch.run.driver_service"]
+    procs: List[subprocess.Popen] = []
+    tasks: List[tuple] = []
+    try:
+        for host in hostnames:
+            # Binary pipes throughout (like exec.py's ProcessSet.launch):
+            # make_ssh_command returns bytes stdin_data, and mixing
+            # text=True with bytes writes raises TypeError.
+            if is_local_host(host):
+                p = subprocess.Popen(
+                    server_cmd,
+                    env={**os.environ, "HVDTPU_NIC_SECRET": key},
+                    stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                )
+            else:
+                # The secret travels over the ssh channel's stdin
+                # (SENSITIVE_ENV), never on the command line.
+                cmd, stdin_data = make_ssh_command(
+                    host, server_cmd, {"HVDTPU_NIC_SECRET": key}, ssh_port
+                )
+                p = subprocess.Popen(
+                    cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                )
+                if stdin_data:
+                    p.stdin.write(stdin_data)
+                    p.stdin.flush()
+            procs.append(p)
+        deadline = time.time() + timeout
+        for host, p in zip(hostnames, procs):
+            port = _read_port_line(p, deadline)
+            if port is None:
+                raise RuntimeError(f"task server on {host} did not report a port")
+            tasks.append((host if not is_local_host(host) else "127.0.0.1",
+                          port))
+        return ds.discover_common_interfaces(tasks, key)
+    finally:
+        for p in procs:
+            try:
+                p.stdin.close()  # task server exits on stdin EOF
+            except OSError:
+                pass
+            try:
+                p.terminate()
+            except OSError:
+                pass
+        for p in procs:
+            # Reap: without wait() a long-lived caller of the Python API
+            # accumulates zombies (the CLI path exits so it never noticed).
+            try:
+                p.wait(timeout=2.0)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            except OSError:
+                pass
 
 
 def build_slot_env(
@@ -592,30 +754,35 @@ def launch_elastic_job(
     A rank declared dead is killed at once (SIGKILL to its process
     group).
     ``kv_server``: a caller-started rendezvous server already seeded
-    with job payloads (the ``elastic.launch`` path); created and stopped
-    here when None.
+    with job payloads (the ``elastic.launch`` and ``ServeJob`` paths);
+    created and stopped here when None, with the secret of
+    ``HVDTPU_SECRET`` when the launcher's environment sets it (so the
+    process that started a serving launcher can submit requests as a
+    client), else a fresh one.
+    ``serve_ingest``: serving mode (``--serve``): a launcher-resident
+    :class:`~..serve.frontend.FrontDoor` of ``serve_frontends`` ingest
+    pumps orders client submissions into the store's request logs, which
+    the serving leaders drain; a frontend takeover re-mints the epoch, so
+    every rank replays in-flight requests from the logs.  ``front_door``:
+    a caller-built door on this store (``ServeJob``), adopted for
+    takeovers and left to its owner to stop.
 
     The reference's keywords of unported planes raise
     :class:`NotPortedError` when set: ``dump_grace_secs`` (A13: the
     window in which the flight recorder dumps before the kill),
-    ``max_workers``, ``autoscale``,
-    ``serve_ingest``, ``serve_frontends`` and ``front_door`` (ROADMAP
-    A12b, the serving plane), ``live_stats_secs`` and ``live_history``
-    (A13, the live telemetry plane).
+    ``max_workers`` and ``autoscale`` (A13: serving autoscale, whose
+    controller reads the live telemetry plane), ``live_stats_secs`` and
+    ``live_history`` (A13, the live telemetry plane).
     """
-    for name, value, idle, item in (
-            ("max_workers", max_workers, None, "A12b"),
-            ("autoscale", autoscale, None, "A12b"),
-            ("serve_ingest", serve_ingest, False, "A12b"),
-            ("serve_frontends", serve_frontends, 1, "A12b"),
-            ("front_door", front_door, None, "A12b"),
-            ("live_stats_secs", live_stats_secs, None, "A13"),
-            ("live_history", live_history, None, "A13"),
-            ("dump_grace_secs", dump_grace_secs, None, "A13")):
-        if value != idle:
+    for name, value in (("max_workers", max_workers),
+                        ("autoscale", autoscale),
+                        ("live_stats_secs", live_stats_secs),
+                        ("live_history", live_history),
+                        ("dump_grace_secs", dump_grace_secs)):
+        if value is not None:
             raise NotPortedError(
                 f"launch_elastic_job({name}=...) is not ported yet "
-                f"(ROADMAP {item})")
+                f"(ROADMAP A13)")
     from .._obs import get_registry  # noqa: PLC0415
     from .._obs.progress import ProgressPolicy, beat_epoch  # noqa: PLC0415
     from .rendezvous import (  # noqa: PLC0415
@@ -641,7 +808,8 @@ def launch_elastic_job(
 
     owns_server = kv_server is None
     if owns_server:
-        kv_server = KVStoreServer(bind_all=not all_local)
+        kv_server = KVStoreServer(bind_all=not all_local,
+                                  secret=os.environ.get(SECRET_ENV) or None)
         kv_server.start()
     port = kv_server.port
     kv = KVStoreClient(f"127.0.0.1:{port}", kv_server.secret)
@@ -661,6 +829,26 @@ def launch_elastic_job(
     base_env["HVDTPU_ELASTIC_KV"] = kv_addr
     if output_filename:
         os.makedirs(output_filename, exist_ok=True)
+
+    # Serving mode: the request front end rides the same store — the
+    # launcher-resident front door (serve/frontend.py) totally orders
+    # client submissions into the per-shard request logs the serving
+    # leaders drain.
+    ingest_pump = front_door
+    owns_front_door = False
+    if serve_ingest and ingest_pump is None:
+        from ..serve.frontend import FrontDoor  # noqa: PLC0415
+
+        ingest_pump = FrontDoor(kv_server,
+                                frontends=max(int(serve_frontends), 1))
+        ingest_pump.start()
+        owns_front_door = True
+        print(
+            f"[serve] ingest endpoint http://{kv_addr} "
+            f"({ingest_pump.frontends} frontend shard(s), signed KV "
+            f"protocol, scope serve/ — horovod_tpu_torch.serve.ServeClient)",
+            flush=True,
+        )
 
     metrics = get_registry()
     result = ElasticJobResult()
@@ -899,6 +1087,25 @@ def launch_elastic_job(
                         hb_seen.pop(rank, None)
                         progress_policy.forget(rank)
                         procs.terminate_rank(rank)
+            if ingest_pump is not None and not finished \
+                    and set(world) <= set(procs.alive_ranks()):
+                # Frontend takeover -> epoch re-mint: a dead frontend's
+                # shards were adopted by a survivor; re-forming the
+                # serving world makes every rank replay from the durable
+                # per-shard logs.  Only against a whole world, so a
+                # takeover racing a failure respawn waits for its epoch.
+                takeovers = ingest_pump.poll_takeover()
+                if takeovers:
+                    epoch += 1
+                    mint_epoch(epoch, world)
+                    for ev in takeovers:
+                        trace.append(("frontend_takeover", ev["fid"],
+                                      ev["owner"], epoch))
+                    LOG.warning(
+                        "elastic: %d frontend takeover(s); re-minted "
+                        "epoch %d for the serving world",
+                        len(takeovers), epoch,
+                    )
             if all(r in finished for r in world):
                 result.exit_codes = dict(finished)
                 result.epoch = epoch
@@ -917,6 +1124,13 @@ def launch_elastic_job(
         procs.terminate()
         raise
     finally:
+        if ingest_pump is not None and owns_front_door:
+            # A caller-passed front door (ServeJob) outlives this launch:
+            # its owner stops it after collecting results.
+            try:
+                ingest_pump.stop()
+            except Exception:  # pragma: no cover - defensive
+                pass
         if owns_server:
             kv_server.stop()
 
@@ -938,6 +1152,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.check_build:
         print(check_build())
         return 0
+    if args.discover_nics:
+        try:
+            for iface in discover_nics(
+                hosts=args.hosts, hostfile=args.hostfile,
+                ssh_port=args.ssh_port,
+            ):
+                print(iface)
+            return 0
+        except (RuntimeError, OSError, TimeoutError, ValueError) as exc:
+            # ValueError covers forged/corrupt signed responses (_unpack).
+            print(f"hvdrun: NIC discovery failed: {exc}", file=sys.stderr)
+            return 1
     if not args.np:
         print("error: -np is required", file=sys.stderr)
         return 2
@@ -945,8 +1171,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     if command and command[0] == "--":
         command = command[1:]
     if not command:
-        print("error: no command given", file=sys.stderr)
-        return 2
+        if args.serve:
+            # Serving mode ships its own worker; -np 2 --serve alone is
+            # a complete invocation.
+            command = [sys.executable, "-m", "horovod_tpu_torch.serve"]
+        else:
+            print("error: no command given", file=sys.stderr)
+            return 2
     if args.verbose and not args.log_level:
         args.log_level = "debug"
     if args.log_level:
@@ -966,7 +1197,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     config_parser.set_env_from_args(env, args)
     try:
         LOG.info("launching %d processes: %s", args.np, " ".join(command))
-        if args.elastic:
+        if args.elastic or args.serve:
             launch_elastic_job(
                 command,
                 args.np,
@@ -980,6 +1211,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                 progress_timeout=_or(args.progress_timeout_secs, 300.0),
                 progress_grace=_or(args.progress_grace_secs, 0.0),
                 output_filename=args.output_filename,
+                serve_ingest=args.serve,
+                serve_frontends=int(
+                    args.serve_frontends
+                    or envmod.env_int(envmod.SERVE_FRONTENDS, 1)),
             )
             return 0
         launch_job(

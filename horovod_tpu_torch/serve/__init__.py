@@ -1,5 +1,6 @@
 """Serving plane of the port (counterpart of ``horovod_tpu/serve/``):
-continuous-batching inference over the slot-based KV cache.
+continuous-batching inference over the slot-based KV cache, served by an
+elastic fleet behind the launcher's front door.
 
 * :mod:`.scheduler`: the pure iteration-level admit / evict state machine
   over a fixed slot pool (a copy of the reference's).
@@ -10,6 +11,15 @@ continuous-batching inference over the slot-based KV cache.
   paged KV.
 * :mod:`.sampling`: replicated per-request sampling on jax's threefry
   keys (``ops/prng.py``).
+* :mod:`.frontend`: the sharded front door — F launcher-resident ingest
+  pumps order client submissions into per-shard durable request logs
+  over the launcher's HMAC-signed KV store; :class:`ServeClient` submits
+  and streams.
+* :mod:`.service`: the serving loop on the elastic launcher (a dead rank
+  respawns and replays in-flight requests from the durable log; zero
+  dropped requests) and the :class:`ServeJob` driver.
+* :mod:`.hotswap`: live weight hot-swap from a publisher
+  (:func:`publish_weights`), one weight version at every step.
 
 Serving on the CPU::
 
@@ -26,16 +36,33 @@ Serving on the CPU::
             sched.record(slot, tok)
         done.update({e.rid: e.tokens for e in sched.evict_finished()})
 
-The reference's service, frontend, hot swap, autoscale and long-context
-modules (``ServeJob``, ``validate_request``, ...) are ROADMAP A12b.
+A fleet (``python -m horovod_tpu_torch.run --elastic --serve -np 2 --
+python -m horovod_tpu_torch.serve --size small``, or from Python)::
+
+    from horovod_tpu_torch.serve import ServeJob
+    job = ServeJob({"size": "nano", "num_slots": 4}, np=2).start()
+    rid = job.client.submit([5, 17, 3], max_new_tokens=8)
+    print(job.client.result(rid)["tokens"])
+    job.stop()
+
+Not ported yet: the reference's ``autoscale`` (ROADMAP A13: its
+controller reads the live telemetry plane) and ``longctx`` (A11).
 """
 
 from .engine import SlotEngine, prompt_bucket  # noqa: F401
+from .frontend import (  # noqa: F401
+    FrontDoor, IngestPump, Rejection, RequestRejected, ServeClient,
+    validate_request,
+)
+from .hotswap import SwapManager, publish_weights  # noqa: F401
 from .paged import PagedKV, page_reject_reason, pages_for  # noqa: F401
 from .scheduler import (  # noqa: F401
     ActiveSlot, Admission, Eviction, Request, SlotScheduler, TenantQoS,
 )
+from .service import DEFAULT_SPEC, ServeJob, serve_worker  # noqa: F401
 
 __all__ = ["SlotEngine", "SlotScheduler", "Request", "PagedKV", "pages_for",
            "page_reject_reason", "prompt_bucket", "ActiveSlot", "Admission",
-           "Eviction", "TenantQoS"]
+           "Eviction", "TenantQoS", "ServeJob", "ServeClient", "FrontDoor",
+           "IngestPump", "validate_request", "Rejection", "RequestRejected",
+           "publish_weights", "SwapManager", "serve_worker", "DEFAULT_SPEC"]

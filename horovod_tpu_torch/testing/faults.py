@@ -20,8 +20,13 @@ Grammar::
   the total is computed: a corruption lands on one rank's copy of the
   agreed result), ``shard_write`` (``ckpt/sharded.py``, each rank's shard
   write), ``replica_push`` (``ckpt/replica.py``, the push after each
-  commit) and ``ckpt_write`` (``checkpoint.py``, rank 0's write).  A spec
-  naming another point is refused at parse time: it would never fire.
+  commit), ``ckpt_write`` (``checkpoint.py``, rank 0's write),
+  ``frontend_beat`` (``serve/frontend.py``, the top of each ingest pump
+  round: the pump's frontend id is the rank, its beat counter the step),
+  ``mem_alloc`` (``_obs/memplane.alloc_guard`` on the serving prefill and
+  decode paths) and ``swap_commit`` (``serve/hotswap.py``, between a
+  successful prefetch and the version flip).  A spec naming another point
+  is refused at parse time: it would never fire.
 * ``rank`` — only fire on this rank (the ``rank=`` call argument, else
   ``HVDTPU_RANK``, else ``HVDTPU_ELASTIC_RANK``).  Absent means any rank.
 * ``step`` — fire when the observed step equals N.  Sites with a natural
@@ -43,7 +48,10 @@ Grammar::
   ``corrupt_write`` (``shard_write``: the bytes written are damaged with
   :func:`corrupt_bytes`), ``drop_replica`` (``replica_push``: the push is
   skipped), ``flip_bits`` and ``nan_inject`` (``grad_ready``: one element
-  of the result is damaged with :func:`corrupt_grad`).
+  of the result is damaged with :func:`corrupt_grad`), ``frontend_exit``
+  (``frontend_beat``: the pump dies without draining), ``oom``
+  (``mem_alloc``: a RESOURCE_EXHAUSTED ``RuntimeError`` is raised) and
+  ``swap_abort`` (``swap_commit``: the rank exits with ``os._exit`` mid-swap).
   ``worker_exit`` / ``task_fn`` default to ``exit``.
 * ``code`` — exit code for ``action=exit`` (default 43).
 * ``name`` — only fire when the call site passes a matching ``name=``.
@@ -62,7 +70,8 @@ SPEC_ENV = "HVDTPU_FAULT_SPEC"
 DEFAULT_EXIT_CODE = 43
 # the injection sites this package wires (see the module docstring)
 POINTS = ("enqueue", "worker_exit", "task_fn", "grad_ready", "shard_write",
-          "replica_push", "ckpt_write")
+          "replica_push", "ckpt_write", "frontend_beat", "mem_alloc",
+          "swap_commit")
 _EXIT_POINTS = ("worker_exit", "task_fn")
 # Advisory actions only take effect at call sites that consume
 # maybe_fail's return value; parse-time validation keeps a spec like
@@ -71,6 +80,9 @@ _EXIT_POINTS = ("worker_exit", "task_fn")
 _ADVISORY_POINTS = {
     "corrupt_write": ("shard_write",),
     "drop_replica": ("replica_push",),
+    "swap_abort": ("swap_commit",),
+    "oom": ("mem_alloc",),
+    "frontend_exit": ("frontend_beat",),
     "flip_bits": ("grad_ready",),
     "nan_inject": ("grad_ready",),
 }
@@ -299,8 +311,8 @@ def maybe_fail(
     ``step=N`` deterministically means "the Nth visit to this point".
 
     Returns the fired action name for the *advisory* actions the call
-    site must apply itself (``corrupt_write``, ``drop_replica``,
-    ``flip_bits``, ``nan_inject``) and ``None`` otherwise.
+    site must apply itself (the keys of ``_ADVISORY_POINTS``) and
+    ``None`` otherwise.
     """
     specs = _load().get(point)
     counter = None

@@ -92,6 +92,32 @@ DEFAULT_GRAD_BUCKET_MB = 16.0
 OVERLAP = "HVDTPU_OVERLAP"
 
 
+# Serving plane (serve/, horovod_tpu/utils/env.py:121-167): the fleet-wide
+# model geometry and policies ``hvdrun --elastic --serve`` forwards to every
+# serving rank (``python -m horovod_tpu_torch.serve`` reads them as flag
+# fallbacks).  SERVE_SEED must be identical on every rank: the replicated
+# weights and the sampler's keys rest on it.  SERVE_OUT_TTL bounds how long
+# the ingest pump keeps a finished request's compacted result doc.
+SERVE_MODEL = "HVDTPU_SERVE_MODEL"
+SERVE_SLOTS = "HVDTPU_SERVE_SLOTS"
+SERVE_MAX_LEN = "HVDTPU_SERVE_MAX_LEN"
+SERVE_SEED = "HVDTPU_SERVE_SEED"
+SERVE_KV_MODE = "HVDTPU_SERVE_KV_MODE"
+SERVE_PAGE_SIZE = "HVDTPU_SERVE_PAGE_SIZE"
+SERVE_KV_PAGES = "HVDTPU_SERVE_KV_PAGES"
+SERVE_WIDTH = "HVDTPU_SERVE_WIDTH"
+SERVE_WEIGHTS_DIR = "HVDTPU_SERVE_WEIGHTS_DIR"
+SERVE_SWAP_POLL_STEPS = "HVDTPU_SERVE_SWAP_POLL_STEPS"
+SERVE_OUT_TTL = "HVDTPU_SERVE_OUT_TTL_SECS"
+DEFAULT_SERVE_OUT_TTL = 300.0
+SERVE_FRONTENDS = "HVDTPU_SERVE_FRONTENDS"
+SERVE_TENANT_BUDGET = "HVDTPU_SERVE_TENANT_BUDGET"
+SERVE_SLO_CLASS = "HVDTPU_SERVE_SLO_CLASS"
+SERVE_SLO_TTFT_MS = "HVDTPU_SERVE_SLO_TTFT_MS"
+SERVE_SLO_TPOT_MS = "HVDTPU_SERVE_SLO_TPOT_MS"
+SERVE_SLO_OBJECTIVE = "HVDTPU_SERVE_SLO_OBJECTIVE"
+
+
 def env_int(name: str, default: int) -> int:
     value = os.environ.get(name)
     return int(value) if value not in (None, "") else default

@@ -286,7 +286,8 @@ def test_bench_cli_prints_an_images_record():
 
 def test_what_is_not_ported_raises():
     """fp8 is ResNet's only (VGG and Inception refuse it, as the reference's
-    bench does); the serving plane is not ported (A12)."""
+    bench does); the serving bench's width-sharded fleet is not ported
+    (A11)."""
     for name in ("vgg16", "inception3"):
         with pytest.raises(ValueError, match="resnet-only"):
             build_step(name, "fp8", 2, 32, device="cpu")
@@ -294,9 +295,10 @@ def test_what_is_not_ported_raises():
         is not torch.nn.functional.relu
     from horovod_tpu_torch.bench import _check_ported, _parser
 
-    with pytest.raises(NotImplementedError, match="A12"):
-        _check_ported(_parser().parse_args(["--model", "resnet50",
-                                            "--serve"]))
+    with pytest.raises(NotImplementedError, match="A11"):
+        _check_ported(_parser().parse_args(["--model", "gpt-small",
+                                            "--serve", "--serve-width",
+                                            "2"]))
     for name in ("resnet50", "resnet101", "resnet18", "vgg16", "vgg19",
                  "inception3"):
         for dtype in ("bf16", "fp32", "fp8"):

@@ -113,7 +113,7 @@ def test_malformed_specs_raise_in_both(bad):
 def test_unwired_points_are_refused():
     """The port refuses a point it does not wire: a chaos run built on it
     would never fire."""
-    for point in ("trace_flush", "mem_alloc", "campaign_point"):
+    for point in ("trace_flush", "scale_admit", "campaign_point"):
         with pytest.raises(ValueError, match="not wired"):
             faults.parse_spec(f"{point}:action=raise")
 

@@ -436,9 +436,10 @@ def test_eager_data_plane_orders_the_streams(world):
 
 
 def test_sampler_on_the_card_equals_the_cpu(cuda):
-    """The threefry keys, folds, splits and bits on the card equal the
-    CPU's (which the CPU tests hold to ``jax.random``), the Gumbel noise
-    within 2 ulp, and ``sample_token`` picks the CPU's tokens."""
+    """The threefry keys, folds, splits, bits and uniform draws on the
+    card equal the CPU's (which the CPU tests hold to ``jax.random``), the
+    Gumbel noise within 2 ulp of -log(-log(u)) in float64 on those draws,
+    and ``sample_token`` picks the tokens of the float64 scores."""
     rec = chip_smoke.sampler_check()
     assert rec["gumbel_max_ulps"] <= chip_smoke.GUMBEL_ULPS
     assert rec["key_checks"] > 0 and rec["sampled_rows"] > 0

@@ -109,6 +109,13 @@ SHARED_ARGV = [
      "--cache-capacity", "64"],
     ["--ckpt-dir", "/tmp/ck", "--ckpt-replica",
      "--ckpt-replica-chunk-kb", "256", "--ckpt-commit-timeout-secs", "30"],
+    ["--serve", "--serve-model", "small", "--serve-slots", "16",
+     "--serve-max-len", "900", "--serve-seed", "3", "--serve-kv-mode",
+     "paged", "--serve-page-size", "16", "--serve-kv-pages", "512",
+     "--serve-weights-dir", "/w", "--serve-swap-poll-steps", "8",
+     "--frontends", "2", "--serve-tenant-budget", "64"],
+    ["--slo-ttft-ms", "500", "--slo-tpot-ms", "80", "--slo-objective",
+     "0.9", "--slo-class", "standard"],
 ]
 
 
@@ -162,18 +169,18 @@ def test_config_file_layering_matches_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--serve"], "A12b"),
-    (["--serve-model", "nano"], "A12b"),
-    (["--frontends", "2"], "A12b"),
-    (["--serve-autoscale"], "A12b"),
-    (["--max-workers", "4"], "A12b"),
+    (["--serve-width", "2"], "A11"),
+    (["--serve-width", "1"], "A11"),
+    (["--scale-up-queue", "4"], "A13"),
+    (["--serve-autoscale"], "A13"),
+    (["--max-workers", "4"], "A13"),
     (["--stats-summary"], "A13"),
     (["--metrics-dump", "/tmp/m"], "A13"),
     (["--live-stats-secs", "1"], "A13"),
     (["--flightrec-dump", "/tmp/f"], "A13"),
     (["--trace", "/tmp/t"], "A13"),
     (["--dump-grace-secs", "0"], "A13"),
-    (["--discover-nics"], "1b"),
+    (["--scale-cooldown-secs", "5"], "A13"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
     args = runner.parse_args(["-np", "1", *flags, "python", "x"])
@@ -185,14 +192,14 @@ def test_unported_flags_raise_naming_their_item(flags, item):
 
 def test_unported_config_keys_raise(tmp_path):
     cfg = tmp_path / "cfg.yaml"
-    cfg.write_text("serve:\n  model: nano\n")
-    with pytest.raises(NotPortedError, match="ROADMAP A12b"):
+    cfg.write_text("serve:\n  autoscale: true\n")
+    with pytest.raises(NotPortedError, match="ROADMAP A13"):
         runner.parse_args(["-np", "1", "--config-file", str(cfg), "x"])
 
 
 @pytest.mark.parametrize("kwarg,item", [
-    ({"autoscale": {}}, "A12b"), ({"serve_ingest": True}, "A12b"),
-    ({"max_workers": 4}, "A12b"), ({"live_stats_secs": 1.0}, "A13"),
+    ({"autoscale": {}}, "A13"), ({"live_history": "h.jsonl"}, "A13"),
+    ({"max_workers": 4}, "A13"), ({"live_stats_secs": 1.0}, "A13"),
     ({"dump_grace_secs": 5.0}, "A13"),
 ])
 def test_unported_elastic_keywords_raise(kwarg, item):

@@ -141,3 +141,37 @@ def test_slice_partition_matches_the_reference(env, world, rank, want):
 
     assert resolve_slice_partition(world, rank, env) == want
     assert jax_resolve(world, rank, [object()] * world, env) == want
+
+
+def test_the_serving_and_run_names_exist_under_the_references_names():
+    """A12b and item 1b: ``ServeJob``, ``run`` and ``publish_weights`` (and
+    the rest of the reference's serving exports) are the port's own."""
+    import horovod_tpu.run as jrun
+    import horovod_tpu.serve as jserve
+    import horovod_tpu_torch.run as trun
+    import horovod_tpu_torch.serve as tserve
+
+    assert callable(trun.run) and trun.run.__module__ == \
+        "horovod_tpu_torch.run.api"
+    assert callable(jrun.run)
+    for name in ("ServeJob", "ServeClient", "FrontDoor", "IngestPump",
+                 "validate_request", "Rejection", "RequestRejected",
+                 "publish_weights", "SwapManager", "serve_worker",
+                 "DEFAULT_SPEC", "SlotEngine", "SlotScheduler"):
+        assert hasattr(jserve, name), name
+        assert getattr(tserve, name) is not None, name
+        obj = getattr(tserve, name)
+        if hasattr(obj, "__module__"):
+            assert obj.__module__.startswith("horovod_tpu_torch."), name
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--serve-autoscale"], "A13"),
+    (["--serve-width", "2"], "A11"),
+])
+def test_hvdrun_serving_refusals_name_their_item(flags, item):
+    from horovod_tpu_torch.run import runner
+
+    args = runner.parse_args(["-np", "2", "--serve", *flags, "python", "x"])
+    with pytest.raises(hvd.NotPortedError, match=f"ROADMAP {item}"):
+        runner.check_ported(args)
