@@ -79,6 +79,25 @@ through their launch helpers.  Phases, one JSON line each:
    (the recompute), the backward kernels once; losses within 1% of the
    same steps with the plain reference attention; peak memory no higher
    than the same run without remat.
+   ``moe``: ``build_gpt_step("small", "bf16", 8, 1024, moe_experts=8)``
+   (top 2, capacity factor 2, routing groups of 4096: the reference
+   model's defaults), the same 7 steps: exactly 12 launches a step of
+   ``MAIN_PATH`` (the MoE replaces the MLP, not the attention), the first
+   loss within ``LOSS_RTOL`` and every loss within ``MOE_LOSS_RTOL`` of
+   the same steps with reference attention, each block's aux loss at init
+   in ``MOE_AUX_INIT``; step time, tokens/s/GPU, MFU by
+   ``model_flops_per_step``'s MoE rule, memory, one profiled step, the
+   routing einsums' and the experts' device ms (``moe_split``), the
+   dropped share and the tokens whose experts the kernels' attention
+   moves (``flipped``); then ``bench --model gpt-small --moe-experts 8``.
+   ``parallel``: ``world_check.a11_checks`` at this world of one on
+   gpt-small fp32 (TF32 off, batch 4, seq 1024): ring, zigzag and Ulysses
+   attention, tensor parallelism, the GPipe, circular and tp-in-pp
+   pipelines, expert parallelism and the sharded decode over axes of size
+   one, each against the unsharded model (loss 1e-5, gradients 1e-4 of
+   the largest), tp and the pipelines with exact fp32-route launches
+   (``parallel_launches``).  The collectives between ranks are held by
+   ``world_check --only a11`` on four cards.
 8. ``conv``: the conv zoo, which runs no kernel of this repo (its
    convolutions are cuDNN's).  ``conv_check``: one SGD step of ResNet-18
    (batch 4, 64x64), ResNet-50 (batch 2, 64x64), VGG-16 (64x64) and
@@ -322,8 +341,13 @@ def act_store_grid(dtype):
     return torch.cat([pos, -pos, special])
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0,
+                      **fields}), flush=True)
 
 
 def card_line() -> str:
@@ -1064,6 +1088,206 @@ def train_nano(fa):
          loss_rtol=LOSS_RTOL, mfu_peak_flops=H100_BF16_PEAK,
          device_busy_share=prof["device_busy_share"], profile=prof, **run)
     return run
+
+
+# the MoE step: gpt-small, 8 experts in every block (top 2, capacity 2,
+# routing groups of 4096: the reference model's defaults), train's batch
+MOE_STEP = ("small", "bf16", 8, 1024)
+MOE_EXPERTS = 8
+# each block's aux loss at init: the Switch loss is 1 at uniform routing,
+# and a seed-0 router (std 0.02) routes near uniformly
+MOE_AUX_INIT = (0.9, 1.5)
+# the MoE step's losses against the same steps with reference attention:
+# the first (the forward alone) within LOSS_RTOL; every one within
+# MOE_LOSS_RTOL.  Routing is discrete and the seed-0 router's gates lie
+# within ~1e-3 of each other, so the kernels' bf16 attention, an ulp from
+# the reference's, sends a share of the tokens to other experts
+# (``moe_split``'s ``flipped``), and the two runs' losses part further with
+# each AdamW step: 0.05% at the first step, 1.18% at the seventh
+# (NVIDIA H100 80GB HBM3, 700.00 W, the first run of this phase)
+MOE_LOSS_RTOL = 0.03
+
+
+def moe_split(model, tokens) -> dict:
+    """Device ms of one MoE layer's routing (gates, top-k one-hots, and the
+    fp32 dispatch and combine einsums, an identity in the experts' place)
+    and of its experts' FFN, each forward and backward, at the step's
+    shapes and dtype (CUDA events, 3 repeats after 1 warm-up).  At init,
+    over the step's tokens: the share of (token, choice) pairs that
+    overflowed their expert's capacity and were dropped, each block's aux
+    loss, and each block's share of tokens whose top-k experts differ when
+    the blocks attend through the plain reference attention instead of
+    the kernels (``flipped``: what sets the loss gate, ``MOE_LOSS_RTOL``)."""
+    import dataclasses
+
+    import torch
+
+    from horovod_tpu_torch.parallel import moe
+
+    cfg = model.cfg
+    dev = tokens.device
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    d, e = cfg.emb_dim, cfg.moe_experts
+    kept, wanted, choices = [], [], []
+    plain = moe._routing
+
+    def counting(x2, router, num_experts, top_k, capacity, valid):
+        out = plain(x2, router, num_experts, top_k, capacity, valid)
+        kept.append(float(out[0].sum()))
+        wanted.append(float(valid.float().sum()) * top_k)
+        top = (x2.float() @ router.float()).topk(top_k, dim=-1).indices
+        choices.append(top.sort(-1).values)
+        return out
+
+    moe._routing = counting
+    try:
+        with torch.no_grad():
+            losses = []
+            model(tokens[:, :-1], losses=losses)
+            flash_choices, choices[:] = list(choices), []
+            blocks = model.blocks()
+            for blk in blocks:
+                blk.cfg = dataclasses.replace(blk.cfg,
+                                              attention_impl="reference")
+            model(tokens[:, :-1])
+            for blk in blocks:
+                blk.cfg = cfg
+    finally:
+        moe._routing = plain
+    flipped = [float((a != r).any(-1).float().mean())
+               for a, r in zip(flash_choices, choices)]
+    kept, wanted = kept[:len(flipped)], wanted[:len(flipped)]
+    aux = [float(a) for a in losses]
+    p = moe.moe_params_of(model.block0)
+    x = torch.randn((b, s, d), device=dev, requires_grad=True)
+
+    def routing():
+        xg, disp, comb, cap, a, n = moe._grouped_routing(
+            x.reshape(-1, d), p.router, e, cfg.moe_top_k,
+            cfg.moe_capacity_factor, cfg.moe_group_size)
+        buf = moe._dispatch(xg, disp, e, cap)
+        y = moe._combine(buf, comb, n, (b, s, d), x.dtype)
+        (y.float().square().mean() + a).backward()
+
+    cap = math.ceil(cfg.moe_capacity_factor * min(cfg.moe_group_size, b * s)
+                    * cfg.moe_top_k / e)
+    groups = -(-b * s // cfg.moe_group_size)
+    buf = torch.randn((e, groups * cap, d), device=dev, requires_grad=True)
+
+    def experts():
+        out = moe._expert_ffn(buf, p.w1, p.b1, p.w2, p.b2, cfg.dtype)
+        out.float().square().mean().backward()
+
+    ms = {name: cuda_ms(fn, 3, 1) for name, fn in
+          (("routing_ms_per_layer", routing),
+           ("experts_ms_per_layer", experts))}
+    return dict(ms, dropped_share=1.0 - sum(kept) / sum(wanted),
+                aux_at_init=aux, flipped=flipped, capacity=cap,
+                groups=groups)
+
+
+def moe_phase(fa):
+    """``build_gpt_step("small", "bf16", 8, 1024, moe_experts=8)`` from
+    seed-0 weights and ``RandomState(0)`` tokens: exact launches
+    (``MAIN_PATH`` 12 a step: the blocks' attention is unchanged), finite
+    losses against the same steps with reference attention (the first
+    within ``LOSS_RTOL``, all within ``MOE_LOSS_RTOL``), each block's aux
+    loss finite and in ``MOE_AUX_INIT`` at
+    init; step ms, tokens/s/GPU, MFU by ``model_flops_per_step``'s MoE
+    rule, memory, one profiled step (the device's busy share), the routing
+    einsums' and the experts' device ms (``moe_split``), the dropped
+    share.  Then ``bench --model gpt-small --moe-experts 8`` in its own
+    process, which must launch exactly ``MAIN_PATH``.  Returns the run."""
+    import torch
+    from horovod_tpu_torch.train import build_gpt_step
+
+    step, state, _ = build_gpt_step(*MOE_STEP, moe_experts=MOE_EXPERTS)
+    path = tuple(fa.kernel_for(p, torch.bfloat16, state[0].cfg.head_dim)
+                 for p in ("fwd", "dkdv", "dq"))
+    if path != MAIN_PATH:
+        raise AssertionError(f"gpt-small bf16 routes to {path}")
+    layers = state[0].cfg.num_layers
+    split = moe_split(state[0], state[2])
+    lo, hi = MOE_AUX_INIT
+    if not all(math.isfinite(a) and lo <= a <= hi
+               for a in split["aux_at_init"]):
+        raise AssertionError(f"aux losses at init {split['aux_at_init']} "
+                             f"outside {MOE_AUX_INIT}")
+    state, run = drive(fa, step, state, path=path)
+    prof = profile_step(state, step, run["step_ms"])
+    del state, step
+    release()
+    ref_losses = losses_of(build_gpt_step, cfg=MOE_STEP,
+                           attention="reference", moe_experts=MOE_EXPERTS)
+    release()
+    rel = max_rel(run["losses"], ref_losses)
+    first = max_rel(run["losses"][:1], ref_losses[:1])
+    if first > LOSS_RTOL or rel > MOE_LOSS_RTOL:
+        raise AssertionError(
+            f"MoE losses {run['losses']} differ from the reference "
+            f"attention's {ref_losses} by {first:.4f} at the first step "
+            f"(> {LOSS_RTOL}?) and {rel:.4f} at most (> {MOE_LOSS_RTOL}?)")
+    emit("moe", model="gpt-small", dtype="bf16", experts=MOE_EXPERTS,
+         top_k=2, capacity_factor=2.0, group_size=4096,
+         batch_per_gpu=MOE_STEP[2], seq=MOE_STEP[3], steps_timed=STEPS,
+         warmup=WARMUP, reference_losses=ref_losses, max_rel_loss_diff=rel,
+         first_rel_loss_diff=first, loss_rtol=(LOSS_RTOL, MOE_LOSS_RTOL),
+         mfu_peak_flops=H100_BF16_PEAK, routing_ms_per_step=split["routing_ms_per_layer"] * layers,
+         experts_ms_per_step=split["experts_ms_per_layer"] * layers,
+         device_busy_share=prof["device_busy_share"], split=split,
+         profile=prof, **run)
+    record = bench("--model", "gpt-small", "--moe-experts",
+                   str(MOE_EXPERTS), "--iters", str(STEPS), "--warmup",
+                   str(WARMUP), path=MAIN_PATH)
+    if record["device_index"] != 0 or record["n_gpus"] != 1:
+        raise AssertionError(f"MoE bench ran on {record['device']} "
+                             f"{record['device_index']}")
+    return run
+
+
+# the parallel phase's launches a step at a world of one: tp runs each
+# layer once; pp and its circular and tp-in-pp twins run each layer once
+# a microbatch (one a sequence row), their forward twice under the
+# per-tick remat
+def parallel_launches(path, layers: int, microbatches: int) -> dict:
+    return {"tp": {n: layers for n in path},
+            **{name: {n: layers * microbatches * (2 if PASS[n] == "fwd"
+                                                  else 1) for n in path}
+               for name in ("pp", "pp_circular", "pp_tp")}}
+
+
+def parallel_phase(fa) -> dict:
+    """``horovod_tpu_torch.world_check.a11_checks`` at a world of one on
+    the card: gpt-small at full width, fp32 with TF32 off, batch 4, seq
+    1024, every schedule over axes of size one (ring, zigzag, Ulysses,
+    tp, pp, circular pp, pp x tp, expert parallelism, the sharded decode)
+    held against the unsharded model within the fp32 gates; the tp and
+    pipeline runs must launch exactly the fp32 route's kernels
+    (``parallel_launches``).  This proves device placement, the tick loop
+    and the kernels' launches; the collectives between ranks it does not
+    (NCCL puts no two ranks on one card)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import world_check
+
+    checks = world_check.a11_checks(hvd, torch, cpu=False)
+    failures = world_check.a11_failures(checks)
+    path = tuple(fa.kernel_for(p, torch.float32, 64)
+                 for p in ("fwd", "dkdv", "dq"))
+    want = parallel_launches(path, 12, 4)
+    for name, launches in want.items():
+        if checks[name]["launches"] != launches:
+            failures.append(f"{name} launched {checks[name]['launches']}, "
+                            f"not {launches}")
+    emit("parallel", world=hvd.size(), model="gpt-small", dtype="fp32",
+         batch=4, seq=1024, tf32_matmul=torch.backends.cuda.matmul
+         .allow_tf32, loss_rtol=world_check.A11_LOSS_RTOL,
+         grad_rtol=world_check.A11_GRAD_RTOL, checks=checks,
+         failures=failures)
+    if failures:
+        raise AssertionError(f"parallel phase: {failures}")
+    return checks
 
 
 def issue_order(fa, plan, names):
@@ -3449,6 +3673,10 @@ def main(argv=()) -> int:
     runs = {"bf16_main": run, "fp32_main": fp32_run, "bf16_nano": nano_run}
     overlap(fa, run["losses"])
     rope_remat(fa)
+    moe_run = moe_phase(fa)
+    release()
+    parallel_phase(fa)
+    release()
     resnet_off = conv(fa)
     reductions(hvd, fa, run)
     release()
@@ -3467,6 +3695,8 @@ def main(argv=()) -> int:
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "shape": at,
          "launches": runs[at]["launches"][n],
+         **({"moe_launches": moe_run["launches"][n]}
+            if at == "bf16_main" else {}),
          **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}
         for n in SOURCES for (name, at), r in records.items() if name == n

@@ -62,6 +62,7 @@ __all__ = [
     "local_group",
     "cross_group",
     "group_of_axis",
+    "init_axes",
     "xla_collectives_built",
     "native_engine_built",
     "mpi_built",
@@ -147,6 +148,8 @@ class _World(NamedTuple):
 
 _state_lock = threading.Lock()
 _topology: Optional[Topology] = None
+# the named axes of init_axes: name -> this rank's process group
+_axes: dict = {}
 
 
 def _world_from_env(environ) -> _World:
@@ -359,9 +362,11 @@ def shutdown() -> None:
 
     shutdown_engine()
     with _state_lock:
-        if _topology is not None:
+        # a serving fleet's width group may have replaced the default group
+        if _topology is not None and dist.is_initialized():
             dist.destroy_process_group()
         _topology = None
+        _axes.clear()
 
 
 def is_initialized() -> bool:
@@ -473,16 +478,78 @@ def cross_group():
     return _group("cross")
 
 
-def group_of_axis(axis: str):
-    """The process group an axis name of the two-level schedules stands
-    for: ``LOCAL_AXIS`` / ``CROSS_AXIS`` this rank's local / cross
-    group."""
+def init_axes(shape) -> dict:
+    """Carve the world into a grid of named axes, row-major: ``{"dp": 2,
+    "tp": 2}`` puts rank ``r`` at ``(r // 2, r % 2)``, the last axis
+    fastest, as a mesh reshaped from the rank list lays its devices
+    out.  One process group is made per slice of each axis (every rank
+    makes every group, in one order: ``new_group`` is collective), and
+    this rank's group of each axis is registered, so that
+    :func:`group_of_axis` resolves the name.  Every rank calls it after
+    :func:`init`, with the same ``shape``, whose sizes must multiply to
+    the world size.  A second call replaces the grid.  Returns ``{name:
+    index of this rank along it}``.
+
+    This is the process-group view of the reference's mesh axes (the
+    ``sp`` / ``tp`` / ``pp`` / ``ep`` axes its schedules name inside
+    ``shard_map``); the schedules of ``parallel/`` take these names or a
+    process group where the reference takes an axis name."""
+    topo = global_topology()
+    names = list(shape)
+    sizes = [int(shape[n]) for n in names]
+    if any(n in (DP_AXIS, LOCAL_AXIS, CROSS_AXIS) for n in names):
+        raise ValueError(f"{names} reuses a reserved axis name")
+    total = 1
+    for n in sizes:
+        if n < 1:
+            raise ValueError(f"axis sizes must be positive, got {shape}")
+        total *= n
+    if total != topo.process_count:
+        raise ValueError(
+            f"axes {dict(shape)} hold {total} ranks; the world has "
+            f"{topo.process_count}")
+    grid = torch.arange(total).reshape(sizes) if sizes else None
+    coords = ([int(c) for c in torch.nonzero(grid == topo.process_rank)[0]]
+              if sizes else [])
+    axes = {}
+    for a, name in enumerate(names):
+        # the slices along axis a, in one order on every rank
+        lines = grid.movedim(a, -1).reshape(-1, sizes[a])
+        for line in lines.tolist():
+            group = (dist.group.WORLD if total == 1
+                     else dist.new_group(line))
+            if topo.process_rank in line:
+                axes[name] = group
+    with _state_lock:
+        _axes.clear()
+        _axes.update(axes)
+    return dict(zip(names, coords))
+
+
+def group_of_axis(axis):
+    """The process group an axis name stands for: a name of
+    :func:`init_axes` its registered group, ``DP_AXIS`` the world (the
+    default ``torch.distributed`` group, whoever formed it),
+    ``LOCAL_AXIS`` / ``CROSS_AXIS`` this rank's local / cross group of the
+    two-level schedules.  A process group passes through unchanged, so
+    the schedules take either."""
+    if not isinstance(axis, str):
+        if axis is None:
+            raise ValueError("an axis name or a process group is required")
+        return axis
     if axis == LOCAL_AXIS:
         return local_group()
     if axis == CROSS_AXIS:
         return cross_group()
-    raise ValueError(f"unknown axis {axis!r}; the two-level axes are "
-                     f"{LOCAL_AXIS!r} and {CROSS_AXIS!r}")
+    if axis == DP_AXIS:  # the default group, however it was formed
+        return dist.group.WORLD
+    global_topology()
+    if axis not in _axes:
+        raise ValueError(
+            f"unknown axis {axis!r}; the named axes are {list(_axes)} "
+            f"(init_axes), and {DP_AXIS!r}, {LOCAL_AXIS!r}, "
+            f"{CROSS_AXIS!r}")
+    return _axes[axis]
 
 
 # -- feature probes (the reference's horovod_{mpi,gloo,nccl,...}_built,

@@ -75,10 +75,20 @@ def model_flops_per_step(cfg, batch: int, seq: int) -> float:
     of the matrix products per token (forward 2, backward 4), plus the
     attention products (forward 4 * emb per (q, k) pair alive under the
     causal mask, times 3 for forward and backward); neither the backward's
-    recompute of the scores nor a remat recompute is counted."""
+    recompute of the scores nor a remat recompute is counted.
+
+    An MoE block (``cfg.moe_experts > 0``) counts ``moe_top_k`` times the
+    dense MLP's products per token (the experts each token is routed to,
+    as if none overflowed) plus its router's ``emb x experts``.  The
+    one-hot dispatch and combine einsums move tokens into and out of the
+    expert slots: they are layout, not model FLOPs, and are not counted,
+    though on the card they take most of the MoE step's time."""
     e, L, v = cfg.emb_dim, cfg.num_layers, cfg.vocab_size
     kv = cfg.kv_heads * cfg.head_dim
-    n_mm = L * (e * (e + 2 * kv) + e * e + 2 * cfg.mlp_ratio * e * e) + e * v
+    mlp = 2 * cfg.mlp_ratio * e * e
+    if cfg.moe_experts > 0:
+        mlp = cfg.moe_top_k * mlp + e * cfg.moe_experts
+    n_mm = L * (e * (e + 2 * kv) + e * e + mlp) + e * v
     pairs = seq * (seq + 1) // 2
     return 6 * n_mm * batch * seq + 3 * L * 4 * e * pairs * batch
 
@@ -169,7 +179,8 @@ def _parser() -> argparse.ArgumentParser:
                    "exponential gaps)")
     p.add_argument("--serve-width", type=int, default=0,
                    help="width-sharded fleet (0 = replicated): np//width "
-                   "serving groups; a width above 1 is not ported (A11)")
+                   "serving groups; above 1 each group's ranks hold one "
+                   "Megatron shard each of the model")
     p.add_argument("--serve-kv-mode", default="paged",
                    choices=["paged", "contiguous"],
                    help="KV layout (paged = block tables; contiguous = "
@@ -198,14 +209,19 @@ def _parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_ported(args) -> None:
-    if args.serve and args.serve_width > 1:
-        raise NotImplementedError(
-            "--serve-width > 1 is not ported yet (ROADMAP A11: tensor "
-            "parallelism)")
-    if args.moe_experts:
-        raise NotImplementedError(
-            "--moe-experts is not ported yet (ROADMAP A11)")
+def _check_args(args) -> None:
+    """Refuse, before anything is built, the combinations the port's bench
+    cannot run: a width-sharded serving fleet outside paged mode (the
+    width-sharded decode is the paged one, as in the reference), and
+    experts on a model without blocks."""
+    if args.serve and (args.serve_width or 0) > 1 \
+            and args.serve_kv_mode != "paged":
+        raise ValueError(
+            f"--serve-width {args.serve_width} needs --serve-kv-mode paged "
+            f"(the width-sharded decode is the paged one)")
+    if args.moe_experts and not args.model.startswith("gpt-"):
+        raise ValueError(f"--moe-experts needs a gpt-* model, not "
+                         f"{args.model!r}")
 
 
 def run(args) -> dict:
@@ -222,6 +238,7 @@ def run(args) -> dict:
             args.seq_len, attention=args.attention, remat=args.remat,
             kv_heads=args.kv_heads, pos_embedding=args.pos_embedding,
             attention_window=args.attention_window,
+            moe_experts=args.moe_experts,
             overlap_mode=args.overlap, grad_bucket_mb=args.grad_bucket_mb,
             device=device)
     else:
@@ -614,7 +631,7 @@ def main(argv=None) -> int:
                              f"are {', '.join(MODES)}")
     if args.batch_size is None:
         args.batch_size = 8 if args.model.startswith("gpt-") else 128
-    _check_ported(args)
+    _check_args(args)
     if args.serve:
         if not args.model.startswith("gpt-"):
             raise SystemExit("--serve serves a GPT model (--model gpt-*)")

@@ -13,7 +13,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "variables_from_jax"]
+__all__ = ["params_from_jax", "variables_from_jax", "tree_from_jax"]
 
 # flax leaf name -> the port's
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
@@ -66,3 +66,31 @@ def params_from_jax(tree: Mapping) -> dict:
     :class:`horovod_tpu_torch.models.transformer.GPT`
     (:func:`variables_from_jax` without batch statistics)."""
     return variables_from_jax(tree)
+
+
+def tree_from_jax(tree: Mapping) -> dict:
+    """A nested tree of the reference's raw weights (numpy leaves) -> the
+    same tree of fp32 tensors with the port's names and layouts: the
+    per-rank trees of the parallel schedules (``stack_tp_params``,
+    ``stack_pp_params``, ``stack_pp_params_circular``,
+    ``stack_tp_pp_params``, whose leaves carry leading shard, stage,
+    circle and layer dims), a GPT's parameters (MoE blocks' ``router``,
+    ``w1``, ... included) or their gradients.
+
+    A ``kernel`` ``[..., in, out]`` becomes ``weight`` ``[..., out, in]``
+    (the leading dims kept), ``scale`` and ``embedding`` become
+    ``weight``; every other leaf keeps its name and layout.  The port's
+    own stacking functions give trees of this form, so the two packages'
+    schedules can be fed the same weights and their gradients compared.
+    """
+    out: dict = {}
+    for name, sub in tree.items():
+        if isinstance(sub, Mapping):
+            out[name] = tree_from_jax(sub)
+            continue
+        t = _tensor(sub)
+        if name == "kernel":
+            t = t.transpose(-1, -2).contiguous()
+        out[_LEAF.get(name, name) if name in ("kernel", "scale",
+                                              "embedding") else name] = t
+    return out

@@ -38,8 +38,15 @@ with a new ``pos``.  A masked or overrun row writes nothing (the
 reference writes out of range and lets ``mode="drop"`` discard it); this
 is decided on the device, without reading the mask back (``_write_rows``).
 Decoding past a slot's cache end drops the write and poisons that slot's
-logits with NaN.  Width sharding (``tp_axis`` / ``rep``) waits for
-tensor parallelism and raises :class:`NotPortedError` naming A11.
+logits with NaN.
+
+Width sharding (the reference's ``tp_axis=`` / ``rep=`` keywords, and
+``init_paged_pool(kv_heads=)``): pass a :class:`WidthShard`, this rank's
+Megatron shard of the model over a width axis, wherever a model is taken.
+Its blocks run ``parallel/tensor_parallel.py``'s column / row-parallel
+math (two all-reduces a block over the axis) on ``kv_heads / width``
+heads, so the cache and the pool hold only this rank's heads, and the
+logits come out the same on every rank of the axis.
 """
 
 from __future__ import annotations
@@ -61,18 +68,63 @@ __all__ = [
     "init_paged_pool",
     "decode_step_paged",
     "assign_slot_paged",
+    "WidthShard",
 ]
 
 _MASKED = torch.finfo(torch.float32).min / 2
 
 
-def _refuse_width_shard(tp_axis, rep) -> None:
-    if tp_axis is not None or rep is not None:
-        from .. import NotPortedError  # noqa: PLC0415
+class WidthShard:
+    """This rank's width shard of a GPT, for the decode functions and the
+    slot engine: ``sharded`` is its shard of ``stack_tp_params``'s
+    sharded tree (leading dim 1, as ``local_shard`` gives it),
+    ``replicated`` the replicated tree, ``tp_axis`` the width axis (a name
+    of ``basics.init_axes`` or a process group).  It offers what the
+    decode functions read of a model: ``cfg``, ``kv_heads`` (this rank's),
+    ``embed``, ``blocks``, ``logits``, ``parameters``."""
 
-        raise NotPortedError(
-            "width-sharded decoding (tp_axis / rep) is not ported yet "
-            "(ROADMAP A11: tensor parallelism)")
+    def __init__(self, cfg, sharded, replicated, tp_axis):
+        from ..ops.collectives import _axis  # noqa: PLC0415
+        from ..parallel.tensor_parallel import _map  # noqa: PLC0415
+
+        _, self.width, self.index = _axis(tp_axis)
+        self.cfg, self.tp_axis = cfg, tp_axis
+        self.kv_heads = cfg.kv_heads // self.width
+        self.shard = _map(lambda a: a[0], sharded)
+        self.replicated = replicated
+
+    def parameters(self):
+        from ..parallel.tensor_parallel import flat_params  # noqa: PLC0415
+
+        yield from flat_params(self.shard).values()
+        yield from flat_params(self.replicated).values()
+
+    def embed(self, tokens, positions=None):
+        from ..parallel.tensor_parallel import _gpt_embed  # noqa: PLC0415
+
+        x, _, rope_tabs = _gpt_embed(self.replicated, self.cfg, tokens, 0,
+                                     positions)
+        return x, rope_tabs
+
+    def blocks(self):
+        from ..parallel.tensor_parallel import _tp_block  # noqa: PLC0415
+
+        def block(i):
+            return lambda x, rope_tabs, attend=None: _tp_block(
+                self.cfg, self.shard[f"block{i}"],
+                self.replicated[f"block{i}"], x, rope_tabs, self.tp_axis,
+                self.width, attend=attend)
+        return [block(i) for i in range(self.cfg.num_layers)]
+
+    def logits(self, x):
+        from ..parallel.tensor_parallel import _gpt_head  # noqa: PLC0415
+
+        return _gpt_head(self.replicated, self.cfg, x)
+
+
+def _kv_heads(model) -> int:
+    """The kv heads a model's cache holds: a width shard's own."""
+    return getattr(model, "kv_heads", model.cfg.kv_heads)
 
 
 def _dense_only(cfg) -> None:
@@ -101,7 +153,7 @@ def init_cache(model, batch: int, max_len: Optional[int] = None) -> dict:
     cfg = model.cfg
     _dense_only(cfg)
     s = max_len or cfg.max_len
-    return _kv_zeros(model, (cfg.num_layers, batch, s, cfg.kv_heads,
+    return _kv_zeros(model, (cfg.num_layers, batch, s, _kv_heads(model),
                              cfg.head_dim), batch)
 
 
@@ -351,23 +403,23 @@ def assign_slot(model, cache: dict, slot: int, tokens: torch.Tensor,
 
 @torch.inference_mode()
 def init_paged_pool(model, num_pages: int, page_size: int,
-                    num_slots: int) -> dict:
+                    num_slots: int, kv_heads: Optional[int] = None) -> dict:
     """Paged KV pool: per-layer K/V in ``num_pages`` pages of
     ``page_size`` rows shared by every slot ``[L, num_pages, page_size,
     kv_heads, head_dim]``, plus per-slot positions.  A slot's cache is
-    whatever pages its block table names.  (The reference's ``kv_heads=``
-    override sizes a width-sharded pool; it comes with ROADMAP A11.)"""
+    whatever pages its block table names.  ``kv_heads`` overrides the
+    head count (default the model's: a :class:`WidthShard`'s own)."""
     cfg = model.cfg
     _dense_only(cfg)
-    return _kv_zeros(model, (cfg.num_layers, num_pages, page_size,
-                             cfg.kv_heads, cfg.head_dim), num_slots)
+    hkv = kv_heads if kv_heads is not None else _kv_heads(model)
+    return _kv_zeros(model, (cfg.num_layers, num_pages, page_size, hkv,
+                             cfg.head_dim), num_slots)
 
 
 @torch.inference_mode()
 def decode_step_paged(model, pool: dict, tables: torch.Tensor,
                       tokens_t: torch.Tensor,
-                      write_mask: Optional[torch.Tensor] = None, *,
-                      tp_axis=None, rep=None):
+                      write_mask: Optional[torch.Tensor] = None):
     """One decode step through the block tables: ``tokens_t [b]`` ->
     ``(logits [b, vocab], pool)``.  Slot ``j``'s K/V lands in page
     ``tables[j, pos // page_size]`` at row ``pos % page_size``, and
@@ -378,8 +430,8 @@ def decode_step_paged(model, pool: dict, tables: torch.Tensor,
     ``tables [b, max_pages]``: page ids; entries past a slot's allocated
     prefix are ``num_pages`` (the null page): writes there are dropped and
     the gather reads zeros.  Decoding past the virtual capacity drops the
-    write and NaN-poisons the slot's logits."""
-    _refuse_width_shard(tp_axis, rep)
+    write and NaN-poisons the slot's logits.  ``model`` may be a
+    :class:`WidthShard`: the pool then holds this rank's heads."""
     b = tokens_t.shape[0]
     pos = _slot_pos(pool, b)
     _, num_pages, ps, hkv, hd = pool["k"].shape
@@ -409,14 +461,13 @@ def decode_step_paged(model, pool: dict, tables: torch.Tensor,
 
 @torch.inference_mode()
 def assign_slot_paged(model, pool: dict, tables: torch.Tensor, slot: int,
-                      tokens: torch.Tensor, length=None, *, tp_axis=None,
-                      rep=None):
+                      tokens: torch.Tensor, length=None):
     """Admit one request into the paged pool: prefill the prompt into a
     contiguous mini-cache (:func:`prefill`'s math), then scatter its rows
     into the slot's pages.  Rows past the slot's allocated prefix hit the
     null page and are dropped; every other slot's pages are untouched.
-    Returns ``(pool, last_logits [vocab])``."""
-    _refuse_width_shard(tp_axis, rep)
+    Returns ``(pool, last_logits [vocab])``.  ``model`` may be a
+    :class:`WidthShard` (the prefill then runs on this rank's heads)."""
     s = tokens.shape[0]
     L, num_pages, ps, hkv, hd = pool["k"].shape
     mp = tables.shape[1]

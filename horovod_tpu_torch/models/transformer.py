@@ -15,12 +15,25 @@ other.  The flax defaults are kept where PyTorch's differ:
   in fp32, ``head`` in the compute dtype, and logits come back in fp32.
 
 Attention: ``attention_impl="flash"`` (the CUDA kernels on the card, their
-plain versions on the CPU) or ``"reference"`` (plain softmax attention).
+plain versions on the CPU), ``"reference"`` (plain softmax attention), or
+a sequence-parallel schedule over ``sp_axis`` (``parallel/
+ring_attention.py``): ``"ring"``, ``"zigzag"`` (the load-balanced causal
+ring; needs explicit ``positions`` from ``zigzag_positions``) or
+``"ulysses"``.  Under sequence parallelism each rank runs the model on its
+shard of the sequence (``pos_offset`` the global position of its first
+row, or ``positions``), and its parameter gradients are its tokens'
+share: sum them over the sequence axis as over a data-parallel one.
 
 Positions: ``pos_embedding="learned"`` (the ``wpe`` table) or ``"rope"``
 (rotary, ``ops/rope.py``; no ``wpe`` parameter, as flax creates none): the
-tables are computed once per forward for positions ``0..S-1`` and handed
-to every block.
+tables are computed once per forward and handed to every block.
+
+``moe_experts > 0`` replaces every block's MLP by a mixture of experts
+(``parallel/moe.py``: the reference's GShard dispatch with static
+capacity; parameters ``router``, ``w1``, ``b1``, ``w2``, ``b2`` on the
+block, as flax names them).  Each block's auxiliary load-balancing loss
+is appended to the ``losses`` list the caller passes to ``forward``: the
+reference's ``"losses"`` collection.
 
 ``act_store_dtype=torch.float8_e4m3fn`` stores the attention context, both
 branch deltas and the GELU intermediate through e4m3 and back
@@ -38,7 +51,7 @@ again).
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +59,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.rope import apply_rope_tables, rope_tables
+from ..parallel.moe import (DEFAULT_GROUP_SIZE as MOE_DEFAULT_GROUP_SIZE,
+                            ROUTER_STD, moe_flax_params, moe_mlp,
+                            moe_params_of)
 from .layers import Dense, act_store
 
 __all__ = ["TransformerConfig", "Block", "GPT", "GPT_CONFIGS", "gpt",
@@ -64,7 +80,11 @@ class TransformerConfig:
     mlp_ratio: int = 4
     max_len: int = 1024
     dtype: torch.dtype = torch.bfloat16
-    attention_impl: str = "flash"  # flash | reference
+    # flash | reference | ring | zigzag | ulysses
+    attention_impl: str = "flash"
+    # the sequence axis of ring / zigzag / ulysses: a name of
+    # basics.init_axes or a process group
+    sp_axis: Any = None
     attention_window: Optional[int] = None  # flash only
     pos_embedding: str = "learned"  # learned | rope
     rope_theta: float = 10000.0
@@ -77,9 +97,11 @@ class TransformerConfig:
     # Activation storage dtype (torch.float8_e4m3fn) of the saved
     # activations; None stores them in the compute dtype
     act_store_dtype: Optional[torch.dtype] = None
-    # An option of the reference model not ported yet: raises
-    # NotImplementedError naming its ROADMAP item when set.
+    # Mixture-of-experts MLP in every block (see the module docstring)
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_group_size: int = MOE_DEFAULT_GROUP_SIZE
 
     def __post_init__(self):
         if self.num_kv_heads is not None:
@@ -104,26 +126,21 @@ class TransformerConfig:
                 else self.num_heads)
 
 
-def _check_ported(cfg: TransformerConfig) -> None:
-    """Raise for the reference options this port does not carry yet."""
-    if cfg.attention_impl in ("ring", "zigzag", "ulysses"):
-        raise NotImplementedError(
-            f"attention_impl={cfg.attention_impl!r} is not ported yet "
-            "(ROADMAP A11); 'flash' and 'reference' are"
-        )
-    if cfg.attention_impl not in ("flash", "reference"):
+ATTENTION_IMPLS = ("flash", "reference", "ring", "zigzag", "ulysses")
+
+
+def _check_config(cfg: TransformerConfig) -> None:
+    if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(
-            f"unknown attention_impl {cfg.attention_impl!r}; expected "
-            "'flash' or 'reference'"
+            f"unknown attention_impl {cfg.attention_impl!r}; expected one "
+            f"of {ATTENTION_IMPLS}"
         )
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "moe_experts > 0 is not ported yet (ROADMAP A11)")
 
 
 def _attend(cfg: TransformerConfig, q, k, v):
     """The configured attention schedule (always causal)."""
-    if cfg.attention_impl == "flash":
+    impl = cfg.attention_impl
+    if impl == "flash":
         from ..ops.flash_attention import flash_attention  # noqa: PLC0415
 
         return flash_attention(
@@ -134,31 +151,48 @@ def _attend(cfg: TransformerConfig, q, k, v):
     if cfg.attention_window is not None:
         raise ValueError(
             "attention_window is flash-only; "
-            f"attention_impl={cfg.attention_impl!r} does not support it"
+            f"attention_impl={impl!r} does not support it"
         )
-    from ..parallel.ring_attention import local_attention  # noqa: PLC0415
+    from ..parallel.ring_attention import (  # noqa: PLC0415
+        local_attention, ring_attention, ring_attention_zigzag,
+        ulysses_attention)
 
-    if cfg.kv_heads != cfg.num_heads:
+    if cfg.kv_heads != cfg.num_heads and impl in ("reference", "ulysses"):
+        # these attend at full heads; the rings carry narrow k/v through
+        # the shift and broadcast after
         rep = cfg.num_heads // cfg.kv_heads
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    return local_attention(q, k, v, causal=True)
+    if impl == "reference":
+        return local_attention(q, k, v, causal=True)
+    if cfg.sp_axis is None:
+        raise ValueError(f"attention_impl={impl!r} requires sp_axis")
+    if impl == "ring":
+        return ring_attention(q, k, v, cfg.sp_axis, causal=True)
+    if impl == "zigzag":
+        return ring_attention_zigzag(q, k, v, cfg.sp_axis)
+    return ulysses_attention(q, k, v, cfg.sp_axis, causal=True)
 
 
 def block_math(cfg: TransformerConfig, x, rope_tabs, *, ln1, qkv, proj,
-               ln2, mlp, attend=None):
+               ln2, mlp, attend=None, num_heads: Optional[int] = None,
+               num_kv_heads: Optional[int] = None):
     """The pre-LN block wiring: ``LN -> qkv -> split heads -> rope ->
     attend -> proj (+res) -> LN -> mlp (+res)``; ``proj`` and ``mlp``
     return the residual delta; ``rope_tabs`` is ``(cos, sin)`` or
     ``None``.  ``attend`` overrides the attention schedule: a callable
     ``(q, k, v) -> att`` over the rope-applied ``[b, s, heads,
     head_dim]`` tensors (the KV-cache decode path, ``models/decode.py``,
-    appends to its cache and attends against the prefix through it)."""
+    appends to its cache and attends against the prefix through it).
+    ``num_heads`` / ``num_kv_heads`` override the config's for a rank's
+    head shard (tensor parallelism, ``parallel/tensor_parallel.py``)."""
     def store(y):
         return act_store(y, cfg.act_store_dtype, cfg.dtype)
 
     b, s, _ = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    nh = num_heads if num_heads is not None else cfg.num_heads
+    nkv = num_kv_heads if num_kv_heads is not None else cfg.kv_heads
+    hd = cfg.head_dim
     q_dim, kv_dim = nh * hd, nkv * hd
     fused = qkv(ln1(x))
     q = fused[..., :q_dim].reshape(b, s, nh, hd)
@@ -167,7 +201,15 @@ def block_math(cfg: TransformerConfig, x, rope_tabs, *, ln1, qkv, proj,
     if rope_tabs is not None:
         q = apply_rope_tables(q, *rope_tabs)
         k = apply_rope_tables(k, *rope_tabs)
-    att = attend(q, k, v) if attend is not None else _attend(cfg, q, k, v)
+    if attend is None:
+        attend_cfg = cfg
+        if nh != cfg.num_heads or nkv != cfg.kv_heads:
+            # a head shard: the schedule sees the local head geometry
+            attend_cfg = replace(cfg, num_heads=nh, num_kv_heads=nkv,
+                                 emb_dim=q_dim)
+        att = _attend(attend_cfg, q, k, v)
+    else:
+        att = attend(q, k, v)
     att = store(att.reshape(b, s, q_dim))
     x = x + store(proj(att))
     return x + store(mlp(ln2(x)))
@@ -196,18 +238,42 @@ class Block(nn.Module):
         self.qkv = Dense(e, e + 2 * kv_dim, dt)
         self.proj = Dense(e, e, dt)
         self.ln2 = _LayerNorm(e)
-        self.fc1 = Dense(e, cfg.mlp_ratio * e, dt)
-        self.fc2 = Dense(cfg.mlp_ratio * e, e, dt)
+        if cfg.moe_experts > 0:
+            moe_flax_params(self, e, cfg.mlp_ratio * e, cfg.moe_experts)
+        else:
+            self.fc1 = Dense(e, cfg.mlp_ratio * e, dt)
+            self.fc2 = Dense(cfg.mlp_ratio * e, e, dt)
 
-    def forward(self, x, rope_tabs=None, attend=None):
+    def _mlp(self, h, losses):
+        cfg = self.cfg
+        if cfg.moe_experts > 0:
+            y, aux = moe_mlp(
+                h, moe_params_of(self), top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor,
+                group_size=cfg.moe_group_size, dtype=cfg.dtype,
+                act_store_dtype=cfg.act_store_dtype)
+            if losses is not None:
+                losses.append(aux)
+            # y comes back in ln2's fp32; the residual stream stays in the
+            # compute dtype, as in the dense MLP
+            return y.to(cfg.dtype)
+        return self.fc2(act_store(F.gelu(self.fc1(h), approximate="tanh"),
+                                  cfg.act_store_dtype, cfg.dtype))
+
+    def forward(self, x, rope_tabs=None, attend=None, losses=None):
+        """``losses``: a list each MoE block appends its aux loss to."""
         return block_math(
             self.cfg, x, rope_tabs, ln1=self.ln1, qkv=self.qkv, proj=self.proj,
-            ln2=self.ln2,
-            mlp=lambda h: self.fc2(act_store(
-                F.gelu(self.fc1(h), approximate="tanh"),
-                self.cfg.act_store_dtype, self.cfg.dtype)),
-            attend=attend,
+            ln2=self.ln2, mlp=lambda h: self._mlp(h, losses), attend=attend,
         )
+
+
+def _block_with_aux(block, x, rope_tabs):
+    """``block`` on ``x``, and its MoE aux loss (None for a dense block):
+    the unit a remat checkpoint wraps, so the recompute appends nowhere."""
+    got: list = []
+    y = block(x, rope_tabs, losses=got)
+    return y, (got[0] if got else None)
 
 
 def _remat_context_fn():
@@ -246,7 +312,7 @@ class GPT(nn.Module):
     def __init__(self, cfg: TransformerConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
         e = cfg.emb_dim
         self.wte = nn.Embedding(cfg.vocab_size, e)
@@ -272,6 +338,15 @@ class GPT(nn.Module):
         self.wte.weight.normal_(0.0, self.cfg.emb_dim ** -0.5, generator=g)
         if self.cfg.pos_embedding == "learned":
             self.wpe.normal_(0.0, 0.02, generator=g)
+        if self.cfg.moe_experts > 0:
+            d = self.cfg.emb_dim
+            ff = self.cfg.mlp_ratio * d
+            for block in self.blocks():
+                block.router.normal_(0.0, ROUTER_STD, generator=g)
+                block.w1.normal_(0.0, (2.0 / d) ** 0.5, generator=g)
+                block.w2.normal_(0.0, (2.0 / ff) ** 0.5, generator=g)
+                block.b1.zero_()
+                block.b2.zero_()
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.cfg.num_layers)]
@@ -310,14 +385,33 @@ class GPT(nn.Module):
         head in the compute dtype, fp32 logits."""
         return self.head(self.lnf(x)).float()
 
-    def forward(self, tokens: torch.Tensor):
-        x, rope_tabs = self.embed(tokens)
+    def forward(self, tokens: torch.Tensor, pos_offset: int = 0,
+                positions: Optional[torch.Tensor] = None,
+                losses: Optional[list] = None):
+        """Logits of ``tokens`` (a shard of the sequence under sequence
+        parallelism).  Positions: ``pos_offset``, the global position of
+        ``tokens[:, 0]`` for a contiguous shard, or explicit ``positions
+        [s]`` (required by the zigzag layout).  ``losses``: a list every
+        MoE block appends its aux loss to."""
+        s = tokens.shape[1]
+        if positions is None:
+            if self.cfg.attention_impl == "zigzag":
+                # contiguous positions never match the zigzag layout
+                raise ValueError(
+                    "attention_impl='zigzag' requires explicit positions "
+                    "(zigzag_positions(axis_index, P, s_local))")
+            if pos_offset:
+                positions = pos_offset + torch.arange(s, device=tokens.device)
+        x, rope_tabs = self.embed(tokens, positions)
         for block in self.blocks():
             if self._remat_context is None:
-                x = block(x, rope_tabs)
-            else:
-                x = checkpoint(block, x, rope_tabs, use_reentrant=False,
-                               context_fn=self._remat_context)
+                x = block(x, rope_tabs, losses=losses)
+                continue
+            x, aux = checkpoint(_block_with_aux, block, x, rope_tabs,
+                                use_reentrant=False,
+                                context_fn=self._remat_context)
+            if aux is not None and losses is not None:
+                losses.append(aux)
         return self.logits(x)
 
 

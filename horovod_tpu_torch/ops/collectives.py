@@ -33,6 +33,25 @@ into their argument, as Horovod's torch API does.
 The flat pair and the row helpers take a ``group`` (a subgroup of the
 world: the two-level schedules of ``parallel/hierarchical.py``); inside a
 group, ranks are the group's.
+
+The axis collectives at the end are the reference's ``lax`` primitives
+over a named axis (``basics.init_axes``) or a process group, for the
+parallel schedules (``parallel/``), each with JAX's transpose:
+
+* :func:`ring_shift` (``lax.ppermute`` over the ring ``j -> j + shift``)
+  backward = the shift the other way;
+* :func:`all_to_all` (``lax.all_to_all``, tiled or not) backward = the
+  inverse exchange;
+* :func:`psum` / :func:`pmean` and :func:`pvary`: a sum whose result is
+  replicated, whose backward passes the cotangent through (``/ n`` for
+  the mean), and the identity whose backward sums the cotangents over the
+  axis.  They are Megatron's *g* and *f*, and the transposes JAX gives
+  ``psum`` and its implicit ``pvary`` under replication tracking
+  (``check_vma=True``).  Where a reduced value feeds every rank's own
+  loss (JAX's transpose without replication tracking: ``psum``'s is
+  ``psum``), compose ``pvary(psum(x))``.
+
+On an axis of size 1 each is the identity and issues no collective.
 """
 
 from __future__ import annotations
@@ -63,6 +82,12 @@ __all__ = [
     "reducescatter",
     "reduce_scatter_flat",
     "all_gather_flat",
+    "ring_shift",
+    "all_to_all",
+    "psum",
+    "pmean",
+    "pvary",
+    "pmax",
 ]
 
 
@@ -460,3 +485,175 @@ def allreduce_group(tensor: torch.Tensor, op: ReduceOp = Sum, *,
     the same reduce of the cotangent."""
     _check_sum_or_average(op, "allreduce_group")
     return _AllreduceSum.apply(tensor, op == Average, False, group)
+
+
+# ---------------------------------------------------------------------------
+# axis collectives: the reference's lax primitives over a named axis or a
+# process group (see the module docstring)
+# ---------------------------------------------------------------------------
+
+
+def _axis(axis):
+    """``(group, size, index)`` of ``axis``: a name of ``basics.init_axes``,
+    a reserved axis name, or a process group."""
+    from .. import basics  # noqa: PLC0415
+
+    group = basics.group_of_axis(axis)
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def _shift(x: torch.Tensor, group, n: int, me: int,
+           shift: int) -> torch.Tensor:
+    """Send ``x`` to group rank ``me + shift`` and receive from ``me -
+    shift`` (mod ``n``), both posted together so a ring cannot deadlock."""
+    x = x.detach().contiguous()
+    out = torch.empty_like(x)
+    dst = dist.get_global_rank(group, (me + shift) % n)
+    src = dist.get_global_rank(group, (me - shift) % n)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, dst, group=group),
+        dist.P2POp(dist.irecv, out, src, group=group),
+    ])
+    for req in reqs:
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, me, shift):
+        ctx.args = (group, n, me)
+        ctx.shift = shift
+        return _shift(x, group, n, me, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        # ppermute's transpose: the cotangent goes back the way it came
+        return _shift(g, *ctx.args, -ctx.shift), None, None, None, None
+
+
+def ring_shift(x: torch.Tensor, axis, shift: int = 1) -> torch.Tensor:
+    """``lax.ppermute(x, axis, [(j, (j + shift) % n) for j in range(n)])``:
+    every rank sends ``x`` to its ``shift``-th successor along ``axis`` and
+    returns what its predecessor sent.  Differentiable."""
+    group, n, me = _axis(axis)
+    if n == 1 or shift % n == 0:
+        return x
+    return _RingShift.apply(x, group, n, me, shift)
+
+
+def _exchange(x: torch.Tensor, group, n: int, split_axis: int,
+              concat_axis: int, tiled: bool) -> torch.Tensor:
+    """``lax.all_to_all``: ``x`` split into ``n`` chunks along
+    ``split_axis``, chunk j to group rank j, the chunks received
+    concatenated in rank order along ``concat_axis`` (tiled) or, untiled,
+    stacked there in place of the split dim (``x.shape[split_axis] ==
+    n``)."""
+    if tiled:
+        if x.shape[split_axis] % n:
+            raise ValueError(
+                f"all_to_all: dim {split_axis} ({x.shape[split_axis]}) does "
+                f"not divide the axis size ({n})")
+        parts = x.detach().chunk(n, dim=split_axis)
+    else:
+        if x.shape[split_axis] != n:
+            raise ValueError(
+                f"all_to_all(tiled=False): dim {split_axis} "
+                f"({x.shape[split_axis]}) must equal the axis size ({n})")
+        parts = x.detach().unbind(split_axis)
+    send = torch.stack([p.contiguous() for p in parts])
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if tiled:
+        return torch.cat(recv.unbind(0), dim=concat_axis)
+    return torch.stack(recv.unbind(0), dim=concat_axis)
+
+
+class _AllToAllAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split_axis, concat_axis, tiled):
+        ctx.args = (group, n, concat_axis, split_axis, tiled)
+        return _exchange(x, group, n, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the inverse exchange: split where the forward concatenated
+        return (_exchange(g, *ctx.args), None, None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis, split_axis: int, concat_axis: int,
+               *, tiled: bool = True) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=tiled)``
+    over ``axis``.  Differentiable; its backward is the inverse
+    exchange."""
+    group, n, _ = _axis(axis)
+    split_axis %= x.dim()
+    concat_axis %= x.dim()
+    if n == 1:
+        if tiled:
+            return x
+        return x.movedim(split_axis, concat_axis)
+    return _AllToAllAxis.apply(x, group, n, split_axis, concat_axis, tiled)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, mean):
+        ctx.scale = 1.0 / n if mean else None
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y / n if mean else y
+
+    @staticmethod
+    def backward(ctx, g):
+        # the result is replicated and counted once: each rank's input
+        # takes the cotangent as it stands (Megatron's g)
+        return (g if ctx.scale is None else g * ctx.scale), None, None, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a replicated value used by every rank's own computation: its
+        # cotangent is the sum of theirs (Megatron's f)
+        g = g.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, axis) -> torch.Tensor:
+    """Sum over ``axis``, replicated on every rank of it; the backward
+    passes the cotangent through (``lax.psum`` under replication
+    tracking; Megatron's row-parallel rejoin)."""
+    group, n, _ = _axis(axis)
+    return x if n == 1 else _Psum.apply(x, group, n, False)
+
+
+def pmean(x: torch.Tensor, axis) -> torch.Tensor:
+    """Mean over ``axis``; the backward scales the cotangent by ``1 /
+    n``."""
+    group, n, _ = _axis(axis)
+    return x if n == 1 else _Psum.apply(x, group, n, True)
+
+
+def pvary(x: torch.Tensor, axis) -> torch.Tensor:
+    """The identity, whose backward sums the cotangent over ``axis``: mark
+    a replicated value entering each rank's own computation (JAX's
+    implicit ``pvary``; Megatron's column-parallel entry)."""
+    group, n, _ = _axis(axis)
+    return x if n == 1 else _Pvary.apply(x, group)
+
+
+def pmax(x: torch.Tensor, axis) -> torch.Tensor:
+    """Elementwise maximum over ``axis`` (``lax.pmax``); no gradient."""
+    group, n, _ = _axis(axis)
+    if n == 1:
+        return x
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y

@@ -89,6 +89,7 @@ _ARG_ENV_MAP = {
     "serve_kv_mode": (envmod.SERVE_KV_MODE, "serve.kv-mode"),
     "serve_page_size": (envmod.SERVE_PAGE_SIZE, "serve.page-size"),
     "serve_kv_pages": (envmod.SERVE_KV_PAGES, "serve.kv-pages"),
+    "serve_width": (envmod.SERVE_WIDTH, "serve.width"),
     "serve_weights_dir": (envmod.SERVE_WEIGHTS_DIR, "serve.weights-dir"),
     "serve_swap_poll_steps": (
         envmod.SERVE_SWAP_POLL_STEPS,
@@ -113,8 +114,6 @@ _AUTOSCALE = ("A13", "serving autoscale, whose controller reads the live "
 # command line or in a config file, raises NotPortedError before anything
 # spawns (runner.check_ported); none is accepted and then ignored.
 NOT_PORTED_KNOBS = {
-    "serve_width": ("serve.width", "A11", "width-sharded serving fleets "
-                    "(tensor parallelism)"),
     **{attr: (key, *_AUTOSCALE) for attr, key in (
         ("serve_autoscale", "serve.autoscale"),
         ("max_workers", "serve.max-workers"),

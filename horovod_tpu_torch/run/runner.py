@@ -22,8 +22,8 @@ flags.  ``--serve`` (which implies ``--elastic``) runs a serving fleet:
 the launcher's front door ingests client requests into the store, and each
 rank runs ``python -m horovod_tpu_torch.serve`` unless a command is given.
 ``--discover-nics`` prints the interfaces every host can reach.  The
-reference's flags whose planes the port does not carry (width-sharded
-serving, serving autoscale, the observability planes) parse, and raise
+reference's flags whose planes the port does not carry (serving
+autoscale, the observability planes) parse, and raise
 :class:`~horovod_tpu_torch.exceptions.NotPortedError` naming their ROADMAP
 item before anything spawns.
 """
@@ -290,7 +290,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
              "same hash.  A dead frontend's shards are adopted by the "
              "lowest survivor and the serving epoch is re-minted.",
     )
-    _not_ported(serve, ["--serve-width"], type=int, dest="serve_width")
+    serve.add_argument(
+        "--serve-width", type=int, action=_StoreOverrideAction,
+        dest="serve_width", default=None,
+        help="Width-sharded serving fleet (HVDTPU_SERVE_WIDTH, default "
+             "0 = replicated standbys): the world splits into np//width "
+             "serving groups, each serving its partition of the request "
+             "log; above 1 the ranks of a group hold one Megatron shard "
+             "each of the model (one GPU per rank) and decode together "
+             "over a torch.distributed group re-formed every epoch.",
+    )
     _not_ported(serve, ["--serve-autoscale"], action="store_true",
                 dest="serve_autoscale")
     for flag, kind in (("--scale-up-queue", int),

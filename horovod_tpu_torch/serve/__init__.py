@@ -45,8 +45,11 @@ python -m horovod_tpu_torch.serve --size small``, or from Python)::
     print(job.client.result(rid)["tokens"])
     job.stop()
 
+* :mod:`.longctx`: long-context serving over a sequence-sharded slot
+  cache (Ulysses prefill, merged partial-softmax decode).
+
 Not ported yet: the reference's ``autoscale`` (ROADMAP A13: its
-controller reads the live telemetry plane) and ``longctx`` (A11).
+controller reads the live telemetry plane).
 """
 
 from .engine import SlotEngine, prompt_bucket  # noqa: F401

@@ -52,9 +52,8 @@ def parse_spec(argv=None) -> dict:
                    help="KV page-pool size (default: worst case)")
     p.add_argument("--width", type=int, default=None,
                    help="width-sharded fleet: np//width serving groups "
-                        "(default 0 = replicated); a width above 1 shards "
-                        "each rank's decode and is not ported yet "
-                        "(ROADMAP A11)")
+                        "(default 0 = replicated); above 1 the ranks of a "
+                        "group each hold a Megatron shard of the model")
     p.add_argument("--attention", default="reference",
                    choices=["reference", "flash"],
                    help="attention implementation of the served model's "
@@ -106,12 +105,6 @@ def parse_spec(argv=None) -> dict:
         "width": pick(args.width, envmod.SERVE_WIDTH, int, 0),
         "overrides": {"attention_impl": args.attention},
     }
-    if spec["width"] > 1:
-        from ..exceptions import NotPortedError  # noqa: PLC0415
-
-        raise NotPortedError(
-            f"--width {spec['width']}: width-sharded serving is not ported "
-            f"yet (ROADMAP A11: tensor parallelism)")
     if args.cpu:
         spec["device"] = "cpu"
     kv_pages = pick(args.kv_pages, envmod.SERVE_KV_PAGES, int, 0)

@@ -15,9 +15,15 @@ Modes:
   through its block table, resident KV bytes track tokens written, and
   admission is judged in free pages (:meth:`SlotEngine.can_admit`).
   ``"contiguous"`` keeps the worst-case-row pool.
-* ``width > 1`` (the reference's tensor-parallel serving over a
-  ``(replica, width)`` mesh) waits for tensor parallelism and raises
-  ``NotPortedError`` naming A11.
+* ``width > 1``: tensor-parallel serving.  The engine is one of the
+  ``width`` processes of a width group (``width_axis``: a name of
+  ``basics.init_axes``, by default :data:`WIDTH_AXIS`, or a process
+  group), each with its own GPU, where the reference shards over the
+  local devices of one process.  Each holds its Megatron shard of the
+  model (``models.decode.WidthShard``) and a paged pool of its
+  ``kv_heads / width`` heads; a step costs two all-reduces a block, and
+  every rank of the group computes the same logits and so picks the
+  same tokens.  Paged mode only, as in the reference.
 * per-request sampling: temperature / top-k picks keyed on ``(request
   id, emission index, serve seed)`` (``serve/sampling.py``), so every rank
   derives the same token and a replay reproduces the stream.
@@ -43,8 +49,8 @@ import numpy as np
 import torch
 
 from ..models.decode import (
-    assign_slot, assign_slot_paged, decode_step, decode_step_paged,
-    init_cache, init_paged_pool,
+    WidthShard, assign_slot, assign_slot_paged, decode_step,
+    decode_step_paged, init_cache, init_paged_pool,
 )
 from . import sampling
 from .paged import PagedKV, pages_for
@@ -54,8 +60,9 @@ __all__ = ["SlotEngine", "prompt_bucket", "kv_occupancy", "WIDTH_AXIS",
 
 _MIN_BUCKET = 8
 
-# Mesh axis names of the reference's serving width shard (the (replica,
-# width) view of its mesh conventions).
+# Axis names of the reference's serving width shard (the (replica, width)
+# view of its mesh conventions); a width group is registered under
+# WIDTH_AXIS (basics.init_axes).
 REPLICA_AXIS = "replica"
 WIDTH_AXIS = "width"
 
@@ -136,22 +143,28 @@ class SlotEngine:
                  page_size: int = 16,
                  num_pages: Optional[int] = None,
                  width: int = 1,
+                 width_axis=WIDTH_AXIS,
                  sample_seed: int = 0):
-        if int(width or 1) > 1:
-            from .. import NotPortedError  # noqa: PLC0415
-
-            raise NotPortedError(
-                f"width={width}: width-sharded serving is not ported "
-                "yet (ROADMAP A11: tensor parallelism)")
         if kv_mode not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_mode {kv_mode!r}")
         self.model = model
         self.cfg = cfg = model.cfg
         self.num_slots = num_slots
         self.kv_mode = kv_mode
-        self.width = 1
+        self.width = int(width or 1)
+        self.width_axis = width_axis
         self.sample_seed = int(sample_seed)
         self.device = next(model.parameters()).device
+        # what the decode functions run: the model, or this rank's shard
+        # (None until a width axis is bound: bind_width_axis)
+        self.runner = model
+        if self.width > 1:
+            if kv_mode != "paged":
+                raise ValueError(
+                    "width sharding requires kv_mode='paged' (the width-"
+                    "sharded decode program is the paged one)")
+            self.runner = (self._shard(model.state_dict())
+                           if width_axis is not None else None)
         # Serving context cap: never beyond the model's trained context (a
         # learned-positions model NaN-poisons past max_len, and prefill
         # rejects prompts beyond it).
@@ -170,7 +183,8 @@ class SlotEngine:
             # The virtual slot length the step sees (whole pages).
             self.cache_len = self.paged.max_pages_per_slot * self.page_size
             self.cache = init_paged_pool(model, self.num_pages,
-                                         self.page_size, num_slots)
+                                         self.page_size, num_slots,
+                                         kv_heads=cfg.kv_heads // self.width)
         else:
             self.cache = init_cache(model, num_slots, max_len)
             self.cache_len = int(self.cache["k"].shape[2])
@@ -184,6 +198,28 @@ class SlotEngine:
         self._bkey = np.zeros((num_slots,) + sampling.KEY_SHAPE, np.int64)
         self._sidx = np.zeros(num_slots, np.int64)
         self._tables_dev: Optional[torch.Tensor] = None
+
+    def _shard(self, params) -> WidthShard:
+        """This rank's :class:`WidthShard` of ``params``."""
+        from ..ops.collectives import _axis  # noqa: PLC0415
+        from ..parallel.tensor_parallel import (  # noqa: PLC0415
+            local_shard, stack_tp_params)
+
+        _, n, index = _axis(self.width_axis)
+        if n != self.width:
+            raise ValueError(
+                f"width={self.width} but the width axis "
+                f"{self.width_axis!r} has {n} ranks")
+        sharded, replicated = stack_tp_params(params, self.cfg, self.width)
+        return WidthShard(self.cfg, local_shard(sharded, index), replicated,
+                          self.width_axis)
+
+    def bind_width_axis(self, width_axis) -> None:
+        """(Re)bind a width-sharded engine to its width group (a serving
+        fleet forms a new one every epoch) and drop every slot."""
+        self.width_axis = width_axis
+        self.runner = self._shard(self.model.state_dict())
+        self.reset()
 
     def _tables(self) -> torch.Tensor:
         """Device block tables, kept until an admit / release / page
@@ -251,7 +287,7 @@ class SlotEngine:
             self.paged.admit(slot, len(seq), max(total, len(seq)))
             self._tables_dev = None
             self.cache, last = assign_slot_paged(
-                self.model, self.cache, self._tables(), slot, tokens,
+                self.runner, self.cache, self._tables(), slot, tokens,
                 len(seq))
         else:
             self.cache, last = assign_slot(self.model, self.cache, slot,
@@ -298,7 +334,7 @@ class SlotEngine:
                 if self.paged.ensure_capacity(s):
                     self._tables_dev = None
             logits, self.cache = decode_step_paged(
-                self.model, self.cache, self._tables(), cur, write_mask)
+                self.runner, self.cache, self._tables(), cur, write_mask)
         else:
             logits, self.cache = decode_step(self.model, self.cache, cur,
                                              write_mask)
@@ -368,7 +404,8 @@ class SlotEngine:
     def set_params(self, params) -> None:
         """Swap the served weights in place between decode steps:
         ``params`` is a state dict of the same model (names and shapes);
-        the KV cache is untouched, in-flight requests continue over it."""
+        the KV cache is untouched, in-flight requests continue over it.
+        A width-sharded engine restacks them into its shard."""
         own = self.model.state_dict()
         mismatch = sorted(set(own) ^ set(params)) or [
             n for n in own if tuple(params[n].shape) != tuple(own[n].shape)]
@@ -379,6 +416,8 @@ class SlotEngine:
                 f"different model")
         with torch.no_grad():
             self.model.load_state_dict(params)
+        if self.runner is not None and self.width > 1:
+            self.runner = self._shard(self.model.state_dict())
 
     # ------------------------------------------------------------- reset
 
@@ -388,8 +427,9 @@ class SlotEngine:
         if self.paged is not None:
             self.paged.reset()
             self._tables_dev = None
-            self.cache = init_paged_pool(self.model, self.num_pages,
-                                         self.page_size, self.num_slots)
+            self.cache = init_paged_pool(
+                self.model, self.num_pages, self.page_size, self.num_slots,
+                kv_heads=self.cfg.kv_heads // self.width)
         else:
             self.cache = init_cache(self.model, self.num_slots,
                                     self.cache_len)

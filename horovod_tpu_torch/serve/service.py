@@ -34,8 +34,19 @@ growing with total requests ever served.
 reference also streams them to its live telemetry plane and traces
 requests (ROADMAP A13), which the port does not carry yet.  Left out
 until then: the serving divergence sentinel (``--health``, A13),
-serving autoscale (A13: its only caller of :class:`RankDroppedError`
-here), and the width-sharded fleet (``width`` > 0, A11).
+and serving autoscale (A13: its only caller of :class:`RankDroppedError`
+here).
+
+A width-sharded fleet (``spec["width"] > 1``) serves each group's
+requests with one Megatron-sharded engine spread over the group's ranks,
+one GPU each (the reference shards over each rank's local devices).  The
+ranks of a group meet in a ``torch.distributed`` group formed at the
+start of every epoch (:func:`_form_width_group`): the process's default
+group is replaced by one over the group's ranks, rendezvousing on a TCP
+store the group leader hosts for that epoch.  A peer's death fails the
+group's collectives, which the loop takes as a world break: it destroys
+the group (a peer blocked in one of its collectives fails at once),
+re-rendezvouses, and the next epoch forms the group anew.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from .._obs import goodput as obs_goodput
 from .._obs import memplane
 from .._obs import progress as obs_progress
 from .._obs import slo as obs_slo
+from ..basics import DP_AXIS
 from ..elastic.exceptions import HorovodShutdownError
 from ..ops import flash_attention as fa
 from ..testing.faults import maybe_fail
@@ -138,8 +150,8 @@ DEFAULT_SPEC: Dict[str, Any] = {
                              # the world splits into size // width
                              # serving GROUPS, each serving the log
                              # partition n % groups == g.  width > 1
-                             # shards each rank's decode (A11, not
-                             # ported: SlotEngine raises)
+                             # shards the group's decode over its ranks
+                             # (a Megatron shard each)
     "device": None,          # None = this rank's GPU (cuda:local_rank);
                              # "cpu" serves on the CPU (tests)
     "idle_secs": 0.01,       # leader pacing when nothing is in flight
@@ -182,6 +194,80 @@ def _fleet_shape(world, rank, width: int):
         return groups, None, [], True
     group = idx // width
     return groups, group, list(world[group * width:(group + 1) * width]), False
+
+
+# seconds a width group's collective may wait on a peer before failing
+# (a dead or departed peer turns into a world break, not a hang)
+WIDTH_GROUP_TIMEOUT_SECS = 60
+
+
+def _store_host() -> str:
+    """The address the group leader publishes for its store."""
+    import socket  # noqa: PLC0415
+
+    try:
+        return socket.gethostbyname(socket.gethostname())
+    except OSError:
+        return "127.0.0.1"
+
+
+def _form_width_group(ctx, engine, epoch: int, group: int, group_world):
+    """Form this epoch's width group: the process's default
+    ``torch.distributed`` group is destroyed and re-initialized over the
+    ranks of ``group_world`` (rank = position in it), rendezvousing on a
+    TCP store the group leader starts and publishes under the epoch's KV
+    scope; then the engine is bound to it.  NCCL on CUDA, gloo on the
+    CPU.  The group keeps the store alive."""
+    from datetime import timedelta  # noqa: PLC0415
+
+    import torch.distributed as dist  # noqa: PLC0415
+
+    me, n = group_world.index(ctx.rank), len(group_world)
+    scope, key = _epoch_scope(epoch), f"width_store/{group}"
+    timeout = timedelta(seconds=WIDTH_GROUP_TIMEOUT_SECS)
+    if me == 0:
+        store = dist.TCPStore("0.0.0.0", 0, n, True, timeout=timeout,
+                              wait_for_workers=False)
+        ctx.kv.put(scope, key, f"{_store_host()}:{store.port}".encode())
+    else:
+        host, port = _fetch(ctx, scope, key,
+                            f"width group {group}'s store").decode() \
+            .rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), n, False, timeout=timeout)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    backend = "nccl" if engine.device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=store, rank=me, world_size=n,
+                            timeout=timeout)
+    # by name, resolved at each call: a reference held to the group would
+    # keep its connections open after _leave_width_group destroys it
+    engine.bind_width_axis(DP_AXIS)
+    LOG.info("epoch %d: rank %d is width shard %d/%d of group %d",
+             epoch, ctx.rank, me, n, group)
+
+
+def _leave_width_group() -> None:
+    """Destroy this rank's width group at a world break, before the
+    rendezvous: a peer still blocked in one of its collectives fails at
+    once (its connection closes) instead of waiting out the timeout while
+    the rendezvous waits for it."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _width_group_failed(exc: BaseException) -> bool:
+    """A failed collective of the width group (a peer died or left)."""
+    import torch.distributed as dist  # noqa: PLC0415
+
+    dist_error = getattr(dist, "DistError", None)
+    if dist_error is not None and isinstance(exc, dist_error):
+        return True
+    text = str(exc)
+    return isinstance(exc, RuntimeError) and any(
+        word in text for word in ("gloo", "Gloo", "NCCL", "Connection",
+                                  "closed", "Timed out", "timed out"))
 
 
 def _fetch(ctx, scope: str, key: str, what: str) -> bytes:
@@ -389,6 +475,8 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
             # pace its stop/world probes gently so a parked rank does
             # not tax the store the serving groups are using.
             time.sleep(max(float(spec.get("idle_secs", 0.01)), 0.05))
+    if width > 1:
+        _form_width_group(ctx, engine, epoch, group, group_world)
     leader = group_world[0]
     is_leader = ctx.rank == leader
     # The GLOBAL leader (lowest live rank) owns the compaction
@@ -1082,19 +1170,14 @@ def serve_worker(spec: Optional[dict] = None):
 
     obs_progress.set_phase("compile")
     width = int(spec.get("width") or 0)
-    if width > 1:
-        from ..exceptions import NotPortedError  # noqa: PLC0415
-
-        raise NotPortedError(
-            f"serving width {width}: width-sharded fleets are not ported "
-            f"yet (ROADMAP A11: tensor parallelism)")
     model = build_model(spec)
+    # a width-sharded engine is bound to its group each epoch
     engine = SlotEngine(
         model, spec["num_slots"], spec.get("max_len"),
         kv_mode=spec.get("kv_mode") or "paged",
         page_size=int(spec.get("page_size") or 16),
         num_pages=spec.get("kv_pages"),
-        width=max(width, 1),
+        width=max(width, 1), width_axis=None,
         sample_seed=int(spec.get("seed") or 0),
     )
     # The serving MFU accountant's interface (its gauges are A13's):
@@ -1154,8 +1237,13 @@ def serve_worker(spec: Optional[dict] = None):
                 "completed": totals["completed"],
                 "tokens": totals["tokens"],
             }
-        except HorovodShutdownError as exc:
+        except (HorovodShutdownError, RuntimeError) as exc:
+            if not isinstance(exc, HorovodShutdownError) and not (
+                    width > 1 and _width_group_failed(exc)):
+                raise
             LOG.warning("serving world broke (%s); re-forming", exc)
+            if width > 1:
+                _leave_width_group()
             ctx.notify_world_broken()
             reg = get_registry()
             reg.counter("serve.world_breaks").inc()

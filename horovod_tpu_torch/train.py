@@ -48,12 +48,23 @@ def _check_dtype(dtype: str) -> None:
                          f"{dtype!r}")
 
 
+# the weight of the MoE blocks' aux losses in the training loss (the
+# reference bench's 0.01 x their sum)
+MOE_AUX_WEIGHT = 0.01
+
+
 def lm_loss(model, toks: torch.Tensor) -> torch.Tensor:
     """Next-token cross entropy on fp32 logits (the reference's
-    ``softmax_cross_entropy_with_integer_labels(...).mean()``)."""
-    logits = model(toks[:, :-1])
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+    ``softmax_cross_entropy_with_integer_labels(...).mean()``), plus
+    ``MOE_AUX_WEIGHT`` times the sum of the MoE blocks' aux losses when
+    the model has experts."""
+    losses: list = []
+    logits = model(toks[:, :-1], losses=losses)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            toks[:, 1:].reshape(-1))
+    if losses:
+        loss = loss + MOE_AUX_WEIGHT * torch.stack(losses).sum()
+    return loss
 
 
 def make_adamw(params) -> torch.optim.AdamW:
@@ -82,6 +93,11 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
     :class:`~horovod_tpu_torch.optim.overlap.OverlapPlan` of that mode
     with buckets of ``grad_bucket_mb`` (None: ``HVDTPU_GRAD_BUCKET_MB`` or
     16).
+
+    ``moe_experts > 0`` gives every block a mixture of experts (top 2,
+    capacity factor 2, routing groups of 4096: the reference model's
+    defaults), and the loss adds ``MOE_AUX_WEIGHT`` times the blocks' aux
+    losses, as the reference's step does.
     """
     _check_dtype(dtype)
     if overlap_mode not in MODES:

@@ -46,9 +46,23 @@ inputs:
   negotiation times, and its cycles, responses and fused responses per
   step.
 
-Prints three JSON lines (every rank's checks, rank 0's training runs, the
-verdict) and exits nonzero if any check fails on any rank.  Times are the
-host clock around ``torch.cuda.synchronize()``.
+* the parallel schedules (``a11``, ROADMAP A11): on gpt-small at full
+  width in fp32 with TF32 off (12 heads: tp 4 holds 3 a rank), batch 4,
+  seq 1024, each rank holds against the unsharded model, which it computes
+  itself from the same seed-0 weights and tokens, the loss and the
+  gradients of ring, zigzag and Ulysses attention at sp = the world, of
+  ``tp_gpt_apply`` at tp = the world, ``pp_gpt_loss`` at pp = the world,
+  ``pp_gpt_loss_circular`` at pp 2 x circles 2, ``pp_tp_gpt_loss`` at
+  pp 2 x tp 2, ``moe_mlp_ep`` at ep = the world against ``moe_mlp`` (the
+  reference's gradient recipe), ``sharded_decode_attention`` against the
+  replicated decode, and a width-2 ``SlotEngine`` per pair of ranks
+  against the replicated engine's greedy streams.  :func:`a11_checks`
+  runs the same at any world size (``chip_smoke.py`` at a world of one).
+
+``--only a11`` runs that section alone.  Prints three JSON lines (every
+rank's checks, rank 0's training runs, the verdict) and exits nonzero if
+any check fails on any rank.  Times are the host clock around
+``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
@@ -65,7 +79,7 @@ import sys
 import time
 import traceback
 
-__all__ = ["main"]
+__all__ = ["main", "a11_checks", "a11_failures"]
 
 LENGTH = 4099          # not a multiple of any local size
 TOL = 1e-5             # fp32 sums of a few terms in another order
@@ -89,9 +103,16 @@ def _rows(world: int, seed: int = 0):
 
 
 def _rel(got, want) -> float:
+    """Largest difference over the largest reference value (numpy arrays
+    or tensors)."""
     import numpy as np
 
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    def arr(x):
+        if hasattr(x, "detach"):
+            x = x.detach().double().cpu().numpy()
+        return np.asarray(x, np.float64)
+
+    got, want = arr(got), arr(want)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
@@ -454,8 +475,369 @@ def _training(hvd, torch, cpu: bool) -> dict:
     return out
 
 
-def _failures(checks: dict, train: dict) -> list:
+# ---------------------------------------------------------------------------
+# the parallel schedules (ROADMAP A11)
+# ---------------------------------------------------------------------------
+
+# the fp32 gates: losses as train_fp32's (chip_smoke.FP32_LOSS_RTOL), the
+# gradients' largest difference against the unsharded model's largest
+# gradient (sums over ranks and microbatches in other orders)
+A11_LOSS_RTOL = 1e-5
+A11_GRAD_RTOL = 1e-4
+# the MoE layer at gpt-small width, 8 experts (2 a rank at ep 4)
+A11_EXPERTS = 8
+# greedy streams of the width-sharded engine: requests and tokens
+A11_ENGINE = {"slots": 4, "prompt": 24, "new": 16}
+# a diverging greedy token is allowed only at a near tie of the
+# replicated model's logits
+A11_MARGIN = 1e-3
+
+
+def _a11_config(small: bool):
+    """(model overrides, batch, seq): gpt-small at full width, or a small
+    fp32 model (the CPU's, and the GPU test's)."""
+    import torch
+
+    if small:
+        return (dict(num_layers=4, num_heads=4, emb_dim=64, max_len=64,
+                     vocab_size=256, dtype=torch.float32), 4, 32)
+    return dict(dtype=torch.float32), 4, 1024
+
+
+def _a11_layouts(world: int) -> dict:
+    """Axis sizes of each check at this world size."""
+    pp2 = 2 if world % 2 == 0 else 1
+    tp2 = 2 if world % 4 == 0 else 1
+    return {"sp": {"sp": world}, "tp": {"tp": world}, "pp": {"pp": world},
+            "ep": {"ep": world}, "seq": {"seq": world},
+            "circular": {"dp": world // pp2, "pp": pp2},
+            "pp_tp": {"dp": world // (pp2 * tp2), "pp": pp2, "tp": tp2},
+            "width": {"replica": world // pp2, "width": pp2}}
+
+
+def _tree_rel(got: dict, want: dict) -> float:
+    from .parallel.tensor_parallel import flat_params
+
+    got, want = flat_params(got), flat_params(want)
+    return max(_rel(got[k], want[k]) for k in want)
+
+
+def a11_checks(hvd, torch, cpu: bool, small=None) -> dict:
+    """Every A11 schedule at this world's size against the unsharded model
+    on this rank (see the module docstring); per check the loss's relative
+    difference, the gradients' (``grad_rel``), the host ms of one forward
+    and backward and, where the kernels run, their launches.  ``small``
+    (default: on the CPU) takes the small model.  TF32 matmuls are off for
+    the checks and restored after."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return _a11_checks(hvd, torch, cpu,
+                           cpu if small is None else small)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _a11_checks(hvd, torch, cpu: bool, small: bool) -> dict:
+    import numpy as np
+    import torch.nn.functional as F
+
+    from . import basics
+    from .models import decode, gpt
+    from .ops import flash_attention as fa
+    from .ops.collectives import _axis
+    from .parallel import (
+        MoEParams, init_moe_params, local_shard, moe_mlp, moe_mlp_ep,
+        pp_gpt_loss, pp_gpt_loss_circular, pp_tp_gpt_loss, stack_pp_params,
+        stack_pp_params_circular, stack_tp_params, stack_tp_pp_params,
+        tp_gpt_apply, zigzag_positions, zigzag_shard)
+    from .parallel.tensor_parallel import param_tree
+    from .serve.longctx import sharded_decode_attention
+
+    world, rank = hvd.size(), hvd.rank()
+    dev = hvd.device()
+    over, batch, seq = _a11_config(small)
+    layouts = _a11_layouts(world)
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+
+    def model_of(impl, **kw):
+        return gpt("nano" if small else "small", device=dev,
+                   attention_impl=impl, generator=torch.Generator()
+                   .manual_seed(0), **over, **kw)
+
+    vocab = model_of("reference").cfg.vocab_size
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, vocab, (batch, seq + 1))).to(dev)
+    toks, tgt = tokens[:, :-1], tokens[:, 1:]
+
+    def nll(logits, y):
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               y.reshape(-1))
+
+    def leaves(tree):
+        return {k: (leaves(v) if isinstance(v, dict)
+                    else v.detach().clone().requires_grad_())
+                for k, v in tree.items()}
+
+    def grads(tree):
+        return {k: (grads(v) if isinstance(v, dict) else v.grad)
+                for k, v in tree.items()}
+
+    refs = {}
+    for impl in ("reference", "flash"):
+        model = model_of(impl)
+        loss = nll(model(toks), tgt)
+        loss.backward()
+        refs[impl] = (loss.item(), {n: p.grad.detach().clone()
+                                    for n, p in model.named_parameters()})
+        del model
+    base = model_of("flash")
+
+    def timed(fn):
+        sync()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = fn()
+        loss.backward()
+        sync()
+        return loss, (time.perf_counter() - t0) * 1e3, dict(fa.LAUNCHES)
+
+    def record(loss, ms, launches, ref, grad_rel):
+        loss = loss.item()
+        return {"loss": loss, "loss_rel": abs(loss - ref[0]) / abs(ref[0]),
+                "grad_rel": grad_rel, "ms": ms,
+                "launches": {k: v for k, v in launches.items() if v}}
+
+    out = {}
+    # -- sequence parallelism: this rank's shard of every row; the mean
+    # token loss summed over the axis, the parameter gradients too
+    basics.init_axes(layouts["sp"])
+    s_loc = seq // world
+    for impl in ("ring", "zigzag", "ulysses"):
+        model = model_of(impl, sp_axis="sp")
+        if impl == "zigzag":
+            zz = lambda t: zigzag_shard(t, world, axis=1)  # noqa: E731
+            tk = zz(toks)[:, rank * s_loc:(rank + 1) * s_loc]
+            ty = zz(tgt)[:, rank * s_loc:(rank + 1) * s_loc]
+            kw = {"positions": zigzag_positions(rank, world, s_loc,
+                                                device=dev)}
+        else:
+            tk = toks[:, rank * s_loc:(rank + 1) * s_loc]
+            ty = tgt[:, rank * s_loc:(rank + 1) * s_loc]
+            kw = {"pos_offset": rank * s_loc}
+        loss, ms, launches = timed(lambda: nll(model(tk, **kw), ty) / world)
+        total = loss.detach().clone()
+        g = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        if world > 1:
+            torch.distributed.all_reduce(total)
+            for t in g.values():
+                torch.distributed.all_reduce(t)
+        ref = refs["reference"]
+        out[f"sp_{impl}"] = record(total, ms, launches, ref, max(
+            _rel(g[n], ref[1][n]) for n in ref[1]))
+        del model
+
+    # -- tensor parallelism: whole heads a rank, flash attention on them
+    basics.init_axes(layouts["tp"])
+    ref = refs["flash"]
+    sh, rep = stack_tp_params(base, base.cfg, world)
+    sh, rep = leaves(local_shard(sh, rank)), leaves(rep)
+    loss, ms, launches = timed(
+        lambda: nll(tp_gpt_apply(sh, rep, base.cfg, toks, "tp"), tgt))
+    want_sh, want_rep = stack_tp_params(ref[1], base.cfg, world)
+    out["tp"] = record(loss, ms, launches, ref, max(
+        _tree_rel(grads(sh), local_shard(want_sh, rank)),
+        _tree_rel(grads(rep), want_rep)))
+    out["tp"]["heads_per_rank"] = base.cfg.num_heads // world
+
+    # -- the pipelines: one microbatch a sequence row
+    def pipeline(name, layout, stack, run, index):
+        coords = basics.init_axes(layout)
+        st, rp = stack(base)
+        st, rp = leaves(index(st, coords)), leaves(rp)
+        loss, ms, launches = timed(lambda: run(st, rp))
+        want_st, want_rp = stack(ref[1])
+        out[name] = record(loss, ms, launches, ref, max(
+            _tree_rel(grads(st), index(want_st, coords)),
+            _tree_rel(grads(rp), want_rp)))
+
+    pp_idx = lambda t, c: local_shard(t, c["pp"])  # noqa: E731
+    pipeline("pp", layouts["pp"],
+             lambda m: stack_pp_params(m if isinstance(m, dict)
+                                       else m.state_dict(), base.cfg, world),
+             lambda st, rp: pp_gpt_loss(st, rp, base.cfg, toks, tgt, "pp",
+                                        microbatches=batch), pp_idx)
+    pp2 = layouts["circular"]["pp"]
+    pipeline("pp_circular", layouts["circular"],
+             lambda m: stack_pp_params_circular(
+                 m if isinstance(m, dict) else m.state_dict(), base.cfg,
+                 pp2, 2),
+             lambda st, rp: pp_gpt_loss_circular(
+                 st, rp, base.cfg, toks, tgt, "pp", microbatches=batch,
+                 circles=2), pp_idx)
+    lay = layouts["pp_tp"]
+
+    def tp_pp_stack(m):
+        a, b, c = stack_tp_pp_params(m if isinstance(m, dict)
+                                     else m.state_dict(), base.cfg,
+                                     lay["pp"], lay["tp"])
+        return {"sh": a, "srep": b}, c
+
+    def tp_pp_index(t, c):
+        p, q = c["pp"], c["tp"]
+        from .parallel.tensor_parallel import _map
+
+        return {"sh": _map(lambda a: a[p:p + 1, q:q + 1], t["sh"]),
+                "srep": local_shard(t["srep"], p)}
+
+    pipeline("pp_tp", lay, tp_pp_stack,
+             lambda st, rp: pp_tp_gpt_loss(st["sh"], st["srep"], rp,
+                                           base.cfg, toks, tgt, "pp", "tp",
+                                           microbatches=batch), tp_pp_index)
+
+    # -- expert parallelism against the dense layer, the reference's
+    # recipe: the router's gradient averaged over the axis, the experts'
+    # divided by its size
+    basics.init_axes(layouts["ep"])
+    d = base.cfg.emb_dim
+    p = init_moe_params(torch.Generator().manual_seed(1), d, 4 * d,
+                        A11_EXPERTS, device=dev)
+    x = (torch.randn((world * 2, seq, d), generator=torch.Generator()
+                     .manual_seed(2)) * 0.5).to(dev)
+    e_loc = A11_EXPERTS // world
+    mine = slice(rank * e_loc, (rank + 1) * e_loc)
+    lp = MoEParams(p.router.clone().requires_grad_(),
+                   *(t[mine].clone().requires_grad_() for t in p[1:]))
+    xr = x[rank * 2:(rank + 1) * 2]
+    sync()
+    t0 = time.perf_counter()
+    y, aux = moe_mlp_ep(xr, lp, "ep")
+    ((y ** 2).mean() + 0.01 * aux).backward()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    dp = MoEParams(*(t.clone().requires_grad_() for t in p))
+    total = 0.0
+    for r in range(world):
+        yd, auxd = moe_mlp(x[r * 2:(r + 1) * 2], dp)
+        total = total + ((yd ** 2).mean() + 0.01 * auxd) / world
+        if r == rank:
+            y_want, aux_want = yd.detach(), auxd.item()
+    total.backward()
+    router = lp.router.grad.clone()
+    if world > 1:
+        torch.distributed.all_reduce(router)
+        router /= world
+    aux_all = aux.detach().clone()
+    out["moe_ep"] = {
+        "y_rel": _rel(y, y_want), "ms": ms, "aux": float(aux_all),
+        "grad_rel": max([_rel(router, dp.router.grad)] + [
+            _rel(getattr(lp, f).grad / world, getattr(dp, f).grad[mine])
+            for f in ("w1", "b1", "w2", "b2")]),
+        "aux_dense_rank": aux_want, "experts_per_rank": e_loc}
+
+    # -- long-context decode: this rank's chunk of every slot's cache
+    basics.init_axes(layouts["seq"])
+    cfg = base.cfg
+    gen = torch.Generator().manual_seed(3)
+    b_dec, s_dec = 8, seq
+    q = torch.randn((b_dec, cfg.num_heads, cfg.head_dim), generator=gen)
+    kc = torch.randn((b_dec, s_dec, cfg.kv_heads, cfg.head_dim),
+                     generator=gen)
+    vc = torch.randn(kc.shape, generator=gen)
+    pos = torch.randint(0, s_dec, (b_dec,), generator=gen)
+    q, kc, vc, pos = (t.to(dev) for t in (q, kc, vc, pos))
+    chunk = s_dec // world
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        got = sharded_decode_attention(
+            cfg, q, kc[:, rank * chunk:(rank + 1) * chunk],
+            vc[:, rank * chunk:(rank + 1) * chunk], pos, "seq")
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = decode._attend_cached(cfg, q, kc, vc, pos)
+    out["sharded_decode"] = {"rel": _rel(got, want), "ms": ms}
+
+    # -- a width-sharded engine per pair of ranks against the replicated
+    # engine on this rank: the same greedy streams, or a divergence only at
+    # a near tie of the replicated model's logits
+    lay = layouts["width"]
+    if lay["width"] > 1:
+        basics.init_axes(lay)
+        out["width_engine"] = _width_engine_check(torch, base, dev)
+    basics.init_axes({"world": world})
+    return out
+
+
+def _width_engine_check(torch, model, dev) -> dict:
+    import numpy as np
+
+    from .serve import SlotEngine
+
+    n = A11_ENGINE["slots"]
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, model.cfg.vocab_size,
+                           A11_ENGINE["prompt"] - 3 * i).tolist()
+               for i in range(n)]
+    new = A11_ENGINE["new"]
+
+    def streams(width):
+        eng = SlotEngine(model, n, kv_mode="paged", page_size=16,
+                         width=width)
+        toks = {s: [eng.admit(s, p)] for s, p in enumerate(prompts)}
+        for _ in range(new - 1):
+            for s, t in eng.step(list(toks)).items():
+                toks[s].append(t)
+        return [toks[s] for s in range(n)], eng
+
+    t0 = time.perf_counter()
+    got, eng = streams(2)
+    ms = (time.perf_counter() - t0) * 1e3
+    heads = int(eng.cache["k"].shape[3])
+    want, _ = streams(1)
+    compared, near_ties = 0, 0
+    with torch.inference_mode():
+        for prompt, g, w in zip(prompts, got, want):
+            logits = model(torch.tensor([prompt + w[:-1]], device=dev))[0]
+            scores = logits[len(prompt) - 1:].float().cpu().numpy()
+            for i, (a, b) in enumerate(zip(g, w)):
+                compared += 1
+                if a != b:
+                    top = np.sort(scores[i])[-2:]
+                    if top[1] - top[0] > A11_MARGIN:
+                        return {"ok": False, "compared": compared,
+                                "diverged_at": i, "gap": float(
+                                    top[1] - top[0])}
+                    near_ties += 1
+                    break
+    return {"ok": True, "compared": compared, "near_ties": near_ties,
+            "ms": ms, "pool_kv_heads": heads}
+
+
+def a11_failures(checks: dict) -> list:
+    """The A11 checks out of bounds."""
     bad = []
+    for name, c in checks.items():
+        if name.startswith(("sp_", "tp", "pp")):
+            if not (c["loss_rel"] <= A11_LOSS_RTOL
+                    and c["grad_rel"] <= A11_GRAD_RTOL):
+                bad.append(f"a11 {name}: loss {c['loss_rel']:.2e} grad "
+                           f"{c['grad_rel']:.2e}")
+    c = checks["moe_ep"]
+    if not (c["y_rel"] <= A11_LOSS_RTOL and c["grad_rel"] <= A11_GRAD_RTOL
+            and math.isfinite(c["aux"])):
+        bad.append(f"a11 moe_ep: {c}")
+    if checks["sharded_decode"]["rel"] > A11_LOSS_RTOL:
+        bad.append(f"a11 sharded_decode: {checks['sharded_decode']}")
+    if "width_engine" in checks and not checks["width_engine"]["ok"]:
+        bad.append(f"a11 width_engine: {checks['width_engine']}")
+    return bad
+
+
+def _failures(checks: dict, train: dict) -> list:
+    if "eager" not in checks:  # --only a11
+        return a11_failures(checks["a11"])
+    bad = a11_failures(checks["a11"])
     e = checks["eager"]
     for name, c in e.items():
         if isinstance(c, dict) and "rel_err" in c and (
@@ -514,7 +896,7 @@ def _failures(checks: dict, train: dict) -> list:
     return bad
 
 
-def _worker(rank, world, local_size, port, cpu, out):
+def _worker(rank, world, local_size, port, cpu, out, only):
     os.environ.update({
         "HVDTPU_RANK": str(rank), "HVDTPU_SIZE": str(world),
         "HVDTPU_LOCAL_RANK": str(rank % local_size),
@@ -534,11 +916,14 @@ def _worker(rank, world, local_size, port, cpu, out):
         # machine, so the world's ranks are spread over them
         device = "cpu" if cpu else f"cuda:{rank % torch.cuda.device_count()}"
         hvd.init(device=device)
-        checks = _collective_checks(hvd, torch)
-        with _engine_env(HVDTPU_SCHEDULE_REPLAY_CYCLES=REPLAY_CYCLES):
-            checks["eager"] = _eager_checks(hvd, torch, cpu)
-        checks["eager_two_level"] = _two_level_checks(hvd, torch)
-        train = _training(hvd, torch, cpu)
+        checks, train = {}, {}
+        if only != "a11":
+            checks = _collective_checks(hvd, torch)
+            with _engine_env(HVDTPU_SCHEDULE_REPLAY_CYCLES=REPLAY_CYCLES):
+                checks["eager"] = _eager_checks(hvd, torch, cpu)
+            checks["eager_two_level"] = _two_level_checks(hvd, torch)
+            train = _training(hvd, torch, cpu)
+        checks["a11"] = a11_checks(hvd, torch, cpu)
         out.put((rank, True, {"checks": checks, "train": train,
                               "failures": _failures(checks, train)}))
     except BaseException:  # noqa: BLE001 - reported to the parent, re-raised
@@ -559,6 +944,9 @@ def main(argv=None) -> int:
                    help="a gloo world on the CPU (a rehearsal of the "
                    "paths; its times are no device's)")
     p.add_argument("--timeout", type=float, default=900.0)
+    p.add_argument("--only", choices=["a11"], default=None,
+                   help="run one section alone (a11: the parallel "
+                   "schedules)")
     args = p.parse_args(argv)
     import torch
 
@@ -579,7 +967,8 @@ def main(argv=None) -> int:
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     procs = [ctx.Process(target=_worker, args=(r, world, args.local_size,
-                                                port, args.cpu, out))
+                                                port, args.cpu, out,
+                                                args.only))
              for r in range(world)]
     for proc in procs:
         proc.start()

@@ -286,21 +286,30 @@ def test_bench_cli_prints_an_images_record():
 
 def test_what_is_not_ported_raises():
     """fp8 is ResNet's only (VGG and Inception refuse it, as the reference's
-    bench does); the serving bench's width-sharded fleet is not ported
-    (A11)."""
+    bench does); the bench refuses the width-sharded fleet outside paged
+    mode and experts on a conv model."""
     for name in ("vgg16", "inception3"):
         with pytest.raises(ValueError, match="resnet-only"):
             build_step(name, "fp8", 2, 32, device="cpu")
     assert ResNet18(act_store_dtype=torch.float8_e4m3fn).act \
         is not torch.nn.functional.relu
-    from horovod_tpu_torch.bench import _check_ported, _parser
+    from horovod_tpu_torch.bench import _check_args, _parser
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        _check_ported(_parser().parse_args(["--model", "gpt-small",
+    # the width-sharded fleet is ported (A11); what the bench still
+    # refuses is a width-sharded fleet outside paged mode and experts on
+    # a conv model
+    with pytest.raises(ValueError, match="paged"):
+        _check_args(_parser().parse_args(["--model", "gpt-small",
                                             "--serve", "--serve-width",
-                                            "2"]))
+                                            "2", "--serve-kv-mode",
+                                            "contiguous"]))
+    with pytest.raises(ValueError, match="gpt-"):
+        _check_args(_parser().parse_args(["--model", "resnet50",
+                                            "--moe-experts", "8"]))
+    _check_args(_parser().parse_args(["--model", "gpt-small", "--serve",
+                                        "--serve-width", "2"]))
     for name in ("resnet50", "resnet101", "resnet18", "vgg16", "vgg19",
                  "inception3"):
         for dtype in ("bf16", "fp32", "fp8"):
-            _check_ported(_parser().parse_args(["--model", name,
+            _check_args(_parser().parse_args(["--model", name,
                                                 "--dtype", dtype]))

@@ -25,7 +25,6 @@ import torch
 from _torch_serving import check_margin
 from horovod_tpu.models import decode as jd
 from horovod_tpu.models.transformer import gpt as jax_gpt
-from horovod_tpu_torch import NotPortedError
 from horovod_tpu_torch.models import decode as td
 from horovod_tpu_torch.models import gpt, params_from_jax
 from horovod_tpu_torch.ops import prng
@@ -303,16 +302,27 @@ def test_cache_validation_errors(pairs):
 
 
 def test_width_sharded_decoding_is_not_ported(pairs):
-    _, _, tm = pairs["learned"]
-    pool = td.init_paged_pool(tm, 4, 4, 2)
-    tables = torch.full((2, 2), 4, dtype=torch.int64)
-    with pytest.raises(NotPortedError, match="A11"):
-        td.decode_step_paged(tm, pool, tables, torch.zeros(2, dtype=torch.int64),
-                             tp_axis="width")
-    with pytest.raises(NotPortedError, match="A11"):
-        td.assign_slot_paged(tm, pool, tables, 0,
-                             torch.zeros(4, dtype=torch.int64),
-                             tp_axis="width")
+    """Width sharding is ported (``WidthShard``; width 2 is held against
+    the reference in ``test_torch_width_serving.py``).  Here a width
+    group of one in a spawned world: the shard's paged admission and
+    decode steps give the model's own logits, and its pool holds every
+    kv head."""
+    import _torch_parallel
+    import _torch_world
+
+    jm, params, tm = pairs["learned"]
+    cfg = dict(num_layers=2, num_heads=4, emb_dim=64, max_len=32,
+               vocab_size=256, attention_impl="reference")
+    prompts = [_prompt(b=1, s=9, seed=4)[0].tolist(),
+               _prompt(b=1, s=5, seed=5)[0].tolist()]
+    (res,) = _torch_world.run_world(
+        _torch_parallel.width_worker,
+        ({"learned": (jax.tree_util.tree_map(np.asarray, params), cfg,
+                      prompts)}, 3, "learned"), world=1, timeout=60)
+    width, repl = res["learned"]["width"], res["learned"]["replicated"]
+    _close(width[0], repl[0], 1e-6)
+    _close(width[1], repl[1], 1e-6)
+    assert width[2] == repl[2] and width[2][3] == tm.cfg.kv_heads
 
 
 def test_paged_decode_matches_jax(pairs):

@@ -169,8 +169,8 @@ def test_config_file_layering_matches_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--serve-width", "2"], "A11"),
-    (["--serve-width", "1"], "A11"),
+    (["--alert-skew-ms", "5"], "A13"),
+    (["--health-check-steps", "10"], "A13"),
     (["--scale-up-queue", "4"], "A13"),
     (["--serve-autoscale"], "A13"),
     (["--max-workers", "4"], "A13"),

@@ -214,10 +214,11 @@ def test_worker_flags_give_the_references_spec(argv, env, monkeypatch):
 
 
 def test_worker_width_above_one_names_a11():
-    from horovod_tpu_torch.exceptions import NotPortedError
-
-    with pytest.raises(NotPortedError, match="ROADMAP A11"):
-        parse_spec(["--width", "2"])
+    """``--width 2`` is ported: the worker's spec carries it, as the
+    reference's does (the fleet itself: ``test_torch_width_serving.py``)."""
+    got = parse_spec(["--width", "2"])
+    assert got == jax_parse_spec(["--width", "2"])
+    assert got["width"] == 2
 
 
 # ---------------------------------------------------------------------------

@@ -167,7 +167,7 @@ def test_the_serving_and_run_names_exist_under_the_references_names():
 
 @pytest.mark.parametrize("flags,item", [
     (["--serve-autoscale"], "A13"),
-    (["--serve-width", "2"], "A11"),
+    (["--scale-up-queue", "4"], "A13"),
 ])
 def test_hvdrun_serving_refusals_name_their_item(flags, item):
     from horovod_tpu_torch.run import runner
@@ -175,3 +175,52 @@ def test_hvdrun_serving_refusals_name_their_item(flags, item):
     args = runner.parse_args(["-np", "2", "--serve", *flags, "python", "x"])
     with pytest.raises(hvd.NotPortedError, match=f"ROADMAP {item}"):
         runner.check_ported(args)
+
+
+def _parallel_names():
+    import horovod_tpu.parallel as jparallel
+
+    return sorted(n for n in getattr(jparallel, "__all__", dir(jparallel))
+                  if not n.startswith("_")
+                  and not isinstance(getattr(jparallel, n), type(jparallel)))
+
+
+PARALLEL_NAMES = _parallel_names()
+
+
+def test_the_parallel_names_were_read():
+    """The reference's ``horovod_tpu.parallel`` exports 28 names (its
+    function ``ring_attention`` shadows the module of that name)."""
+    assert len(PARALLEL_NAMES) == 28, PARALLEL_NAMES
+    assert "ring_attention" in PARALLEL_NAMES
+
+
+@pytest.mark.parametrize("name", PARALLEL_NAMES)
+def test_the_parallel_names_are_ported(name):
+    """ROADMAP A11: every name of ``horovod_tpu.parallel`` is the port's
+    own, from ``horovod_tpu_torch``."""
+    import horovod_tpu_torch.parallel as tparallel
+
+    obj = getattr(tparallel, name)
+    assert obj.__module__.startswith("horovod_tpu_torch."), name
+
+
+def test_no_port_error_names_a11():
+    """After A11 no ``NotPortedError`` or ``NotImplementedError`` the port
+    raises names it, and no table of what is not ported lists it."""
+    import ast
+    from pathlib import Path
+
+    import horovod_tpu_torch
+    from horovod_tpu_torch.run.config_parser import NOT_PORTED_KNOBS
+
+    root = Path(horovod_tpu_torch.__file__).parent
+    for path in root.rglob("*.py"):
+        text = path.read_text()
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.Raise) and node.exc is not None:
+                raised = ast.get_source_segment(text, node)
+                if "NotPorted" in raised or "NotImplemented" in raised:
+                    assert "A11" not in raised, (path, node.lineno)
+    assert all(item != "A11" for item, _ in hvd.NOT_PORTED.values())
+    assert all(v[1] != "A11" for v in NOT_PORTED_KNOBS.values())

@@ -134,12 +134,23 @@ def test_named_sizes_match_the_reference():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"attention_impl": "ring"}, "A11"),
-    ({"moe_experts": 4}, "A11"),
+    ({"attention_impl": "ring"}, "requires sp_axis"),
+    ({"moe_experts": 4}, "dense blocks only"),
 ])
 def test_unported_options_raise(overrides, item):
-    with pytest.raises(NotImplementedError, match=item):
-        gpt("nano", device="cpu", **overrides)
+    """The A11 options build (sequence parallelism and MoE are ported;
+    ``test_torch_ring_attention.py`` and ``test_torch_moe.py`` hold them
+    against the reference); what they still refuse raises: a sequence
+    schedule without its axis, and an MoE model's KV-cache decode (dense
+    blocks only, as in the reference)."""
+    from horovod_tpu_torch.models import decode
+
+    tm = gpt("nano", device="cpu", dtype=torch.float32, **overrides)
+    with pytest.raises(ValueError, match=item):
+        if tm.cfg.moe_experts:
+            decode.init_cache(tm, 1, 16)
+        else:
+            tm(torch.zeros((1, 16), dtype=torch.long))
 
 
 def test_reference_impl_rejects_window():
