@@ -240,6 +240,33 @@ through their launch helpers.  Phases, one JSON line each:
    from the kill to the first token after it, the flip's step, the card
    beside each.
 
+17. ``obs``: the observability planes (after ``elastic``).  (i) gpt-small
+   bf16 (``GPT_STEP``, full width and depth) in ``bucket`` mode, 6 steps
+   through ``python -m horovod_tpu_torch.run -np 1 python chip_smoke.py
+   --obs-worker`` twice: with every observability flag off, and with
+   ``--metrics-dump``, ``--flightrec-dump``, ``--trace`` (sample rate 1),
+   ``--stats-summary``, ``--live-stats-secs 0.5``, ``--live-history-file``,
+   ``--health on``, ``--health-check-steps 2`` and ``--divergence-action
+   halt``.  Gates: both exit 0; the losses equal bit for bit; each run
+   launches exactly ``MAIN_PATH``, 12 a step; each step's health bundle
+   has the step's loss, a ``grad_norm`` within ``OBS_GRAD_RTOL`` of the
+   norm of the reduced gradients taken independently (fp32, accumulated in
+   fp64) and ``nonfinite`` 0; the on-card digest of the parameters equals
+   the numpy host digest of the same parameters; the metrics dump parses,
+   the summary prints its health section, the merged trace is JSON with
+   one step span per step, the live history has a round, and no
+   ``postmortem.json`` is written.  (ii) Two elastic gpt-nano bf16 ranks
+   sharing the card, their gradients averaged over the launcher's KV store
+   (``elastic.context().allreduce``), ``OBS_ELASTIC_STEPS`` steps under
+   ``--health on``, run 3 times: clean (no alert); with
+   ``grad_ready:rank=1:step=3:action=flip_bits`` and ``--divergence-action
+   dump``, where both ranks name rank 1, the same bucket and leaf (the
+   leaf the flipped element lies in), and each rank's ring dump holds the
+   divergence; with ``worker_exit:rank=1:step=3:action=abort`` and no
+   respawn, where the launcher exits non-zero and ``postmortem.json``
+   blames rank 1 (the three launchers side by side).  Printed: step ms with and without the flags (host
+   clock around a device synchronize), the phase's wall time, the card.
+
 Then the ``kernels`` summary, one record per kernel and route shape (its
 launches from that route's run: ``train`` at ``bf16_main``,
 ``train_fp32`` at ``fp32_main``, ``train_nano`` at ``bf16_nano``; the
@@ -1978,7 +2005,7 @@ def eager(hvd, fa, train_run) -> dict:
     plane's fused allreduce on a 1-rank NCCL group against its plain
     version."""
     import horovod_tpu_torch.interop.torch as ht
-    from horovod_tpu_torch._obs import get_registry
+    from horovod_tpu_torch.obs import get_registry
     from horovod_tpu_torch.train import make_adamw
 
     step, state = gpt_with(lambda m: ht.DistributedOptimizer(
@@ -3374,7 +3401,7 @@ def elastic_worker() -> int:
 
     import torch
 
-    from horovod_tpu_torch import _obs, elastic
+    from horovod_tpu_torch import obs, elastic
     from horovod_tpu_torch.ckpt import tree
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.ops import kernels
@@ -3440,7 +3467,7 @@ def elastic_worker() -> int:
                     schema=save.manifest["schema"])
 
     loop(state)
-    reg = _obs.get_registry()
+    reg = obs.get_registry()
     push_ms = reg.histogram("ckpt.replica_push_ms")
     opt_state = [t for per in opt.state_dict()["state"].values()
                  for _, t in sorted(per.items())]
@@ -3566,6 +3593,354 @@ def elastic_phase(train_step_ms: float) -> dict:
     return runs
 
 
+# ``obs`` phase: the full-width run's steps and the bundle's grad-norm
+# bound (its norm is fp32 sums by bucket; the check's fp64 over every
+# element); the elastic gpt-nano runs' shape, steps and faults.  The
+# gradient allreduce of step k is the k-th elastic collective, so step=3
+# is step 3's.
+OBS_STEPS = 6
+OBS_GRAD_RTOL = 1e-3
+OBS_NANO = ("nano", "bf16", 8, 256)
+OBS_ELASTIC_STEPS = 4
+OBS_FLIP = "grad_ready:rank=1:step=3:action=flip_bits"
+OBS_ABORT = "worker_exit:rank=1:step=3:action=abort"
+
+
+def _load_built_kernels(who: str) -> None:
+    from horovod_tpu_torch.ops import kernels
+
+    missing = [n for n, ok in kernels.built().items() if not ok]
+    if missing:
+        raise RuntimeError(f"{who}: kernels not built: {missing}")
+    kernels.build_all()  # loads the parent's libraries; compiles nothing
+
+
+def obs_worker(out_path: str) -> int:
+    """``python chip_smoke.py --obs-worker OUT``: ``GPT_STEP`` in
+    ``bucket`` mode for ``OBS_STEPS`` steps under whatever observability
+    the launcher armed (``--health`` builds the plan with the health
+    bundle and feeds ``StepHealth``); writes the losses, step times,
+    launches, bundles, the reduced gradients' norms and the digest check
+    to ``OUT``."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.obs import divergence
+    from horovod_tpu_torch.obs.health import HealthConfig, StepHealth
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import build_gpt_step
+
+    _load_built_kernels("obs worker")
+    cfg = HealthConfig.from_env()
+    step, (model, plan, toks), _ = build_gpt_step(
+        *GPT_STEP, overlap_mode="bucket", health=cfg.enabled)
+    sh = StepHealth(plan, rank=basics.rank(), config=cfg) \
+        if cfg.enabled else None
+    fa.reset_launch_counts()
+    res = {"losses": [], "step_ms": [], "bundles": [], "grad_norms": []}
+    for k in range(1, OBS_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(model, plan, toks)
+        if sh is not None:
+            sh.after_step(k, out[3])
+        loss = float(out[2])            # waits for the device
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        res["losses"].append(loss)
+        if sh is not None:
+            res["bundles"].append(out[3].tolist())
+            flat = torch.cat([p.grad.reshape(-1).float()
+                              for p in model.parameters()])
+            res["grad_norms"].append(float(torch.linalg.vector_norm(
+                flat, dtype=torch.float64)))
+    res["launches"] = dict(fa.LAUNCHES)
+    if sh is not None:
+        sh.drain()
+        on_card = divergence.digest_matrix_host(
+            sh._digest(*plan.params)).ravel()
+        host, _ = divergence.tree_digest_vector(
+            [p.detach() for p in plan.params], plan.layout)
+        res["digest_equal"] = bool(np.array_equal(on_card, host))
+        res["digest_buckets"] = len(plan.layout.buckets)
+        res["checks"] = sh.sentinel.checks
+        res["alerts"] = sh.monitor.judge.alerts_total
+        res["observed"] = len(sh.observed)
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def obs_elastic_worker() -> int:
+    """``python chip_smoke.py --obs-elastic-worker``: one of two elastic
+    ranks training ``OBS_NANO`` (``bucket`` mode, health bundle on), its
+    gradients averaged over the launcher's KV store by the elastic
+    context's allreduce (one collective a step), the divergence sentinel
+    every ``HVDTPU_HEALTH_CHECK_STEPS`` steps over the same store.  Prints
+    one JSON line: the losses, the sentinel's reports and, on the rank a
+    ``flip_bits`` spec targets, the leaf its flipped element lies in."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.obs.health import HealthConfig, StepHealth
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.testing import faults
+    from horovod_tpu_torch.train import build_gpt_step, lm_loss
+
+    _load_built_kernels("obs elastic worker")
+    ctx = elastic.context()
+    ctx.start_heartbeat()
+    ctx.rendezvous()    # this epoch's membership: both ranks
+    _, (model, plan, _), _ = build_gpt_step(
+        *OBS_NANO, overlap_mode="bucket", health=True)
+    names = [n for n, _ in model.named_parameters()]
+    sh = StepHealth(plan, rank=ctx.rank, leaf_names=names,
+                    config=HealthConfig.from_env())
+    device = next(model.parameters()).device
+    toks = torch.from_numpy(np.random.RandomState(ctx.rank).randint(
+        0, model.cfg.vocab_size,
+        size=(OBS_NANO[2], OBS_NANO[3] + 1))).to(device)
+    fa.reset_launch_counts()
+    sizes = [g.numel() for g in plan._grads]
+    losses = []
+    for k in range(1, OBS_ELASTIC_STEPS + 1):
+        plan.zero_grad()
+        loss = lm_loss(model, toks)
+        loss.backward()
+        flat = torch.cat(plan._grads)
+        avg = ctx.allreduce(flat, name=f"grads{k}")
+        for g, piece in zip(plan._grads, torch.split(avg, sizes)):
+            g.copy_(piece)
+        plan.step(loss=loss.detach())
+        sh.after_step(k, plan.bundle)
+        losses.append(float(loss))
+    sh.drain()
+    flipped = None
+    spec = faults.parse_spec(__import__("os").environ.get(
+        faults.SPEC_ENV, ""))
+    for sp in spec:
+        if sp.action == "flip_bits" and sp.rank == ctx.rank:
+            probe = faults.corrupt_grad(
+                np.zeros(sum(sizes), np.float32), "flip_bits",
+                rank=ctx.rank, step=sp.step, name=f"grads{sp.step}")
+            pos = int(np.flatnonzero(probe)[0])
+            flipped = _leaf_at(plan, names, pos)
+    print(json.dumps({"event": "obs_result", "rank": ctx.rank,
+                      "losses": losses, "launches": dict(fa.LAUNCHES),
+                      "checks": sh.sentinel.checks, "flipped": flipped,
+                      "reports": [{"bucket": r.bucket, "leaf": r.leaf_name,
+                                   "minority": list(r.minority_ranks)}
+                                  for r in sh.reports]}), flush=True)
+    ctx.stop_heartbeat()
+    return 0
+
+
+def _leaf_at(plan, names, pos: int):
+    """(bucket, leaf name) of element ``pos`` of the plan's buckets'
+    gradients laid end to end."""
+    for b in plan.layout.buckets:
+        for i, size in zip(b.leaf_indices, b.sizes):
+            if pos < size:
+                return [b.index, names[i]]
+            pos -= size
+        pos -= b.pad
+    return None
+
+
+def obs_phase(train_step_ms: float) -> dict:
+    """Phase ``obs`` (the module docstring's 17)."""
+    import os
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.obs import trace_merge
+    from horovod_tpu_torch.ops import kernels
+
+    release()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="obs_", dir=kernels.build_dir())
+    want = {n: 12 * OBS_STEPS if n in MAIN_PATH else 0
+            for n in SOURCES}
+    try:
+        d = {k: os.path.join(root, k) + os.sep
+             for k in ("metrics", "flightrec", "trace")}
+        for path in d.values():
+            os.makedirs(path)
+        history = os.path.join(root, "live_history.jsonl")
+        flags = ("--metrics-dump", d["metrics"], "--flightrec-dump",
+                 d["flightrec"], "--trace", d["trace"],
+                 "--trace-sample-rate", "1", "--stats-summary",
+                 "--live-stats-secs", "0.5", "--live-history-file", history,
+                 "--health", "on", "--health-check-steps", "2",
+                 "--divergence-action", "halt")
+        runs = {}
+        for name, extra in (("off", ()), ("on", flags)):
+            res_path = os.path.join(root, f"{name}.json")
+            out, wall = hvdrun("-np", "1", *extra, sys.executable,
+                               os.path.abspath(__file__), "--obs-worker",
+                               res_path, timeout=600)
+            if out.returncode != 0:
+                raise AssertionError(f"obs run {name!r} exited "
+                                     f"{out.returncode}:\n"
+                                     f"{out.stderr[-6000:]}")
+            with open(res_path) as f:
+                runs[name] = json.load(f)
+            runs[name]["wall_s"] = wall
+            runs[name]["stdout"] = out.stdout
+        off, on = runs["off"], runs["on"]
+        if on["losses"] != off["losses"]:
+            raise AssertionError(f"losses with the flags {on['losses']} != "
+                                 f"without {off['losses']}")
+        for name, run in runs.items():
+            got = {n: run["launches"].get(n, 0) for n in want}
+            if got != want:
+                raise AssertionError(f"obs run {name!r}: launches {got} != "
+                                     f"{want}")
+        grad_rel = []
+        for loss, bundle, norm in zip(on["losses"], on["bundles"],
+                                      on["grad_norms"]):
+            if bundle[0] != loss or bundle[3] != 0:
+                raise AssertionError(f"bundle {bundle[:4]} vs loss {loss}")
+            grad_rel.append(abs(bundle[1] - norm) / norm)
+        if max(grad_rel) > OBS_GRAD_RTOL:
+            raise AssertionError(f"bundle grad_norm off by {grad_rel}")
+        if not on["digest_equal"] or on["checks"] != OBS_STEPS // 2:
+            raise AssertionError(f"digest {on['digest_equal']}, checks "
+                                 f"{on['checks']}")
+        dump = json.load(open(os.path.join(d["metrics"],
+                                           "metrics.rank.0.json")))
+        health = {m["name"]: m["value"] for m in dump["metrics"]
+                  if m["name"].startswith("health.") and not m["tags"]
+                  and "value" in m}
+        if dump["schema"] != "hvdtpu-metrics-v1" or \
+                health.get("health.divergence.checks") != OBS_STEPS // 2:
+            raise AssertionError(f"metrics dump: {dump['schema']} {health}")
+        if "== training health ==" not in on["stdout"]:
+            raise AssertionError("the summary has no health section:\n"
+                                 + on["stdout"][-3000:])
+        waterfall, _ = trace_merge.merged_output_paths(d["trace"])
+        events = json.load(open(waterfall))
+        events = events["traceEvents"] if isinstance(events, dict) \
+            else events
+        step_spans = [e for e in events if e.get("name") == "step"]
+        if len(step_spans) != OBS_STEPS:
+            raise AssertionError(f"{len(step_spans)} step spans")
+        rounds = open(history).read().splitlines()
+        if not rounds:
+            raise AssertionError("no live history round")
+        if os.path.exists(os.path.join(d["flightrec"], "postmortem.json")):
+            raise AssertionError("a clean run wrote a post-mortem")
+        elastic_runs = obs_elastic_runs(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    import statistics
+
+    # step 1 warms up; the sentinel checks after steps 2, 4 and 6
+    checked = [k for k in range(2, OBS_STEPS + 1) if k % 2 == 0]
+    plain = [k for k in range(2, OBS_STEPS + 1) if k % 2]
+    out = {"card": card_line(), "model": "gpt-small", "dtype": "bf16",
+           "overlap": "bucket", "steps": OBS_STEPS,
+           "step_ms_off": statistics.median(off["step_ms"][1:]),
+           "step_ms_on_without_check": statistics.median(
+               on["step_ms"][k - 1] for k in plain),
+           "step_ms_on_with_check": statistics.median(
+               on["step_ms"][k - 1] for k in checked),
+           "step_ms_off_all": off["step_ms"], "step_ms_on_all": on["step_ms"],
+           "train_step_ms": train_step_ms,
+           "launches_per_run": on["launches"], "losses": on["losses"],
+           "grad_norm_rel": grad_rel, "digest_buckets": on["digest_buckets"],
+           "health_checks": on["checks"], "health_alerts": on["alerts"],
+           "metrics_dump_health": health, "live_rounds": len(rounds),
+           "trace_events": len(events),
+           "wall_s": {"off": off["wall_s"], "on": on["wall_s"]},
+           "elastic": elastic_runs,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit("obs", **out)
+    return out
+
+
+def obs_elastic_runs(root: str) -> dict:
+    """Part (ii) of phase ``obs``: the elastic gpt-nano pair, clean, with
+    ``OBS_FLIP`` and with ``OBS_ABORT``; the three launchers run side by
+    side (six small processes on the card), each with its own store."""
+    import os
+
+    cases = (("clean", "", ("--divergence-action", "halt")),
+             ("flip", OBS_FLIP, ("--divergence-action", "dump")),
+             ("abort", OBS_ABORT, ("--max-elastic-retries", "0",
+                                   "--min-workers", "2")))
+    procs = {}
+    t0 = time.perf_counter()
+    for name, spec, extra in cases:
+        box = os.path.join(root, f"box_{name}")
+        os.makedirs(box)
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.run", "--elastic",
+               "-np", "2", "--health", "on", "--health-check-steps",
+               str(OBS_ELASTIC_STEPS), "--flightrec-dump", box, *extra,
+               sys.executable, os.path.abspath(__file__),
+               "--obs-elastic-worker"]
+        procs[name] = (box, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, HVDTPU_FAULT_SPEC=spec)))
+    outs = {}
+    try:
+        for name, (box, p) in procs.items():
+            out, err = p.communicate(timeout=600)
+            outs[name] = (box, p.returncode, out, err)
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    runs = {"wall_s": time.perf_counter() - t0}
+    for name, (box, rc, stdout, stderr) in outs.items():
+        results = {}
+        for rank in (0, 1):
+            for rec in tagged(stdout, rank):
+                if rec.get("event") == "obs_result":
+                    results[rank] = rec
+        run = {"rc": rc}
+        if name == "abort":
+            report = os.path.join(box, "postmortem.json")
+            if rc == 0 or not os.path.exists(report):
+                raise AssertionError(f"abort run: rc {rc}, no post-mortem:"
+                                     f"\n{stdout[-3000:]}")
+            pm = json.load(open(report))
+            if (pm.get("first_failure") or {}).get("rank") != 1:
+                raise AssertionError(f"post-mortem blames "
+                                     f"{pm.get('first_failure')}")
+            run["verdict"] = pm["verdict"]
+            runs[name] = run
+            continue
+        if rc != 0 or sorted(results) != [0, 1]:
+            raise AssertionError(f"elastic obs run {name!r} exited {rc}:\n"
+                                 f"{stderr[-6000:]}")
+        reports = [results[r]["reports"] for r in (0, 1)]
+        run.update(losses={r: results[r]["losses"] for r in (0, 1)},
+                   reports=reports[0], checks=results[0]["checks"])
+        if name == "clean" and any(reports):
+            raise AssertionError(f"clean run reported {reports}")
+        if name == "flip":
+            want = results[1]["flipped"]
+            for rep in reports:
+                if len(rep) != 1 or rep[0]["minority"] != [1] or \
+                        [rep[0]["bucket"], rep[0]["leaf"]] != want:
+                    raise AssertionError(f"flip reports {reports}, the "
+                                         f"flipped element in {want}")
+            for rank in (0, 1):
+                # epoch-tagged under the elastic launcher
+                ring = json.load(open(os.path.join(
+                    box, f"flightrec.e0.rank.{rank}.json")))
+                if not any(e["kind"] == "health.divergence"
+                           for e in ring["events"]):
+                    raise AssertionError(f"rank {rank}'s ring holds no "
+                                         f"divergence")
+            run["flipped"] = want
+        runs[name] = run
+    return runs
+
+
 def profile_step(state, step, step_ms: float, top: int = 12) -> dict:
     """One more step under torch.profiler: device time by kernel, the
     share of the timed (unprofiled) step the device was busy, the share of
@@ -3623,6 +3998,10 @@ def main(argv=()) -> int:
         return 2
     if list(argv) == ["--elastic-worker"]:
         return elastic_worker()
+    if list(argv) == ["--obs-elastic-worker"]:
+        return obs_elastic_worker()
+    if len(argv) == 2 and argv[0] == "--obs-worker":
+        return obs_worker(argv[1])
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}", file=sys.stderr)
         return 2
@@ -3686,6 +4065,7 @@ def main(argv=()) -> int:
     release()
     launcher_phase()
     elastic_phase(run["step_ms"])
+    obs_phase(run["step_ms"])
     serve_check()
     serve_run = serve(fa)
     sampler_check()

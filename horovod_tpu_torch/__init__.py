@@ -35,7 +35,9 @@ the training callbacks (``callbacks``); then serving (``serve``: decode,
 the slot engine, the front door, the elastic serving fleet behind
 ``python -m horovod_tpu_torch.run --elastic --serve``, ``ServeJob`` and
 the weight hot-swap), the function-shipping ``run.run(fn, np=...)`` and
-``cluster``.
+``cluster``; and the observability planes (``obs``: metrics dumps, the
+flight recorder and post-mortem, tracing, live telemetry, the memory
+plane, and the training-health and divergence planes).
 
 The names of the reference's top level that the port does not carry yet
 are in :data:`NOT_PORTED`, each with its ROADMAP item: reading one raises
@@ -127,6 +129,7 @@ from .optim import (
 )
 from .optim.overlap import OverlapPlan
 from .parallel.sync_batch_norm import SyncBatchNorm
+from . import obs
 
 __version__ = "0.1.0"
 
@@ -151,7 +154,7 @@ __all__ = [
     "broadcast_optimizer_state", "broadcast_object", "OverlapPlan",
     "overlap", "SyncBatchNorm", "NOT_PORTED", "NotPortedError",
     "Store", "LocalStore", "save_checkpoint", "save_checkpoint_async",
-    "restore_checkpoint", "latest_checkpoint_step", "callbacks",
+    "restore_checkpoint", "latest_checkpoint_step", "callbacks", "obs",
 ]
 
 
@@ -159,10 +162,8 @@ __all__ = [
 # port: name -> (ROADMAP item, what it is).  Keep in step with ROADMAP's
 # table of the same names.
 NOT_PORTED = {
-    "Estimator": ("A13", "the estimator frontend"),
-    "Model": ("A13", "the estimator frontend"),
-    "obs": ("A13", "the observability planes (the runtime calls their "
-            "hooks in the private _obs, whose bodies are stubs)"),
+    "Estimator": ("A13b", "the estimator frontend"),
+    "Model": ("A13b", "the estimator frontend"),
     **{name: ("A14", "a JAX SPMD object: the port runs one process per GPU "
               "and reduces through DistributedOptimizer / OverlapPlan over "
               "process groups (basics.group_of_axis)")

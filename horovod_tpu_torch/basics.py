@@ -347,7 +347,26 @@ def init(comm=None, device=None) -> Topology:
             local_group=local, cross_group=cross,
             engine_groups=engine_groups,
         )
-        return _topology
+    _arm_obs(_topology)
+    return _topology
+
+
+def _arm_obs(topo: Topology) -> None:
+    """Arm the observability planes at init (horovod_tpu/basics.py:
+    334-352): the first registry use installs the ``HVDTPU_METRICS_DUMP``
+    exit dump; the flight recorder's death hooks (excepthook,
+    threading.excepthook, SIGTERM/SIGABRT/SIGUSR1) make a rank killed by
+    a signal still flush its ring, its metrics and its final live delta;
+    the live stream starts when the launcher exported
+    ``HVDTPU_LIVE_STATS_SECS`` and a KV endpoint."""
+    from .obs import flightrec, get_registry  # noqa: PLC0415
+    from .obs import stream as obs_stream  # noqa: PLC0415
+
+    get_registry().gauge("process.rank").set(topo.process_rank)
+    flightrec.install_death_hooks()
+    flightrec.record("init", name=f"rank{topo.process_rank}",
+                     detail=f"world={topo.process_count}")
+    obs_stream.maybe_start_from_env()
 
 
 def shutdown() -> None:

@@ -46,19 +46,13 @@ import time
 
 import torch
 
+from .obs.profile import PEAK_FLOPS, peak_flops
 from .optim.overlap import MODES
 from .utils import env as envmod
 
 __all__ = ["PEAK_FLOPS", "BASELINE_IMAGES_PER_SEC", "conv_flops_per_image",
            "model_flops_per_step", "peak_flops", "serve_spec", "serve_trace",
            "serve_main", "main"]
-
-# Dense peak FLOP/s by device-name substring and compute dtype: NVIDIA's
-# H100 SXM data sheet (bf16 tensor cores; fp32 outside them).  fp32 runs
-# there only with TF32 off: PyTorch's default is off for matmuls but ON
-# for cuDNN convolutions, so ``train.build_step`` turns it off for fp32.
-# fp8 computes in bf16 (e4m3 is only the activations' storage).
-PEAK_FLOPS = {"H100": {"bf16": 989e12, "fp32": 67e12, "fp8": 989e12}}
 
 # Horovod's published per-GPU figure the reference's ``vs_baseline`` divides
 # by: tf_cnn_benchmarks ResNet-101, 1656.82 images/s over 16 Pascal GPUs
@@ -121,14 +115,6 @@ def conv_flops_per_image(model: str, image_size: int = 224,
             mod.register_forward_hook(count)
     net.eval()(torch.empty(1, 3, image_size, image_size, device="meta"))
     return 6 * sum(macs)
-
-
-def peak_flops(device_name: str, dtype: str):
-    """The dense peak for ``dtype`` on the named device, or None."""
-    for key, peaks in PEAK_FLOPS.items():
-        if key in device_name:
-            return peaks.get(dtype)
-    return None
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -206,6 +192,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (a check of the path; its numbers "
                    "are no device's)")
+    p.add_argument("--campaign", default=None, metavar="SPEC",
+                   help="not ported yet (ROADMAP A13b: the reference's "
+                   "resumable sweep of bench points)")
     return p
 
 
@@ -213,7 +202,13 @@ def _check_args(args) -> None:
     """Refuse, before anything is built, the combinations the port's bench
     cannot run: a width-sharded serving fleet outside paged mode (the
     width-sharded decode is the paged one, as in the reference), and
-    experts on a model without blocks."""
+    experts on a model without blocks.  ``--campaign`` raises
+    :class:`NotPortedError` (ROADMAP A13b)."""
+    if args.campaign is not None:
+        from .exceptions import NotPortedError
+
+        raise NotPortedError("bench --campaign is not ported yet (ROADMAP "
+                             "A13b: bench/campaign.py)")
     if args.serve and (args.serve_width or 0) > 1 \
             and args.serve_kv_mode != "paged":
         raise ValueError(
@@ -227,11 +222,15 @@ def _check_args(args) -> None:
 def run(args) -> dict:
     """Build, warm up and time the step; the record."""
     from . import basics
+    from .obs.health import HealthConfig, StepHealth
     from .ops import flash_attention as fa
     from .train import build_gpt_step, build_step
 
     gpt = args.model.startswith("gpt-")
     device = "cpu" if args.cpu else None
+    # --health (HVDTPU_HEALTH) arms the GPT step's health bundle, the
+    # anomaly judge and the divergence sentinel
+    health = gpt and HealthConfig.from_env().enabled
     if gpt:
         step, state, static = build_gpt_step(
             args.model[len("gpt-"):], args.dtype, args.batch_size,
@@ -240,7 +239,7 @@ def run(args) -> dict:
             attention_window=args.attention_window,
             moe_experts=args.moe_experts,
             overlap_mode=args.overlap, grad_bucket_mb=args.grad_bucket_mb,
-            device=device)
+            device=device, health=health)
     else:
         step, state, static = build_step(
             args.model, args.dtype, args.batch_size, args.image_size,
@@ -249,12 +248,19 @@ def run(args) -> dict:
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     carry = static["carry_len"]
+    monitor = (StepHealth(state[1], rank=basics.rank())
+               if health else None)
+    done = [0]
 
     def steps(n, state):
         loss = None
         for _ in range(n):
-            *out, loss = step(*state)
-            state = tuple(out) + state[carry:]
+            out = step(*state)
+            state = tuple(out[:carry]) + state[carry:]
+            loss = out[carry]
+            done[0] += 1
+            if monitor is not None:
+                monitor.after_step(done[0], out[carry + 1])
         return state, loss
 
     if cuda:
@@ -267,6 +273,8 @@ def run(args) -> dict:
     final_loss = float(loss)  # waits for the device
     sync()
     step_s = (time.perf_counter() - t0) / args.iters
+    if monitor is not None:
+        monitor.drain()
     if final_loss != final_loss or abs(final_loss) == float("inf"):
         raise RuntimeError(f"non-finite loss {final_loss}")
 
@@ -320,7 +328,41 @@ def run(args) -> dict:
     if layout is not None:
         record["buckets"] = len(layout.buckets)
         record["bucket_bytes"] = [b.nbytes for b in layout.buckets]
+    record["health"] = health_gauges(final_loss)
     return record
+
+
+def health_gauges(final_loss: float) -> dict:
+    """The headline health gauges every record carries (the root
+    ``bench.py:1583-1599``): ``health.loss`` and ``health.nonfinite`` from
+    the timed loop's final loss, the divergence checks and the nonfinite
+    total at their current counts (0 when ``--health`` was off), and, when
+    the step carried the health bundle, the grad-norm histogram's p50 and
+    the alerts fired."""
+    from .obs import get_registry
+
+    reg = get_registry()
+    reg.gauge("health.loss").set(final_loss)
+    reg.gauge("health.nonfinite").set(
+        0 if final_loss == final_loss and abs(final_loss) != float("inf")
+        else 1)
+    reg.counter("health.divergence.checks").inc(0)
+    reg.counter("health.nonfinite_total").inc(0)
+    out, alerts = {}, 0.0
+    for m in reg.snapshot():
+        name = m["name"]
+        if not name.startswith("health."):
+            continue
+        if name == "health.alerts":
+            alerts += float(m.get("value") or 0)
+        elif name == "health.grad_norm_hist":
+            if m.get("p50") is not None:
+                out["health.grad_norm_p50"] = m["p50"]
+        elif not m["tags"]:
+            out[name] = m["value"]
+    if alerts:
+        out["health.alerts_total"] = alerts
+    return out
 
 
 # seconds one serving run may take, start-up included

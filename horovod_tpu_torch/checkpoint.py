@@ -33,8 +33,8 @@ from typing import Any, List, Optional
 
 import numpy as np
 
-from ._obs import flightrec as _flightrec
-from ._obs import get_registry
+from .obs import flightrec as _flightrec
+from .obs import get_registry
 from .basics import rank, size
 from .ckpt import tree as _tree
 
@@ -117,7 +117,7 @@ class LocalStore(Store):
     def write_bytes(self, path: str, data: bytes) -> None:
         # per-call-unique tmp name + os.replace: a crash mid-save never
         # leaves a torn file for a later reader to select
-        from ._obs.pathspec import write_bytes_atomic  # noqa: PLC0415
+        from .obs.pathspec import write_bytes_atomic  # noqa: PLC0415
 
         write_bytes_atomic(path, data)
 
@@ -149,7 +149,7 @@ def _write_step(path: str, structure: dict, dtypes: List[str],
     written into a directory aside, which is then renamed into place (a
     re-save of the step replaces the old directory, the reference's
     overwrite)."""
-    from ._obs.pathspec import write_json_atomic  # noqa: PLC0415
+    from .obs.pathspec import write_json_atomic  # noqa: PLC0415
 
     tag = f"{os.getpid()}.{threading.get_ident()}"
     tmp, old = f"{path}.tmp.{tag}", f"{path}.old.{tag}"

@@ -37,8 +37,8 @@ import json
 import time
 from typing import List, Optional, Tuple
 
-from .._obs import flightrec as _flightrec
-from .._obs import get_registry
+from ..obs import flightrec as _flightrec
+from ..obs import get_registry
 from ..testing.faults import maybe_fail
 from ..utils import env as envmod
 from ..utils.logging import get_logger

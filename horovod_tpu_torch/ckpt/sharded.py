@@ -11,7 +11,7 @@ serialized I/O at production world sizes.  This format splits the work:
   arrays, read back with ``ckpt/tree.py``'s restricted loader) into
   ``shard_<rank>_of_<world>.bin`` plus a tiny ``*.meta.json`` sidecar
   carrying the payload's SHA-256, both written through the shared
-  atomic tmp+rename helper (_obs/pathspec.py) — a crash mid-save can
+  atomic tmp+rename helper (obs/pathspec.py) — a crash mid-save can
   never leave a torn shard that a later restore then selects.
 * **Manifest committed LAST by rank 0** — ``manifest.json`` records the
   schema, step, writer world size, the full leaf table (index, shard,
@@ -63,9 +63,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .._obs import flightrec as _flightrec
-from .._obs import get_registry
-from .._obs.pathspec import write_bytes_atomic, write_json_atomic
+from ..obs import flightrec as _flightrec
+from ..obs import get_registry
+from ..obs.pathspec import write_bytes_atomic, write_json_atomic
 from ..testing.faults import corrupt_bytes, maybe_fail
 from ..utils import env as envmod
 from ..utils.logging import get_logger

@@ -43,10 +43,10 @@ from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
-from .._obs import flightrec as obs_flightrec
-from .._obs import get_registry
-from .._obs import progress as obs_progress
-from .._obs import straggler as obs_straggler
+from ..obs import flightrec as obs_flightrec
+from ..obs import get_registry
+from ..obs import progress as obs_progress
+from ..obs import straggler as obs_straggler
 from ..run.rendezvous import KVStoreClient
 from ..testing.faults import corrupt_grad, maybe_fail
 from ..utils.env import env_float
@@ -141,6 +141,12 @@ class ElasticContext:
         budget."""
         if self._hb_thread is not None:
             return
+        # The live telemetry publisher rides the heartbeat lifecycle:
+        # same launcher KV endpoint, same signed PUT path, armed by the
+        # same spawn env (HVDTPU_LIVE_STATS_SECS).
+        from ..obs import stream as obs_stream  # noqa: PLC0415
+
+        obs_stream.maybe_start_from_env()
 
         def _beat():
             while True:

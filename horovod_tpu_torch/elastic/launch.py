@@ -44,17 +44,21 @@ def launch(
     progress_timeout: float = 300.0,
     progress_grace: float = 0.0,
     blacklist_cooldown: float = 10.0,
-    dump_grace_secs: Optional[float] = None,
+    dump_grace_secs: float = 5.0,
     timeout: Optional[float] = None,
+    live_stats_secs: Optional[float] = None,
+    live_history: Optional[str] = None,
 ) -> Tuple[Dict[int, Any], ElasticJobResult]:
     """Run ``fn(*args, **kwargs)`` on ``np`` elastic workers.
 
     ``fn`` runs under the ambient elastic context
     (``horovod_tpu_torch.elastic.context()``); wrap its training loop
     with ``elastic.run`` and keep its state in an ``elastic.State`` to
-    get rollback-and-resume on worker failure.  ``dump_grace_secs``
-    raises :class:`NotPortedError` when set (ROADMAP A13: the launcher
-    has no flight recorder to give the window to).
+    get rollback-and-resume on worker failure.  ``dump_grace_secs``: a
+    rank declared dead gets SIGUSR1 + SIGTERM and this long to dump its
+    flight recorder before SIGKILL.  ``live_stats_secs`` /
+    ``live_history``: the live telemetry plane
+    (:func:`~..run.runner.launch_elastic_job`).
     """
     from ..run.allocate import is_local_host  # noqa: PLC0415
     from ..run.runner import _resolve_host_slots  # noqa: PLC0415
@@ -82,6 +86,8 @@ def launch(
             dump_grace_secs=dump_grace_secs,
             job_timeout=timeout,
             kv_server=server,
+            live_stats_secs=live_stats_secs,
+            live_history=live_history,
         )
         results: Dict[int, Any] = {}
         for rank in job.world:

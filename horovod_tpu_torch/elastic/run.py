@@ -86,7 +86,7 @@ def run(fn):
             except HorovodShutdownError as exc:
                 reason = f"world failure: {exc}"
             recoveries += 1
-            from .._obs import get_registry  # noqa: PLC0415
+            from ..obs import get_registry  # noqa: PLC0415
 
             get_registry().counter("elastic.recoveries").inc()
             if recoveries > max_retries:

@@ -55,8 +55,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .._obs import flightrec as _flightrec
-from .._obs import get_registry
+from ..obs import flightrec as _flightrec
+from ..obs import get_registry
 from ..ckpt import tree as _tree
 from ..utils import env as envmod
 from ..utils.logging import get_logger

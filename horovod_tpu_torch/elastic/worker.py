@@ -27,8 +27,19 @@ _SCOPE = "elastic"
 
 
 def main() -> int:
+    import os  # noqa: PLC0415
+
+    # Death-path hooks first (main thread: signal handlers need it):
+    # everything after this point leaves a black box if it dies.
+    from ..obs import flightrec, goodput  # noqa: PLC0415
     from ..run.api import _dumps  # noqa: PLC0415
 
+    flightrec.install_death_hooks()
+    # The wall-clock goodput ledger rides the flight recorder's event
+    # tap from the first phase event: every second of this incarnation is
+    # classified and published as goodput.* gauges in its metrics dump.
+    goodput.install(epoch=int(os.environ.get("HVDTPU_ELASTIC_EPOCH",
+                                             "0") or 0))
     ctx = _set_ambient()
     if not isinstance(ctx, ElasticContext):  # pragma: no cover - misuse
         raise RuntimeError(

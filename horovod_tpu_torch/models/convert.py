@@ -13,7 +13,8 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "variables_from_jax", "tree_from_jax"]
+__all__ = ["params_from_jax", "variables_from_jax", "tree_from_jax",
+           "jax_leaf_names", "bucket_components"]
 
 # flax leaf name -> the port's
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
@@ -94,3 +95,64 @@ def tree_from_jax(tree: Mapping) -> dict:
         out[_LEAF.get(name, name) if name in ("kernel", "scale",
                                               "embedding") else name] = t
     return out
+
+
+def jax_leaf_names(tree: Mapping) -> list:
+    """The port's parameter name of each leaf of a flax tree, in the
+    reference's leaf order (``jax.tree_util``'s flatten order of a tree
+    of dicts: keys sorted at every level), so an index into the
+    reference's ``BucketLayout`` names the same parameter as the port's
+    ``state_dict``.  ``params`` at the top is dropped, as
+    :func:`variables_from_jax` drops it."""
+    tree = tree.get("params", tree)
+    names: list = []
+
+    def walk(sub: Mapping, prefix: str) -> None:
+        for key in sorted(sub):
+            val = sub[key]
+            if isinstance(val, Mapping):
+                walk(val, f"{prefix}{key}.")
+            else:
+                names.append(prefix + _LEAF.get(key, key))
+
+    walk(tree, "")
+    return names
+
+
+def bucket_components(port_layout, port_names, ref_layout,
+                      ref_names) -> list:
+    """Match the port's gradient buckets to the reference's over the
+    same parameters (both ``BucketLayout`` objects; ``*_names`` the parameter
+    name of each layout's leaf index, e.g. the port's
+    ``named_parameters()`` order and :func:`jax_leaf_names`).  The two
+    bucket the parameters in their own leaf orders, so a bucket of one
+    need not be a bucket of the other: the result is the connected
+    groups of buckets that share parameters, ``[(port bucket indices,
+    reference bucket indices)]``, over which per-bucket sums (squared
+    grad norms, digests' verdicts) can be compared.  Equal layouts give
+    one pair per bucket; one parameter per bucket gives a bijection."""
+    port_of = {port_names[i]: b.index for b in port_layout.buckets
+               for i in b.leaf_indices}
+    ref_of = {ref_names[i]: b.index for b in ref_layout.buckets
+              for i in b.leaf_indices}
+    if set(port_of) != set(ref_of):
+        raise ValueError("the layouts cover different parameters: "
+                         f"{sorted(set(port_of) ^ set(ref_of))[:4]}")
+    parent: dict = {}
+
+    def find(x):
+        while parent.setdefault(x, x) != x:
+            x = parent[x]
+        return x
+
+    for name in port_of:
+        parent[find(("p", port_of[name]))] = find(("r", ref_of[name]))
+    groups: dict = {}
+    for node in list(parent):
+        groups.setdefault(find(node), []).append(node)
+    out = []
+    for members in groups.values():
+        out.append((sorted(i for side, i in members if side == "p"),
+                    sorted(i for side, i in members if side == "r")))
+    return sorted(out)
+

@@ -1,8 +1,10 @@
 """Per-rank artifact paths and atomic writes (the parts of
 ``horovod_tpu/obs/pathspec.py`` the port's callers need, copied):
-``resolve`` and ``epoch_tag`` for the timeline and the autotune log,
-``write_bytes_atomic`` and ``write_json_atomic`` for the checkpoint
-tiers (``checkpoint.py``, ``ckpt/sharded.py``).
+``resolve`` and ``epoch_tag`` for every per-rank artifact (metrics,
+flight recorder, spans, the timeline, the autotune log), ``glob_pattern``,
+``rank_of_path`` and ``epoch_of_path`` for the launcher's aggregators, and
+``write_bytes_atomic`` / ``write_json_atomic`` for every artifact and the
+checkpoint tiers.
 """
 
 from __future__ import annotations
@@ -10,9 +12,14 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 from typing import Optional
 
-__all__ = ["resolve", "epoch_tag", "write_bytes_atomic", "write_json_atomic"]
+__all__ = ["resolve", "glob_pattern", "rank_of_path", "epoch_of_path",
+           "epoch_tag", "write_json_atomic", "write_bytes_atomic"]
+
+_RANK_RE = re.compile(r"(?:^|[^0-9a-zA-Z])rank[._]?(\d+)")
+_EPOCH_RE = re.compile(r"\.e(\d+)\.")
 
 # Per-call uniquifier for tmp names: pid alone is not enough when two
 # writers in one process (threads, or a signal handler interrupting a
@@ -79,3 +86,29 @@ def epoch_tag(path: str, epoch: Optional[str] = None) -> str:
         return path
     base, ext = os.path.splitext(path)
     return f"{base}.e{epoch}{ext}"
+
+
+def glob_pattern(raw: str, stem: str) -> str:
+    """The glob matching every per-rank file :func:`resolve` can derive
+    from ``raw`` (all ranks, all epochs) — what the launcher aggregates.
+    Never matches the merged/summary output path itself."""
+    if "{rank}" in raw:
+        return raw.replace("{rank}", "*")
+    if raw.endswith(os.sep) or os.path.isdir(raw):
+        return os.path.join(raw, f"{stem}.*rank*.json")
+    base, ext = os.path.splitext(raw)
+    return f"{base}.*rank*{ext or '.json'}"
+
+
+def rank_of_path(path: str) -> Optional[int]:
+    """Best-effort rank extraction from a per-rank filename
+    (``trace.rank.3.json``, ``trace.e1.rank.3.json``, ``rank_3`` ...)."""
+    m = None
+    for m in _RANK_RE.finditer(os.path.basename(path)):
+        pass  # keep the last match: epoch tags come before the rank tag
+    return int(m.group(1)) if m else None
+
+
+def epoch_of_path(path: str) -> Optional[int]:
+    m = _EPOCH_RE.search(os.path.basename(path))
+    return int(m.group(1)) if m else None

@@ -46,8 +46,22 @@ another; on CUDA the hook issues them on the plan's side stream, which
 waits for the bucket's gradients and which ``step()`` waits for, so the
 backward is not held up behind them.
 
-Not ported (each raises ``NotImplementedError``): ``health=True`` and the
-metrics gauges (A13), and ``inspect_schedule`` / ``donated_params`` /
+Health.  ``health=True`` makes ``step()`` also compute the training-health
+bundle (``obs/health.py``, :func:`~..obs.health.bundle_names` order: loss,
+global grad norm, max update/param ratio, nonfinite count, per-bucket grad
+norms) from the reduced gradients and the update it applies, into
+:attr:`OverlapPlan.bundle`, as the reference's ``local_step(health=True)``
+does.  It reads the plan's flat buffers with multi-tensor reductions
+(``torch._foreach_norm``): per bucket one fp32 norm, one nonfinite count
+over the whole gradient store (the buckets' gradients are views of one
+buffer per dtype), and the ratio as a max per leaf (per shard
+under ZeRO-1, whose sums and max are then reduced over the world, as the
+reference's ``psum``/``pmax``).  The update is ``new - old`` of a snapshot
+taken before the optimizer steps.  Nothing reads the bundle on the host:
+the parameters and the losses are those of ``health=False``, bit for bit.
+
+Not ported (each raises ``NotImplementedError``): the metrics gauges, and
+``inspect_schedule`` / ``donated_params`` /
 ``audit_donation``, which read XLA's HLO and have no PyTorch counterpart
 (the on-card proof of the overlap is the issue order,
 ``OverlapPlan.on_issue``).
@@ -55,6 +69,7 @@ metrics gauges (A13), and ``inspect_schedule`` / ``donated_params`` /
 
 from __future__ import annotations
 
+import time
 import weakref
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -280,9 +295,9 @@ class OverlapPlan:
             raise ValueError(
                 "hierarchical_axes must be (local_axis, cross_axis), got "
                 f"{hierarchical_axes!r}")
-        if health:
-            raise NotImplementedError(
-                "health=True is not ported yet (ROADMAP A13)")
+        self.health = bool(health)
+        self.bundle: Optional[torch.Tensor] = None
+        self._steps = 0
         self.mode = mode
         self.op = op
         self.hierarchical_axes = (tuple(hierarchical_axes)
@@ -302,6 +317,8 @@ class OverlapPlan:
             shard_ways=self.world if zero1 else 1)
         self.on_issue: Optional[Callable[[int], None]] = None
         self._hooks: list = []
+        self._annotate_layout()
+        self._old: List[torch.Tensor] = []
         if mode == "off":
             from . import DistributedOptimizer  # noqa: PLC0415
 
@@ -309,14 +326,17 @@ class OverlapPlan:
                 make_optimizer(self.params), op=op,
                 hierarchical_axes=self.hierarchical_axes,
                 dcn_compression=dcn_compression)
+            if self.health:
+                self._old = [torch.empty_like(p) for p in self.params]
             return
         devices = {p.device for p in self.params}
         if len(devices) != 1:
             raise ValueError(f"parameters on several devices: {devices}")
         buckets = self.layout.buckets
+        like = self.params[0]
         with torch.no_grad():
-            self._grads = [self.params[b.leaf_indices[0]].new_zeros(
-                b.padded_size) for b in buckets]
+            self._grad_store, self._grads = _stored(
+                like, [(b.padded_size, b.dtype) for b in buckets])
             self.shards: List[nn.Parameter] = []
             if zero1:
                 self._flat = [_bucket_concat(
@@ -329,8 +349,11 @@ class OverlapPlan:
                     shard = nn.Parameter(
                         flat[self.shard_index * chunk:
                              (self.shard_index + 1) * chunk].clone())
-                    shard.grad = torch.zeros_like(shard)
                     self.shards.append(shard)
+                self._shard_store, views = _stored(
+                    like, [(s.numel(), s.dtype) for s in self.shards])
+                for shard, view in zip(self.shards, views):
+                    shard.grad = view
         for b, grad in zip(buckets, self._grads):
             for i, view in zip(b.leaf_indices, _bucket_split(grad, b)):
                 self.params[i].grad = view
@@ -339,10 +362,27 @@ class OverlapPlan:
                                        self._hook(b.index, view)))
         self._pending = [len(b.leaf_indices) for b in buckets]
         self._work: list = [None] * len(buckets)
+        if self.health:
+            self._old = [torch.empty_like(t)
+                         for t in (self.shards if zero1 else self.params)]
         cuda = next(iter(devices)).type == "cuda"
         self._side = (torch.cuda.Stream() if cuda and self.hierarchical_axes
                       else None)
         self.optimizer = make_optimizer(self.shards if zero1 else self.params)
+
+    def _annotate_layout(self) -> None:
+        """The bucket layout on the trace plane (``HVDTPU_TRACE``): one
+        instant span per bucket, so a merged waterfall's step lanes can
+        be read against the bucket shapes that produced them."""
+        from ..obs import trace as obs_trace  # noqa: PLC0415
+
+        if not obs_trace.enabled():
+            return
+        t = time.time()
+        for b in self.layout.buckets:
+            obs_trace.add_span("overlap", f"bucket{b.index}", t, t,
+                               bucket=b.index, bytes=b.nbytes,
+                               leaves=len(b.sizes), mode=self.mode)
 
     # ------------------------------------------------------------ optimizer
 
@@ -373,8 +413,8 @@ class OverlapPlan:
         if self.mode == "off":
             self.optimizer.zero_grad(set_to_none=set_to_none)
             return
-        for grad in self._grads:
-            grad.zero_()
+        for flat in self._grad_store:
+            flat.zero_()
 
     # ------------------------------------------------------------ backward
 
@@ -456,9 +496,18 @@ class OverlapPlan:
     # ---------------------------------------------------------------- step
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, *, loss: Optional[torch.Tensor] = None):
+        """Wait for the buckets' collectives, average, step the optimizer
+        (ZeRO-1: and all-gather the shards).  Under ``health=True`` also
+        leaves the step's health bundle, with ``loss`` (this rank's loss;
+        the closure's when None) as its first entry, in :attr:`bundle`."""
         if self.mode == "off":
-            return self.optimizer.step(closure)
+            if not self.health:
+                return self.optimizer.step(closure)
+            torch._foreach_copy_(self._old, self.params)
+            out = self.optimizer.step(closure)
+            self._leaf_bundle(out if loss is None else loss)
+            return out
         # buckets a parameter without a gradient kept from firing
         for index, work in enumerate(self._work):
             if work is None:
@@ -473,7 +522,14 @@ class OverlapPlan:
                 reduced[index].div_(self.world)
         self._work = [None] * len(self._work)
         self._pending = [len(b.leaf_indices) for b in self.layout.buckets]
-        loss = self.optimizer.step(closure)
+        self._grad_ready_fault(reduced)
+        if self.health:
+            stepped = self.shards if self.mode == "bucket+zero1" \
+                else self.params
+            torch._foreach_copy_(self._old, stepped)
+        out = self.optimizer.step(closure)
+        if self.health:
+            self._flat_bundle(out if loss is None else loss, reduced)
         if self.mode == "bucket+zero1" and self.hierarchical_axes is not None:
             for flat, shard in zip(self._flat, self.shards):
                 self._gather_shard(shard, flat)
@@ -482,7 +538,83 @@ class OverlapPlan:
                      for flat, shard in zip(self._flat, self.shards)]
             for work in works:
                 work.wait()
-        return loss
+        return out
+
+    # -------------------------------------------------------------- health
+
+    def _grad_ready_fault(self, reduced: List[torch.Tensor]) -> None:
+        """The ``grad_ready`` fault point (testing/faults.py), after the
+        reduction: a fired ``flip_bits`` / ``nan_inject`` damages one
+        element of this rank's copy of bucket ``name=bucket<i>``'s reduced
+        gradient, the silent corruption the divergence sentinel exists to
+        catch.  ``step`` is the plan's step count, from 1.  A host check
+        only, unless a fault spec is loaded."""
+        from ..testing import faults  # noqa: PLC0415
+
+        self._steps += 1
+        if not faults.active():
+            return
+        for index, grad in enumerate(reduced):
+            name = f"bucket{index}"
+            action = faults.maybe_fail("grad_ready", rank=self.rank,
+                                       step=self._steps, name=name)
+            if action in ("flip_bits", "nan_inject"):
+                host = grad.detach().cpu()
+                if host.dtype == torch.bfloat16:
+                    host = host.view(torch.int16)
+                bad = faults.corrupt_grad(host.numpy(), action,
+                                          rank=self.rank, step=self._steps,
+                                          name=name)
+                grad.copy_(torch.from_numpy(bad).to(grad.device)
+                           .view(grad.dtype))
+
+    def _leaf_bundle(self, loss) -> None:
+        """Mode ``off``: the bundle from the parameters' own gradients."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        norms = _f32(torch._foreach_norm(grads, 2))
+        sq = norms * norms
+        bucket_sq = torch.stack([sq[list(b.leaf_indices)].sum()
+                                 for b in self.layout.buckets])
+        nonfinite = (~torch.isfinite(torch.cat(
+            [g.reshape(-1) for g in grads]))).sum()
+        self.bundle = self._assemble(loss, bucket_sq, nonfinite,
+                                     self._update_ratio(self.params))
+
+    def _flat_bundle(self, loss, reduced: List[torch.Tensor]) -> None:
+        """Modes ``bucket`` / ``bucket+zero1``: the bundle from the reduced
+        flat buffers (ZeRO-1: this rank's shards, summed over the world)."""
+        norms = _f32(torch._foreach_norm(reduced, 2))
+        store = (self._shard_store if self.mode == "bucket+zero1"
+                 else self._grad_store)
+        nonfinite = sum((~torch.isfinite(flat)).sum() for flat in store)
+        stepped = self.shards if self.mode == "bucket+zero1" else self.params
+        ratio = self._update_ratio(stepped)
+        sums = torch.cat([norms * norms,
+                          nonfinite.to(torch.float32).reshape(1)])
+        if self.mode == "bucket+zero1" and self.world > 1:
+            dist.all_reduce(sums)
+            dist.all_reduce(ratio, op=dist.ReduceOp.MAX)
+        self.bundle = self._assemble(loss, sums[:-1], sums[-1], ratio)
+
+    def _update_ratio(self, stepped: List[torch.Tensor]) -> torch.Tensor:
+        """Max over the stepped tensors of ``max|new - old| / (max|old| +
+        1e-12)`` (the reference's eps); leaves the snapshot holding
+        ``old - new``."""
+        pmax = _f32(torch._foreach_norm(self._old, float("inf")))
+        torch._foreach_sub_(self._old, stepped)
+        umax = _f32(torch._foreach_norm(self._old, float("inf")))
+        return (umax / (pmax + 1e-12)).max()
+
+    @staticmethod
+    def _assemble(loss, bucket_sq, nonfinite, ratio) -> torch.Tensor:
+        f32 = torch.float32
+        loss = torch.as_tensor(loss).detach().to(device=bucket_sq.device,
+                                                 dtype=f32).reshape(1)
+        return torch.cat([loss, torch.sqrt(bucket_sq.sum()).reshape(1),
+                          ratio.to(f32).reshape(1),
+                          torch.as_tensor(nonfinite).to(f32).reshape(1),
+                          torch.sqrt(bucket_sq)])
 
     # ------------------------------------------------------ state transfer
 
@@ -574,6 +706,32 @@ class _StreamDone:
 
     def wait(self) -> None:
         torch.cuda.current_stream().wait_event(self.event)
+
+
+def _f32(tensors: List[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(tensors).to(torch.float32)
+
+
+# The bucket gradients (and ZeRO-1's shard gradients) are views of one
+# buffer per dtype, each starting on a 256-byte boundary: zero_grad is one
+# launch a dtype, and the health bundle's nonfinite count one pass.
+_ALIGN_BYTES = 256
+
+
+def _stored(like: torch.Tensor, sizes: Sequence[Tuple[int, torch.dtype]]):
+    """Zeroed views of ``(numel, dtype)`` each, carved from one zeroed
+    buffer per dtype on ``like``'s device: ``(buffers, views)``."""
+    offsets, ends = [], {}
+    for numel, dtype in sizes:
+        align = max(_ALIGN_BYTES // _itemsize(dtype), 1)
+        start = -(-ends.get(dtype, 0) // align) * align
+        offsets.append(start)
+        ends[dtype] = start + numel
+    store = {dtype: like.new_zeros(end, dtype=dtype)
+             for dtype, end in ends.items()}
+    views = [store[dtype][off:off + numel]
+             for (numel, dtype), off in zip(sizes, offsets)]
+    return list(store.values()), views
 
 
 def _same_value(a, b) -> bool:

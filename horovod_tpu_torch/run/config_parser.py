@@ -1,6 +1,6 @@
 """CLI-args <-> env-var mapping and YAML config layering (a copy of
 ``horovod_tpu/run/config_parser.py`` for the knobs whose planes the port
-carries; the others are in :data:`NOT_PORTED_KNOBS`).
+carries; serving autoscale's are in :data:`NOT_PORTED_KNOBS`).
 
 Reference: horovod/run/common/util/config_parser.py (set_env_from_args,
 args<->yaml key maps) and runner.py:163-218,446-450 (the override-action
@@ -44,6 +44,12 @@ _ARG_ENV_MAP = {
         envmod.CKPT_COMMIT_TIMEOUT,
         "checkpoint.commit-timeout-secs",
     ),
+    "metrics_dump": (envmod.METRICS_DUMP, "metrics.dump"),
+    "flightrec_dump": (envmod.FLIGHTREC_DUMP, "metrics.flightrec-dump"),
+    "live_stats_secs": (envmod.LIVE_STATS, "metrics.live-stats-secs"),
+    "alert_skew_ms": (envmod.ALERT_SKEW, "metrics.alert-skew-ms"),
+    "trace": (envmod.TRACE, "trace.target"),
+    "trace_sample_rate": (envmod.TRACE_SAMPLE_RATE, "trace.sample-rate"),
     "timeline_filename": (envmod.TIMELINE, "timeline.filename"),
     "timeline_mark_cycles": (envmod.TIMELINE_MARK_CYCLES, "timeline.mark-cycles"),
     "no_stall_check": (envmod.STALL_CHECK_DISABLE, "stall-check.disable"),
@@ -104,11 +110,19 @@ _ARG_ENV_MAP = {
     "slo_tpot_ms": (envmod.SERVE_SLO_TPOT_MS, "serve.slo-tpot-ms"),
     "slo_objective": (envmod.SERVE_SLO_OBJECTIVE, "serve.slo-objective"),
     "slo_class": (envmod.SERVE_SLO_CLASS, "serve.slo-class"),
+    "health": (envmod.HEALTH, "metrics.health"),
+    "health_check_steps": (
+        envmod.HEALTH_CHECK_STEPS,
+        "metrics.health-check-steps",
+    ),
+    "divergence_action": (
+        envmod.DIVERGENCE_ACTION,
+        "metrics.divergence-action",
+    ),
 }
 
-_OBS = ("A13", "the observability planes")
-_AUTOSCALE = ("A13", "serving autoscale, whose controller reads the live "
-              "telemetry plane")
+_AUTOSCALE = ("A13b", "serving autoscale, whose controller reads the "
+              "live telemetry plane")
 # The reference's knobs whose planes are not ported: arg attribute ->
 # (yaml section.key or None, ROADMAP item, plane).  Setting one, on the
 # command line or in a config file, raises NotPortedError before anything
@@ -121,22 +135,6 @@ NOT_PORTED_KNOBS = {
         ("scale_down_idle_secs", "serve.scale-down-idle-secs"),
         ("scale_cooldown_secs", "serve.scale-cooldown-secs"),
     )},
-    **{attr: (key, *_OBS) for attr, key in (
-        ("metrics_dump", "metrics.dump"),
-        ("flightrec_dump", "metrics.flightrec-dump"),
-        ("stats_summary", None),
-        ("live_stats_secs", "metrics.live-stats-secs"),
-        ("live_port", None),
-        ("live_history_file", None),
-        ("alert_skew_ms", "metrics.alert-skew-ms"),
-        ("trace", "trace.target"),
-        ("trace_sample_rate", "trace.sample-rate"),
-        ("health", "metrics.health"),
-        ("health_check_steps", "metrics.health-check-steps"),
-        ("divergence_action", "metrics.divergence-action"),
-    )},
-    "dump_grace_secs": (None, "A13", "the flight recorder's dump before "
-                        "a hung rank is killed"),
 }
 
 

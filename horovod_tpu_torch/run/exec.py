@@ -183,21 +183,50 @@ class ProcessSet:
                 p.rank for p in self._procs if p.popen.poll() is None
             )
 
-    def terminate_rank(self, rank: int) -> None:
-        """Tree-kill one worker with SIGKILL (heartbeat/progress-dead
-        path: the process is still alive as far as the OS knows, but the
-        job has declared it lost); its exit then surfaces through
-        poll_exits().  The reference first sends the flight recorder's
-        dump signal and waits a grace window; the port has no flight
-        recorder yet (ROADMAP A13)."""
+    def terminate_rank(self, rank: int, *, grace: float = 0.0) -> None:
+        """Tree-kill one worker (heartbeat/progress-dead path: the
+        process is still alive as far as the OS knows, but the job has
+        declared it lost); its exit then surfaces through poll_exits().
+
+        ``grace > 0`` escalates instead of executing: SIGUSR1 (the
+        flight recorder's dump-only signal), then SIGTERM (the recorder's
+        handler flushes and re-raises), then SIGKILL after ``grace``
+        seconds on a watchdog thread, so the monitor loop never blocks.
+        A rank whose main thread is inside a C call (a CUDA or NCCL wait)
+        runs no Python signal handler until it returns; the flight
+        recorder's flush thread dumps its ring within the grace anyway
+        (``obs/flightrec.py``).  ``grace=0`` is an immediate SIGKILL."""
         with self._lock:
             procs = [p for p in self._procs if p.rank == rank]
+
+        def _kill(pg_procs):
+            for p in pg_procs:
+                if p.popen.poll() is None:
+                    try:
+                        os.killpg(os.getpgid(p.popen.pid), signal.SIGKILL)
+                    except (ProcessLookupError, PermissionError):
+                        pass
+
+        if grace <= 0:
+            _kill(procs)
+            return
         for p in procs:
             if p.popen.poll() is None:
-                try:
-                    os.killpg(os.getpgid(p.popen.pid), signal.SIGKILL)
-                except (ProcessLookupError, PermissionError):
-                    pass
+                for sig in (signal.SIGUSR1, signal.SIGTERM):
+                    try:
+                        os.killpg(os.getpgid(p.popen.pid), sig)
+                    except (ProcessLookupError, PermissionError):
+                        break
+
+        def _watchdog():
+            deadline = time.time() + grace
+            for p in procs:
+                while p.popen.poll() is None and time.time() < deadline:
+                    time.sleep(0.05)
+            _kill(procs)
+
+        threading.Thread(target=_watchdog, daemon=True,
+                         name=f"hvdtpu_kill_rank{rank}").start()
 
     def wait(self, timeout: Optional[float] = None) -> Dict[int, int]:
         """Wait for all; on first non-zero exit, terminate the rest and
@@ -231,16 +260,18 @@ class ProcessSet:
             raise
 
     def terminate(self) -> None:
-        """SIGTERM the process groups, escalate to SIGKILL (reference
-        safe_shell_exec's event-driven tree termination)."""
+        """SIGUSR1 (the flight recorder's dump signal) and SIGTERM the
+        process groups, escalate to SIGKILL after ``GRACEFUL_TERM_SECS``
+        (reference safe_shell_exec's event-driven tree termination)."""
         with self._lock:
             procs = list(self._procs)
         for p in procs:
             if p.popen.poll() is None:
-                try:
-                    os.killpg(os.getpgid(p.popen.pid), signal.SIGTERM)
-                except (ProcessLookupError, PermissionError):
-                    pass
+                for sig in (signal.SIGUSR1, signal.SIGTERM):
+                    try:
+                        os.killpg(os.getpgid(p.popen.pid), sig)
+                    except (ProcessLookupError, PermissionError):
+                        break
         deadline = time.time() + GRACEFUL_TERM_SECS
         for p in procs:
             while p.popen.poll() is None and time.time() < deadline:

@@ -22,10 +22,13 @@ flags.  ``--serve`` (which implies ``--elastic``) runs a serving fleet:
 the launcher's front door ingests client requests into the store, and each
 rank runs ``python -m horovod_tpu_torch.serve`` unless a command is given.
 ``--discover-nics`` prints the interfaces every host can reach.  The
-reference's flags whose planes the port does not carry (serving
-autoscale, the observability planes) parse, and raise
+observability planes' flags (``--metrics-dump``, ``--flightrec-dump``,
+``--stats-summary``, ``--live-*``, ``--trace``, ``--health``, ...) arm
+them in every rank and in the launcher, which merges the traces, prints
+the summary and, after a failure, the post-mortem verdict.  The
+reference's flags of serving autoscale parse, and raise
 :class:`~horovod_tpu_torch.exceptions.NotPortedError` naming their ROADMAP
-item before anything spawns.
+item (A13b) before anything spawns.
 """
 
 from __future__ import annotations
@@ -171,8 +174,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="The same budget while the worker reports an init/compile "
              "phase (default 0 = never kill during those phases).",
     )
-    _not_ported(elastic, ["--dump-grace-secs"], type=float,
-                dest="dump_grace_secs")
+    elastic.add_argument(
+        "--dump-grace-secs", type=float,
+        action=_StoreOverrideAction,
+        dest="dump_grace_secs", default=None,
+        help="When the monitor kills a hung rank (heartbeat/progress "
+             "lost), send SIGUSR1+SIGTERM first so its flight recorder "
+             "can dump, and SIGKILL only after this many seconds "
+             "(default 5; 0 = immediate SIGKILL, no black box).",
+    )
     parser.add_argument(
         "--output-filename", action=_StoreOverrideAction,
         dest="output_filename", default=None,
@@ -352,20 +362,107 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         dest="timeline_mark_cycles", default=None,
     )
 
-    obs_group = parser.add_argument_group(
-        "observability (not ported: ROADMAP A13)")
-    for flag, kind in (("--metrics-dump", str), ("--flightrec-dump", str),
-                       ("--live-stats-secs", float), ("--live-port", int),
-                       ("--live-history-file", str),
-                       ("--alert-skew-ms", float),
-                       ("--trace-sample-rate", float),
-                       ("--health", str), ("--health-check-steps", int),
-                       ("--divergence-action", str)):
-        _not_ported(obs_group, [flag], type=kind,
-                    dest=flag[2:].replace("-", "_"))
-    _not_ported(obs_group, ["--trace"], type=str, dest="trace")
-    _not_ported(obs_group, ["--stats-summary"], action="store_true",
-                dest="stats_summary")
+    obs_group = parser.add_argument_group("observability")
+    obs_group.add_argument(
+        "--metrics-dump", action=_StoreOverrideAction,
+        dest="metrics_dump", default=None,
+        help="Per-rank metrics dump target (HVDTPU_METRICS_DUMP): a "
+             "directory, a {rank} template, or a plain path that gets a "
+             "rank tag inserted.",
+    )
+    obs_group.add_argument(
+        "--flightrec-dump", action=_StoreOverrideAction,
+        dest="flightrec_dump", default=None,
+        help="Per-rank flight-recorder dump target "
+             "(HVDTPU_FLIGHTREC_DUMP): same dir/{rank}/plain-path forms "
+             "as --metrics-dump.  Unset, the launcher still arms a "
+             "temporary black-box dir so a crashed job gets a "
+             "post-mortem; set it to keep the per-rank rings after "
+             "clean runs too.",
+    )
+    obs_group.add_argument(
+        "--stats-summary", action="store_true", dest="stats_summary",
+        help="After the job ends, aggregate every rank's metrics dump "
+             "into one per-rank summary table on stdout (implies a "
+             "temporary --metrics-dump when none is given).",
+    )
+    obs_group.add_argument(
+        "--live-stats-secs", type=float, action=_StoreOverrideAction,
+        dest="live_stats_secs", default=None,
+        help="Stream each rank's metrics to the launcher every N "
+             "seconds (default off): one-line console digests, a "
+             "crash-safe live_history.jsonl, and a read-only Prometheus "
+             "GET /metrics endpoint on the launcher's KV port.",
+    )
+    obs_group.add_argument(
+        "--live-port", type=int, action=_StoreOverrideAction,
+        dest="live_port", default=None,
+        help="Fixed port for the live telemetry KV/scrape server in "
+             "non-elastic jobs (default: ephemeral, announced on "
+             "stdout).  Elastic jobs serve /metrics from the existing "
+             "rendezvous port.",
+    )
+    obs_group.add_argument(
+        "--live-history-file", action=_StoreOverrideAction,
+        dest="live_history_file", default=None,
+        help="Where the launcher appends one JSON line per live "
+             "aggregation round (default: ./live_history.jsonl while "
+             "--live-stats-secs is on).",
+    )
+    obs_group.add_argument(
+        "--alert-skew-ms", type=float, action=_StoreOverrideAction,
+        dest="alert_skew_ms", default=None,
+        help="Warn (and count engine.straggler.alerts) when a "
+             "collective's first-to-last rank arrival skew exceeds this "
+             "many milliseconds (default 0 = accumulate silently).",
+    )
+    obs_group.add_argument(
+        "--trace", action=_StoreOverrideAction, dest="trace",
+        default=None, metavar="TARGET",
+        help="Request-level distributed tracing (HVDTPU_TRACE): each "
+             "rank dumps its span ring to a file derived from TARGET "
+             "(directory, {rank} template, or plain path getting a "
+             "rank tag).  At job end the launcher merges every rank's "
+             "spans (its own ingest-side spans included) into a "
+             "per-request Chrome-trace waterfall plus a ttft/tpot "
+             "latency-decomposition report.",
+    )
+    obs_group.add_argument(
+        "--trace-sample-rate", type=float, action=_StoreOverrideAction,
+        dest="trace_sample_rate", default=None,
+        help="Fraction of requests traced (HVDTPU_TRACE_SAMPLE_RATE, "
+             "default 1.0).  The verdict is a pure function of the "
+             "request id, so every rank samples the identical set.",
+    )
+    obs_group.add_argument(
+        "--health", choices=("on", "off"), action=_StoreOverrideAction,
+        dest="health", default=None,
+        help="Training-health plane (HVDTPU_HEALTH, default off): "
+             "per-step numerics bundle (loss, per-bucket grad "
+             "norms, update/param ratio, nonfinite counts) + EWMA "
+             "anomaly alerts, and the cross-rank divergence sentinel. "
+             "Off leaves the training step as it was.",
+    )
+    obs_group.add_argument(
+        "--health-check-steps", type=int, action=_StoreOverrideAction,
+        dest="health_check_steps", default=None,
+        help="Divergence-sentinel cadence (HVDTPU_HEALTH_CHECK_STEPS, "
+             "default 100): every N steps each rank allgathers a tiny "
+             "bitwise digest of params/optimizer state/PRNG key and "
+             "all ranks compare — the runtime check of the bitwise-"
+             "replication invariant.",
+    )
+    obs_group.add_argument(
+        "--divergence-action", choices=("warn", "dump", "halt"),
+        action=_StoreOverrideAction, dest="divergence_action",
+        default=None,
+        help="What a confirmed cross-rank divergence does "
+             "(HVDTPU_DIVERGENCE_ACTION, default warn): warn logs and "
+             "alerts; dump additionally flushes the flight recorder "
+             "and metrics immediately; halt raises on every rank — "
+             "stop before the next checkpoint poisons every future "
+             "restart.",
+    )
 
     stall = parser.add_argument_group("stall check")
     stall.add_argument(
@@ -613,6 +710,158 @@ def build_slot_env(
     return env
 
 
+def _maybe_start_live_plane(
+    base_env: Dict[str, str],
+    np: int,
+    *,
+    kv_server=None,
+    kv_addr: Optional[str] = None,
+    live_stats_secs: Optional[float] = None,
+    live_port: Optional[int] = None,
+    live_history: Optional[str] = None,
+    bind_all: bool = False,
+    announce_host: Optional[str] = None,
+):
+    """Start the launcher half of the live telemetry plane when
+    ``--live-stats-secs`` (or the env) enables it; returns
+    ``(LivePlane, owned_server)`` or ``(None, None)``.
+
+    The interval resolves from ``base_env`` — the SAME source the
+    spawned workers read — never from the launcher's own os.environ: an
+    env-dict override must arm both halves or neither (workers
+    streaming into a store nobody drains would grow launcher memory
+    unboundedly).
+
+    MUTATES ``base_env`` — the KV endpoint, interval and per-job secret
+    must be in place before any worker spawns.  Non-elastic jobs get a
+    dedicated KV server here (their only launcher-side socket); elastic
+    jobs pass their existing rendezvous server + already-routable
+    address, and /metrics shares its port.  ``announce_host``: the
+    launcher address remote scrapers (and remote workers) should dial;
+    default loopback for all-local jobs."""
+    try:
+        interval = (
+            float(live_stats_secs)
+            if live_stats_secs is not None
+            else float(base_env.get(envmod.LIVE_STATS) or 0.0)
+        )
+    except ValueError:
+        raise ValueError(
+            f"{envmod.LIVE_STATS} must be a number of seconds; got "
+            f"{base_env.get(envmod.LIVE_STATS)!r}"
+        )
+    if interval <= 0:
+        return None, None
+    from ..obs.live import LivePlane  # noqa: PLC0415
+    from .rendezvous import KVStoreServer, SECRET_ENV  # noqa: PLC0415
+
+    owned = None
+    if kv_server is None:
+        owned = kv_server = KVStoreServer(
+            port=int(live_port or 0),
+            secret=base_env.get(SECRET_ENV) or None,
+            bind_all=bind_all,
+        )
+        kv_server.start()
+    host = (announce_host
+            or (kv_addr.rsplit(":", 1)[0] if kv_addr else None)
+            or "127.0.0.1")
+    base_env[SECRET_ENV] = kv_server.secret
+    base_env[envmod.LIVE_KV] = kv_addr or f"{host}:{kv_server.port}"
+    base_env[envmod.LIVE_STATS] = str(interval)
+    plane = LivePlane(
+        kv_server,
+        interval=interval,
+        history_path=live_history or "live_history.jsonl",
+        expected_ranks=np,
+        announce_host=host,
+    )
+    plane.start()
+    return plane, owned
+
+
+def _ensure_black_box(base_env: Dict[str, str]):
+    """Every job gets a flight-recorder dump target before any rank
+    spawns: the black box only pays off if it was armed BEFORE the
+    crash.  A user-provided ``--flightrec-dump`` / env value is left
+    alone; otherwise the launcher mints a temp dir it owns (removed
+    after a clean run, kept — and named in the verdict — after a
+    failed one).  Returns ``(dump_spec, launcher_owned)``.
+
+    Also marks THIS process as a launcher: it inherits the job's dump
+    env but must not dump its own (empty) artifacts under rank 0's
+    filename — a launcher-process ring/metrics dump would clobber
+    worker rank 0's evidence."""
+    envmod.mark_launcher()
+    raw = base_env.get(envmod.FLIGHTREC_DUMP)
+    if raw:
+        return raw, False
+    import tempfile  # noqa: PLC0415
+
+    d = tempfile.mkdtemp(prefix="hvdtpu_blackbox_")
+    base_env[envmod.FLIGHTREC_DUMP] = d
+    return d, True
+
+
+def _finish_black_box(
+    dump_spec: str,
+    owned: bool,
+    *,
+    failed: bool,
+    np: int,
+    live_history: Optional[str] = None,
+    timeline_path: Optional[str] = None,
+) -> None:
+    """Job-end half of the flight recorder: on abnormal end, correlate
+    every rank's ring dump into ``postmortem.json`` and print the
+    verdict; on a clean end, remove a launcher-owned temp dir (the
+    clean path writes no post-mortem).  Best-effort throughout — a
+    post-mortem failure must never mask the job's real error."""
+    if not failed:
+        if owned:
+            import shutil  # noqa: PLC0415
+
+            shutil.rmtree(dump_spec, ignore_errors=True)
+        return
+    try:
+        from ..obs import postmortem  # noqa: PLC0415
+
+        out_dir = (dump_spec if os.path.isdir(dump_spec)
+                   else (os.path.dirname(dump_spec) or "."))
+        report = postmortem.generate(
+            dump_spec,
+            expected_ranks=np,
+            live_history=live_history,
+            timeline_path=timeline_path,
+            output=os.path.join(out_dir, "postmortem.json"),
+        )
+        if report is None:
+            return
+        print("\n== post-mortem ==")
+        print(report["verdict"])
+        if report.get("report_path"):
+            print(f"postmortem report: {report['report_path']}")
+        print(f"flight-recorder dumps: {dump_spec}")
+    except Exception as exc:  # pragma: no cover - defensive
+        LOG.warning("post-mortem failed: %s", exc)
+
+
+def _stop_live_plane(plane, owned_server) -> None:
+    """Tear down best-effort: a telemetry failure must never turn a
+    finished job into an error."""
+    if plane is None:
+        return
+    try:
+        plane.stop()
+    except Exception:  # pragma: no cover - defensive
+        pass
+    if owned_server is not None:
+        try:
+            owned_server.stop()
+        except Exception:  # pragma: no cover - defensive
+            pass
+
+
 def launch_job(
     command: List[str],
     np: int,
@@ -626,6 +875,9 @@ def launch_job(
     coordinator_port: Optional[int] = None,
     tag_output: bool = True,
     output_filename: Optional[str] = None,
+    live_stats_secs: Optional[float] = None,
+    live_port: Optional[int] = None,
+    live_history: Optional[str] = None,
 ) -> Dict[int, int]:
     """Allocate slots, spawn workers, wait for completion (reference
     gloo_run.launch_gloo, gloo_run.py:237-304).
@@ -634,7 +886,13 @@ def launch_job(
     HVDTPU_START_TIMEOUT, the workers' ``init_process_group`` timeout);
     ``job_timeout`` is a whole-job watchdog — unset means run forever.
     The first slot's host runs the ``torch.distributed`` TCP store at the
-    coordinator address."""
+    coordinator address.  ``live_stats_secs`` (or
+    ``HVDTPU_LIVE_STATS_SECS``) turns on the live telemetry plane:
+    per-rank metric streaming into a launcher KV server, console digests,
+    ``live_history.jsonl``, and a Prometheus ``GET /metrics`` endpoint.
+    Every job gets a flight-recorder dump target; a failed one ends with
+    the post-mortem verdict (the survivors get SIGUSR1 + SIGTERM and
+    ``exec.GRACEFUL_TERM_SECS`` to dump before SIGKILL)."""
     host_slots = _resolve_host_slots(hosts, hostfile, f"localhost:{np}")
     slots = allocate(host_slots, np)
 
@@ -657,8 +915,34 @@ def launch_job(
     if output_filename:
         os.makedirs(output_filename, exist_ok=True)
 
+    # Live telemetry before any spawn: workers read the KV endpoint and
+    # interval from their spawn env.  The dedicated server binds beyond
+    # loopback only when some worker is remote, and both the worker env
+    # and the announced scrape endpoint then carry the launcher's
+    # routable address instead of loopback.
+    all_local = all(is_local_host(s.hostname) for s in slots)
+    live_announce = None
+    if not all_local and (
+        live_stats_secs or base_env.get(envmod.LIVE_STATS)
+    ):
+        from .allocate import routable_ip  # noqa: PLC0415
+
+        probe = next(
+            (s.hostname for s in slots if not is_local_host(s.hostname)),
+            "127.0.0.1",
+        )
+        live_announce = routable_ip(probe)
+    live_plane, live_server = _maybe_start_live_plane(
+        base_env, np,
+        live_stats_secs=live_stats_secs, live_port=live_port,
+        live_history=live_history, bind_all=not all_local,
+        announce_host=live_announce,
+    )
+
+    black_box, owns_black_box = _ensure_black_box(base_env)
     procs = ProcessSet()
     procs.install_signal_handlers()
+    _clean_stale_obs_files(base_env)
     for slot in slots:
         slot_env = build_slot_env(slot, coordinator, base_env)
         _spawn_worker(
@@ -666,7 +950,166 @@ def launch_job(
             ssh_port=ssh_port, tag_output=tag_output,
             output_dir=output_filename, num_proc=np,
         )
-    return procs.wait(timeout=job_timeout)
+    failed = True
+    try:
+        result = procs.wait(timeout=job_timeout)
+        failed = False
+        return result
+    finally:
+        # Failed jobs merge too — a partial trace of a dead job is the
+        # most valuable trace there is.  The live plane drains its final
+        # round (workers flush at exit) before the server goes away.
+        _stop_live_plane(live_plane, live_server)
+        merged = _merge_rank_timelines(base_env)
+        _merge_rank_traces(base_env, np)
+        # On abnormal end the dead ranks' flight recorders already
+        # flushed (their handlers ran inside wait()'s terminate);
+        # correlate them into postmortem.json and print the verdict.
+        _finish_black_box(
+            black_box, owns_black_box, failed=failed, np=np,
+            live_history=(
+                (live_history or "live_history.jsonl")
+                if live_plane is not None else None
+            ),
+            timeline_path=merged,
+        )
+
+
+def _arm_launcher_trace_env(env: Dict[str, str]) -> None:
+    """The launcher is a span producer too (ingest pump, client result
+    fetches): flag-derived trace knobs must land in ITS os.environ, not
+    just the workers' env dict, or ``--trace`` records no launcher-side
+    spans at all — and a flag-given sample rate would diverge from the
+    workers', violating the identical-verdict invariant obs/trace.py
+    documents."""
+    for var in (envmod.TRACE, envmod.TRACE_SAMPLE_RATE):
+        if env.get(var):
+            os.environ[var] = env[var]
+
+
+def _clean_stale_obs_files(env: Dict[str, str]) -> None:
+    """Remove LEFTOVER per-rank timeline/metrics files from a previous
+    job pointed at the same paths — the end-of-job merge and summary
+    glob everything matching, and a 2-rank run must not inherit phantom
+    lanes/columns from an earlier 4-rank run.  The merged/summary
+    outputs themselves never match the per-rank glob."""
+    import glob as _glob  # noqa: PLC0415
+
+    from ..obs import pathspec  # noqa: PLC0415
+
+    for var, stem in ((envmod.TIMELINE, "trace"),
+                      (envmod.METRICS_DUMP, "metrics"),
+                      (envmod.FLIGHTREC_DUMP, "flightrec"),
+                      (envmod.TRACE, "spans")):
+        raw = env.get(var)
+        if not raw:
+            continue
+        if var == envmod.TRACE and "{rank}" not in raw:
+            # A previous run's merged waterfall/report — and the
+            # launcher's own span file, whose ``launcher`` tag has no
+            # digits for rank_of_path to anchor on — would read as
+            # THIS run's; none of them survive the rank-tag loop
+            # below, so remove them here.
+            from ..obs import trace_merge  # noqa: PLC0415
+
+            doomed = [pathspec.resolve(raw, "spans", "launcher",
+                                       epoch="")]
+            doomed += list(trace_merge.merged_output_paths(raw))
+            for path in doomed:
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+        if var == envmod.FLIGHTREC_DUMP:
+            # A previous crashed run's verdict would read as THIS
+            # run's — it is ours by name, remove it from wherever
+            # _finish_black_box would write it (the dir itself, or the
+            # parent of a plain-path/template spec).  Ditto orphaned
+            # atomic-write tmp files: a rank killed mid-dump dies
+            # inside its signal handler and never unwinds to clean its
+            # own tmp.
+            out_dir = (raw if os.path.isdir(raw)
+                       else (os.path.dirname(raw) or "."))
+            try:
+                os.remove(os.path.join(out_dir, "postmortem.json"))
+            except OSError:
+                pass
+            for tmp in _glob.glob(
+                os.path.join(out_dir, "flightrec.*.tmp.*")
+            ):
+                try:
+                    os.remove(tmp)
+                except OSError:
+                    pass
+        if "{rank}" in raw:
+            # A user template has no rank/epoch token to anchor on —
+            # its glob would match arbitrary sibling files, and deleting
+            # those is worse than a phantom lane.  Template users own
+            # their files.
+            continue
+        try:
+            for path in _glob.glob(pathspec.glob_pattern(raw, stem)):
+                # Belt and braces: only files that carry our rank tag —
+                # never anything a user might have put next to them.
+                if pathspec.rank_of_path(path) is not None:
+                    os.remove(path)
+        except OSError:
+            pass
+
+
+def _merge_rank_traces(env: Dict[str, str], np: int) -> Optional[dict]:
+    """Flush the launcher's own spans (ingest pump, client result
+    fetches — tagged ``launcher``) and merge every rank's span file
+    into the per-request waterfall + latency-decomposition report
+    (``--trace``).  Best-effort like the timeline merge: a trace
+    failure must never turn a finished job into an error."""
+    raw = env.get(envmod.TRACE)
+    if not raw:
+        return None
+    try:
+        from ..obs import trace as obs_trace  # noqa: PLC0415
+        from ..obs import trace_merge  # noqa: PLC0415
+
+        if obs_trace.get_buffer().recorded:
+            # Explicit path: the dump target may live only in the
+            # workers' env dict, not this process's os.environ.
+            obs_trace.flush(obs_trace.resolve_dump_path(raw))
+        out = trace_merge.merge_glob(raw, expected_ranks=np)
+        if out is not None:
+            doc = out["doc"]
+            line = (f"[trace] waterfall {out['waterfall']} "
+                    f"({out['events']} spans, "
+                    f"{len(doc['requests'])} requests); "
+                    f"report {out['report']}")
+            if doc["missing_ranks"]:
+                line += f"; MISSING ranks {doc['missing_ranks']}"
+            print(line, flush=True)
+        return out
+    except Exception as exc:  # pragma: no cover - defensive
+        LOG.warning("trace merge failed: %s", exc)
+        return None
+
+
+def _merge_rank_timelines(env: Dict[str, str]) -> Optional[str]:
+    """Merge the job's per-rank Chrome traces (every rank records now;
+    HVDTPU_TIMELINE names the template/dir) into one valid trace with a
+    lane per rank.  Best-effort: remote ranks' files are not fetched,
+    and a merge failure must never turn a finished job into an error."""
+    raw = env.get(envmod.TIMELINE)
+    if not raw:
+        return None
+    try:
+        from ..obs import timeline_merge  # noqa: PLC0415
+
+        merged = timeline_merge.merge_glob(raw)
+        if merged:
+            LOG.info("merged all-rank timeline -> %s", merged)
+        return merged
+    except Exception as exc:  # pragma: no cover - defensive
+        LOG.warning("timeline merge failed: %s", exc)
+        return None
+
+
 
 
 def _spawn_worker(
@@ -725,7 +1168,7 @@ def launch_elastic_job(
     progress_timeout: float = 300.0,
     progress_grace: float = 0.0,
     blacklist_cooldown: float = 10.0,
-    dump_grace_secs: Optional[float] = None,
+    dump_grace_secs: float = 5.0,
     job_timeout: Optional[float] = None,
     kv_server=None,
     tag_output: bool = True,
@@ -754,7 +1197,7 @@ def launch_elastic_job(
     survive (default np — any unrecoverable failure aborts).
     ``max_retries`` bounds total respawns across the job.
     ``progress_timeout`` / ``progress_grace``: the workload-aware
-    progress-beat policy (``_obs.progress.ProgressPolicy``).  Worker
+    progress-beat policy (``obs.progress.ProgressPolicy``).  Worker
     beats piggyback the collectives-completed counter and phase; a rank
     whose beat thread lives but whose counter is frozen in steady state
     for ``progress_timeout`` seconds has a deadlocked training thread and
@@ -776,24 +1219,25 @@ def launch_elastic_job(
     a caller-built door on this store (``ServeJob``), adopted for
     takeovers and left to its owner to stop.
 
-    The reference's keywords of unported planes raise
-    :class:`NotPortedError` when set: ``dump_grace_secs`` (A13: the
-    window in which the flight recorder dumps before the kill),
-    ``max_workers`` and ``autoscale`` (A13: serving autoscale, whose
-    controller reads the live telemetry plane), ``live_stats_secs`` and
-    ``live_history`` (A13, the live telemetry plane).
+    ``dump_grace_secs`` (default 5): a rank declared dead gets SIGUSR1 +
+    SIGTERM first, so its flight recorder dumps, and SIGKILL after this
+    many seconds (0 = SIGKILL at once).  ``live_stats_secs`` /
+    ``live_history``: the live telemetry plane, which rides the
+    rendezvous store (snapshots on the signed PUT path, ``/metrics`` on
+    its port).  Every job gets a flight-recorder dump target; a failed one
+    ends with the post-mortem verdict.
+
+    ``max_workers`` and ``autoscale`` (serving autoscale, ROADMAP A13b)
+    raise :class:`NotPortedError` when set.
     """
     for name, value in (("max_workers", max_workers),
-                        ("autoscale", autoscale),
-                        ("live_stats_secs", live_stats_secs),
-                        ("live_history", live_history),
-                        ("dump_grace_secs", dump_grace_secs)):
+                        ("autoscale", autoscale)):
         if value is not None:
             raise NotPortedError(
                 f"launch_elastic_job({name}=...) is not ported yet "
-                f"(ROADMAP A13)")
-    from .._obs import get_registry  # noqa: PLC0415
-    from .._obs.progress import ProgressPolicy, beat_epoch  # noqa: PLC0415
+                f"(ROADMAP A13b: serving autoscale)")
+    from ..obs import get_registry  # noqa: PLC0415
+    from ..obs.progress import ProgressPolicy, beat_epoch  # noqa: PLC0415
     from .rendezvous import (  # noqa: PLC0415
         KVStoreClient, KVStoreServer, SECRET_ENV,
     )
@@ -839,6 +1283,13 @@ def launch_elastic_job(
     if output_filename:
         os.makedirs(output_filename, exist_ok=True)
 
+    # Live telemetry rides the rendezvous store: snapshots travel the
+    # same signed PUT path as heartbeats, and /metrics shares the port.
+    live_plane, _ = _maybe_start_live_plane(
+        base_env, np, kv_server=kv_server, kv_addr=kv_addr,
+        live_stats_secs=live_stats_secs, live_history=live_history,
+    )
+
     # Serving mode: the request front end rides the same store — the
     # launcher-resident front door (serve/frontend.py) totally orders
     # client submissions into the per-shard request logs the serving
@@ -858,6 +1309,10 @@ def launch_elastic_job(
             f"protocol, scope serve/ — horovod_tpu_torch.serve.ServeClient)",
             flush=True,
         )
+    if ingest_pump is not None and live_plane is not None:
+        # serve.frontend.* series are launcher-local: expose them on the
+        # same /metrics page the worker gauges land on.
+        live_plane.add_render(ingest_pump.prometheus)
 
     metrics = get_registry()
     result = ElasticJobResult()
@@ -950,8 +1405,11 @@ def launch_elastic_job(
     hb_next_scan = 0.0
     respawns_used = 0
     deadline = time.monotonic() + job_timeout if job_timeout else None
+    black_box, owns_black_box = _ensure_black_box(base_env)
+    job_failed = False
 
     try:
+        _clean_stale_obs_files(base_env)
         mint_epoch(epoch, world)
         for rank in world:
             spawn(rank, host_of[rank], epoch)
@@ -1078,7 +1536,10 @@ def launch_elastic_job(
                         )
                         hb_seen.pop(rank, None)
                         progress_policy.forget(rank)
-                        procs.terminate_rank(rank)
+                        # Dump-then-kill: SIGUSR1/SIGTERM first so the
+                        # declared-dead rank's flight recorder survives
+                        # its own execution; SIGKILL after the grace.
+                        procs.terminate_rank(rank, grace=dump_grace_secs)
                         continue
                     # Rule 2 — training-thread liveness: a live beat with
                     # a frozen progress counter in steady state is a
@@ -1095,7 +1556,7 @@ def launch_elastic_job(
                         )
                         hb_seen.pop(rank, None)
                         progress_policy.forget(rank)
-                        procs.terminate_rank(rank)
+                        procs.terminate_rank(rank, grace=dump_grace_secs)
             if ingest_pump is not None and not finished \
                     and set(world) <= set(procs.alive_ranks()):
                 # Frontend takeover -> epoch re-mint: a dead frontend's
@@ -1130,6 +1591,10 @@ def launch_elastic_job(
                 )
             time.sleep(0.05)
     except BaseException:
+        job_failed = True
+        # terminate() SIGUSR1s and SIGTERMs the tree and waits its
+        # graceful window: the survivors' flight recorders flush inside
+        # it, so the post-mortem below reads complete rings.
         procs.terminate()
         raise
     finally:
@@ -1140,8 +1605,22 @@ def launch_elastic_job(
                 ingest_pump.stop()
             except Exception:  # pragma: no cover - defensive
                 pass
+        # Drain the final live round while the store is still up.
+        _stop_live_plane(live_plane, None)
         if owns_server:
             kv_server.stop()
+        # All-rank merges, dead incarnations included: a killed rank's
+        # epoch-tagged lane is the story of why it died.
+        merged = _merge_rank_timelines(base_env)
+        _merge_rank_traces(base_env, np)
+        _finish_black_box(
+            black_box, owns_black_box, failed=job_failed, np=np,
+            live_history=(
+                (live_history or "live_history.jsonl")
+                if live_plane is not None else None
+            ),
+            timeline_path=merged,
+        )
 
 
 def _or(value, default):
@@ -1204,6 +1683,17 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     env: Dict[str, str] = {}
     config_parser.set_env_from_args(env, args)
+    _arm_launcher_trace_env(env)
+    summary_tmp = None
+    if args.stats_summary and not (
+        env.get(envmod.METRICS_DUMP) or os.environ.get(envmod.METRICS_DUMP)
+    ):
+        # --stats-summary without --metrics-dump: dump into a temp dir
+        # that lives exactly as long as the summary needs it.
+        import tempfile  # noqa: PLC0415
+
+        summary_tmp = tempfile.mkdtemp(prefix="hvdtpu_metrics_")
+        env[envmod.METRICS_DUMP] = summary_tmp
     try:
         LOG.info("launching %d processes: %s", args.np, " ".join(command))
         if args.elastic or args.serve:
@@ -1219,7 +1709,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                 blacklist_cooldown=_or(args.blacklist_cooldown_secs, 10.0),
                 progress_timeout=_or(args.progress_timeout_secs, 300.0),
                 progress_grace=_or(args.progress_grace_secs, 0.0),
+                dump_grace_secs=_or(args.dump_grace_secs, 5.0),
                 output_filename=args.output_filename,
+                live_stats_secs=args.live_stats_secs,
+                live_history=args.live_history_file,
                 serve_ingest=args.serve,
                 serve_frontends=int(
                     args.serve_frontends
@@ -1236,8 +1729,86 @@ def main(argv: Optional[List[str]] = None) -> int:
             start_timeout=args.start_timeout,
             coordinator_port=args.coordinator_port,
             output_filename=args.output_filename,
+            live_stats_secs=args.live_stats_secs,
+            live_port=args.live_port,
+            live_history=args.live_history_file,
         )
         return 0
     except (RuntimeError, ValueError, TimeoutError, OSError) as exc:
         print(f"hvdrun: {exc}", file=sys.stderr)
         return 1
+    finally:
+        # Failed jobs summarize too — the metrics of a dead run are the
+        # ones someone is about to go digging for.
+        try:
+            _print_stats_summary(args, env)
+        finally:
+            if summary_tmp is not None:
+                import shutil  # noqa: PLC0415
+
+                shutil.rmtree(summary_tmp, ignore_errors=True)
+
+
+def _print_stats_summary(args, env: Dict[str, str]) -> None:
+    """End-of-job per-rank metrics table (--stats-summary)."""
+    if not getattr(args, "stats_summary", False):
+        return
+    raw = env.get(envmod.METRICS_DUMP) or os.environ.get(envmod.METRICS_DUMP)
+    if not raw:
+        return
+    from ..obs import summary as obs_summary  # noqa: PLC0415
+
+    dumps = obs_summary.collect_dumps(raw)
+    if not dumps:
+        for warn in getattr(dumps, "warnings", []):
+            print(f"hvdrun: --stats-summary: {warn}", file=sys.stderr)
+        print("hvdrun: --stats-summary: no metrics dumps found "
+              f"under {raw!r}", file=sys.stderr)
+        return
+    print("\n== per-rank metrics summary ==")
+    print(obs_summary.format_summary_table(dumps))
+    straggler = obs_summary.straggler_section(dumps)
+    if straggler is not None:
+        print("\n== straggler attribution ==")
+        print(straggler)
+    fabric = obs_summary.fabric_section(dumps)
+    if fabric is not None:
+        print("\n== cross-fabric bytes (dcn vs ici) ==")
+        print(fabric)
+    ckpt = obs_summary.ckpt_section(dumps)
+    if ckpt is not None:
+        print("\n== checkpoint / recovery ==")
+        print(ckpt)
+    serve = obs_summary.serve_section(dumps)
+    if serve is not None:
+        print("\n== serving plane ==")
+        print(serve)
+    slo = obs_summary.slo_section(dumps)
+    if slo is not None:
+        print("\n== tenant SLO / burn rate ==")
+        print(slo)
+    health = obs_summary.health_section(dumps)
+    if health is not None:
+        print("\n== training health ==")
+        print(health)
+    goodput = obs_summary.goodput_section(dumps)
+    if goodput is not None:
+        print("\n== goodput ledger ==")
+        print(goodput)
+    autoscale = obs_summary.autoscale_section(dumps)
+    if autoscale is not None:
+        print("\n== autoscale / weight hot-swap ==")
+        print(autoscale)
+    perf = obs_summary.perf_section(dumps)
+    if perf is not None:
+        print("\n== mfu / model flops ==")
+        print(perf)
+    mem = obs_summary.mem_section(dumps)
+    if mem is not None:
+        print("\n== device memory (memory plane) ==")
+        print(mem)
+    trend = obs_summary.trend_section(dumps)
+    if trend is not None:
+        print("\n== perf trend (BENCH trajectory) ==")
+        print(trend)
+

@@ -1,6 +1,6 @@
 """Runtime parameter autotuning for the eager engine (a copy of
-``horovod_tpu/runtime/autotune.py``, which imports no JAX; the
-``_obs`` gauges it publishes go to the port's stub registry).
+``horovod_tpu/runtime/autotune.py``, which imports no JAX; its gauges go
+to the port's metrics registry, ``obs``).
 
 Reference: horovod/common/parameter_manager.cc (528 LoC) +
 optim/bayesian_optimization.cc + optim/gaussian_process.cc — the reference
@@ -409,7 +409,7 @@ class ParameterManager:
 
         # Gauges: the tuner's externally visible state (/metrics and the
         # live digest read these; resolved once, updates are lock-free).
-        from .._obs import get_registry  # noqa: PLC0415
+        from ..obs import get_registry  # noqa: PLC0415
 
         metrics = get_registry()
         self._g_state = metrics.gauge("autotune.state")
@@ -430,7 +430,7 @@ class ParameterManager:
         # the dead incarnation had learned.
         self._log_path = None
         if log_path:
-            from .._obs import pathspec  # noqa: PLC0415
+            from ..obs import pathspec  # noqa: PLC0415
 
             log_path = pathspec.epoch_tag(log_path)
             self._log_path = log_path

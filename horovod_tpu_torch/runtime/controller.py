@@ -1,7 +1,7 @@
 """Negotiation logic for the eager path (a copy of
 ``horovod_tpu/runtime/controller.py``: ``compute_responses`` and ``_fuse``
 make the reference's decisions, decision for decision; its observability
-hooks go to the no-op stubs of ``_obs``).
+hooks feed the port's ``obs`` planes).
 
 Reference: horovod/common/controller.cc — the rank-0 coordinator receives
 every rank's ready-tensor Requests, counts per-name readiness
@@ -33,7 +33,7 @@ import numpy as np
 
 import logging
 
-from .._obs import flightrec as obs_flightrec
+from ..obs import flightrec as obs_flightrec
 from .messages import Request, RequestList, RequestType, Response, ResponseType
 
 LOG = logging.getLogger(__name__)
@@ -74,7 +74,7 @@ def _negotiation_counters() -> Tuple:
     Re-resolved when the process-global registry is swapped (tests call
     reset_registry); otherwise one dict hit per process lifetime."""
     global _counter_cache
-    from .._obs import get_registry  # noqa: PLC0415
+    from ..obs import get_registry  # noqa: PLC0415
 
     reg = get_registry()
     if _counter_cache is None or _counter_cache[0] is not reg:
@@ -341,7 +341,7 @@ def _attribute_straggler(
     _, (last_rank, (last_cycle, last_t)) = items[-1]
     if last_cycle <= first_cycle:
         return  # same-cycle completion: nobody kept anybody waiting
-    from .._obs import straggler as obs_straggler  # noqa: PLC0415
+    from ..obs import straggler as obs_straggler  # noqa: PLC0415
 
     obs_straggler.record(
         last_rank,
@@ -426,7 +426,7 @@ def _check_stalls(
             # lagging-rank list survive the job via the metrics dump, so
             # "which rank kept everyone waiting" is answerable after the
             # fact instead of by grepping np log streams.
-            from .._obs import get_registry  # noqa: PLC0415
+            from ..obs import get_registry  # noqa: PLC0415
 
             metrics = get_registry()
             metrics.counter("controller.stall_warnings",

@@ -54,10 +54,10 @@ import torch
 
 from ..basics import global_topology
 from ..exceptions import HorovodShutdownError
-from .._obs import flightrec as obs_flightrec
-from .._obs import get_registry
-from .._obs import progress as obs_progress
-from .._obs import trace as obs_trace
+from ..obs import flightrec as obs_flightrec
+from ..obs import get_registry
+from ..obs import progress as obs_progress
+from ..obs import trace as obs_trace
 from ..ops.collectives import ReduceOp, _all_gather_single
 from ..testing.faults import maybe_fail
 from ..utils import env as envmod
@@ -259,7 +259,7 @@ class EagerEngine:
         def _collect(reg, _wm=_wm):
             publish = _wm()
             if publish is None:
-                from .._obs import CollectorRetired  # noqa: PLC0415
+                from ..obs import CollectorRetired  # noqa: PLC0415
 
                 raise CollectorRetired
             publish(reg)

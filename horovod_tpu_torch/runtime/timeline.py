@@ -1,6 +1,6 @@
 """Chrome-tracing timeline for the eager path (a copy of
 ``horovod_tpu/runtime/timeline.py``; the path rules come from the port's
-``_obs.pathspec``).
+``obs.pathspec``).
 
 Reference: horovod/common/timeline.cc (311 LoC) — rank 0 writes a Chrome
 trace-event JSON; a dedicated writer thread drains a lock-free queue so the
@@ -56,7 +56,7 @@ def resolve_path(raw: str, rank: int) -> str:
     (``t.e<E>.rank.<k>.json`` under elastic) and the launcher's merge
     — which globs with the same module — writes the original ``t.json``.
     """
-    from .._obs import pathspec  # noqa: PLC0415
+    from ..obs import pathspec  # noqa: PLC0415
 
     return pathspec.resolve(raw, "trace", rank)
 

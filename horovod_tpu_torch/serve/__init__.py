@@ -48,7 +48,7 @@ python -m horovod_tpu_torch.serve --size small``, or from Python)::
 * :mod:`.longctx`: long-context serving over a sequence-sharded slot
   cache (Ulysses prefill, merged partial-softmax decode).
 
-Not ported yet: the reference's ``autoscale`` (ROADMAP A13: its
+Not ported yet: the reference's ``autoscale`` (ROADMAP A13b: its
 controller reads the live telemetry plane).
 """
 

@@ -126,7 +126,7 @@ def parse_spec(argv=None) -> dict:
     tenant_budget = pick(None, envmod.SERVE_TENANT_BUDGET, int, 0)
     if tenant_budget:
         spec["tenants"] = {"budget_tokens": tenant_budget}
-    # SLO objectives (_obs/slo.py): fleet-wide like the QoS policy —
+    # SLO objectives (obs/slo.py): fleet-wide like the QoS policy —
     # every rank must judge the identical targets, so they ride the
     # launcher-forwarded env with flag overrides.  Classes without a
     # target never alert (untagged traffic trips nothing).

@@ -36,17 +36,21 @@ of the request, and the engine's shapes never change.
 
 The engine's cache and its per-step tensors live on the model's device
 (``gpt()`` puts the model on the GPU unless the caller names the CPU).
-The reference also registers the cache and the compiled programs with its
-memory plane (``obs/memplane.py``); that plane is observability, ROADMAP
-A13, and is left out here.
+The cache and the model's parameters are registered with the memory
+plane (``obs/memplane.py``) as owners ``kv_cache`` and ``params``; the
+reference also registers its compiled programs' breakdowns, which PyTorch
+has no compiled program to read.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..obs import memplane
 
 from ..models.decode import (
     WidthShard, assign_slot, assign_slot_paged, decode_step,
@@ -189,6 +193,13 @@ class SlotEngine:
             self.cache = init_cache(model, num_slots, max_len)
             self.cache_len = int(self.cache["k"].shape[2])
             self.serve_len = min(self.cache_len, int(cfg.max_len))
+        # Memory-plane owner tags: weakref so a dropped engine (tests
+        # build many) is pruned, not pinned alive by its observability.
+        ref = weakref.ref(self)
+        memplane.register_owner(
+            "kv_cache", lambda: (lambda e: e.cache if e else None)(ref()))
+        memplane.register_owner(
+            "params", lambda: (lambda e: e.model if e else None)(ref()))
 
         # Host-side per-slot state: current input token, sampling
         # parameters, request stream root, emission index.

@@ -51,7 +51,7 @@ import uuid
 import zlib
 from typing import Dict, List, Optional, Sequence, Set
 
-from .._obs import trace as obs_trace
+from ..obs import trace as obs_trace
 from ..run.rendezvous import KVStoreClient
 from ..utils.logging import get_logger
 from .scheduler import SLO_CLASSES
@@ -837,7 +837,7 @@ class FrontDoor:
         self._kv.put(SCOPE, FRONTDOOR_KEY, pickle.dumps(doc))
 
     def _publish_gauges(self) -> None:
-        from .._obs import get_registry  # noqa: PLC0415
+        from ..obs import get_registry  # noqa: PLC0415
 
         reg = get_registry()
         reg.gauge("serve.frontend.count").set(self.frontends)
@@ -983,7 +983,7 @@ class FrontDoor:
             fresh.start()
 
     def _takeover(self, fid: int) -> None:
-        from .._obs import get_registry  # noqa: PLC0415
+        from ..obs import get_registry  # noqa: PLC0415
 
         pump = self._pumps[fid]
         shards = pump.shards

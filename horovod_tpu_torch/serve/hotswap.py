@@ -58,8 +58,8 @@ from ..ckpt.sharded import (
     save_sharded,
     restore_sharded,
 )
-from .._obs import flightrec as obs_flightrec
-from .._obs import get_registry
+from ..obs import flightrec as obs_flightrec
+from ..obs import get_registry
 from ..testing.faults import DEFAULT_EXIT_CODE, maybe_fail
 from ..utils.logging import get_logger
 

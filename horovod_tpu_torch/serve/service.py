@@ -30,12 +30,12 @@ finished watermark that compacts ``serve/log/*`` (and, via the ingest
 pump, ``serve/out/*``), so the store and the recovery replay stop
 growing with total requests ever served.
 
-``serve.*`` instruments land in the per-rank registry (``_obs``); the
-reference also streams them to its live telemetry plane and traces
-requests (ROADMAP A13), which the port does not carry yet.  Left out
-until then: the serving divergence sentinel (``--health``, A13),
-and serving autoscale (A13: its only caller of :class:`RankDroppedError`
-here).
+``serve.*`` instruments land in the per-rank registry (``obs``), which
+the live telemetry plane streams and the metrics dump keeps; sampled
+requests are traced (``obs/trace.py``), and ``--health`` arms the serving
+twin of the divergence sentinel (:func:`_serve_health_check`).  Left out:
+serving autoscale (ROADMAP A13b: its only caller of
+:class:`RankDroppedError` here).
 
 A width-sharded fleet (``spec["width"] > 1``) serves each group's
 requests with one Megatron-sharded engine spread over the group's ranks,
@@ -58,12 +58,13 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
-from .._obs import flightrec as obs_flightrec
-from .._obs import get_registry
-from .._obs import goodput as obs_goodput
-from .._obs import memplane
-from .._obs import progress as obs_progress
-from .._obs import slo as obs_slo
+from ..obs import flightrec as obs_flightrec
+from ..obs import get_registry
+from ..obs import goodput as obs_goodput
+from ..obs import memplane
+from ..obs import progress as obs_progress
+from ..obs import slo as obs_slo
+from ..obs import trace as obs_trace
 from ..basics import DP_AXIS
 from ..elastic.exceptions import HorovodShutdownError
 from ..ops import flash_attention as fa
@@ -291,6 +292,74 @@ def _fetch(ctx, scope: str, key: str, what: str) -> bytes:
         time.sleep(0.005)
 
 
+def _serve_health_check(ctx, scope: str, group: int, group_world,
+                        step: int, sdoc_raw: bytes, paged,
+                        action: str) -> None:
+    """The divergence sentinel's serving twin: every rank of a width
+    group digests the broadcast schedule doc it is about to obey plus
+    its KV page-table state, publishes the tiny digest under
+    ``healthd/``, fetches its peers' and compares.  Replicated decode
+    is the serving form of bitwise replication: followers that drift from the
+    leader's schedule or page tables produce silent token corruption
+    the output checksums can't localize.  Every rank runs the identical
+    comparison on the identical matrix, so every rank reaches the
+    identical verdict (and ``halt`` stops the whole group, not one
+    rank)."""
+    import numpy as np  # noqa: PLC0415
+
+    from ..obs import divergence as obs_divergence  # noqa: PLC0415
+
+    digest = obs_divergence.serve_state_digest(sdoc_raw, paged)
+    members = sorted(group_world)
+    ctx.kv.put(scope, f"healthd/{group}/{step}/{ctx.rank}",
+               digest.astype(np.uint32).tobytes())
+    rows = []
+    for r in members:
+        if r == ctx.rank:
+            rows.append(digest)
+        else:
+            raw = _fetch(ctx, scope, f"healthd/{group}/{step}/{r}",
+                         f"serve health digest from rank {r}")
+            rows.append(np.frombuffer(raw, dtype=np.uint32))
+    mat = np.stack(rows)
+    reg = get_registry()
+    reg.counter("health.divergence.checks").inc()
+    reg.gauge("health.divergence.last_check_step").set(step)
+    # GC our own stale key (leader GC'd sched keys the same way).
+    prev = step - _SCHED_KEEP
+    if prev > 0:
+        ctx.kv.delete(scope, f"healthd/{group}/{prev}/{ctx.rank}")
+    if bool((mat == mat[0]).all()):
+        reg.gauge("health.divergence.alert").set(0)
+        return
+    minority_idx, _ = obs_divergence._partition(mat)
+    minority = [members[i] for i in minority_idx]
+    component = ("page_table"
+                 if bool((mat[:, :obs_divergence.DIGEST_WIDTH]
+                          == mat[0, :obs_divergence.DIGEST_WIDTH]).all())
+                 else "sched_doc")
+    detail = (f"step={step} "
+              f"minority={','.join(str(r) for r in minority)} "
+              f"component={component} group={group}")
+    reg.counter("health.divergence.detected", component=component).inc()
+    reg.gauge("health.divergence.alert").set(1)
+    obs_flightrec.record("health.divergence", name=component,
+                         cycle=step, detail=detail)
+    LOG.error("serving-state divergence: %s", detail)
+    if action == "halt":
+        raise obs_divergence.DivergenceHalt(
+            f"serving divergence sentinel: rank(s) {minority} diverged "
+            f"from the group at step {step} in {component} "
+            f"(--divergence-action halt)"
+        )
+    if action == "dump":
+        try:
+            obs_flightrec.dump_flight_recorder(
+                trigger="health.divergence")
+        except Exception:  # pragma: no cover - defensive
+            pass
+
+
 def _frontdoor_shape(kv) -> int:
     """The front-door shard count ``F`` from the ownership doc the
     launcher published (``serve/frontdoor``): the interleave constant
@@ -436,11 +505,20 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
     summary dict on a clean drain (``serve/stop``), raises
     HorovodShutdownError on a world break (the caller re-enters).
 
-    The reference traces each request's life through this loop as spans
-    (its ``obs/trace.py``, ROADMAP A13); the port's tracer records
-    nothing, so those spans are left out.  ``sched_ms`` in the returned
-    summary are the host-clock ms of each busy step's schedule broadcast
-    (the leader's put, a follower's fetch)."""
+    Tracing (obs/trace.py, armed by ``HVDTPU_TRACE``): every sampled
+    request's life through this loop lands as spans on its rid lane —
+    the ttft components tile the [arrival, first-token] interval
+    exactly (queue_wait + schedule_broadcast + admit_wait + prefill =
+    the histogram's sample, same timestamps), and busy steps land
+    step-lane spans (schedule_broadcast / prefill / decode_compute /
+    stream_publish / whole-step; prefill twinned on the step lane
+    unsampled, so the residual subtraction never depends on the sample
+    rate) the tpot decomposition derives from.  Spans carry THIS epoch,
+    not the env's spawn epoch: a survivor's single dump holds every
+    epoch it lived through.  All on the host clock: no span waits for
+    the device.  ``sched_ms`` in the returned summary are the host-clock
+    ms of each busy step's schedule broadcast (the leader's put, a
+    follower's fetch)."""
     reg = get_registry()
     epoch = ctx.rendezvous()
     width = int(spec.get("width") or 0)
@@ -484,12 +562,15 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
     # group's completions.
     is_global = ctx.rank == ctx.world[0]
     scope = _epoch_scope(epoch)
+    tracing = obs_trace.enabled()
+    t_rate = obs_trace.sample_rate()
 
     # Epoch-start recovery broadcast: the group leader's replay of the
     # durable request record IS the schedule seed — every rank of the
     # group (survivor or fresh respawn) rebuilds the identical
     # scheduler state from it.  Groups recover independently; the log
     # partition (n % groups) makes their replays disjoint.
+    t_rec0 = time.time()
     if is_leader:
         rec = _build_recovery(ctx.kv, group, groups,
                               _frontdoor_shape(ctx.kv))
@@ -658,6 +739,12 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
         )
         LOG.info("epoch %d: replaying %d in-flight requests", epoch,
                  replayed)
+    if tracing:
+        # The recovery span is the left edge of every replayed
+        # request's second incarnation: the waterfall's gap between a
+        # request's epoch-N spans and this span IS the recovery cost.
+        obs_trace.add_span("serve.steps", "recovery", t_rec0,
+                           time.time(), epoch=epoch, replayed=replayed)
 
     step = 0
     # the newest busy steps' schedule-broadcast ms (bounded: a serving
@@ -669,6 +756,9 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
     # per-tenant numbers into counter increments exactly once.
     tenant_prev_throttled: Dict[str, int] = {}
     tenant_prev_admitted: Dict[str, int] = {}
+    # slot-keyed decode-window starts for the per-N-token decode spans:
+    # (wall t, tokens emitted at window start).
+    dspan: Dict[int, Tuple[float, int]] = {}
     idle_secs = float(spec.get("idle_secs", 0.01))
     stream_every = max(int(spec.get("stream_every", 4)), 1)
     # A single-rank group has no peers to broadcast to: publishing the
@@ -678,8 +768,14 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
     # a CPU decode step, and it is exactly the fleet shape the width-1
     # scaling bench runs, so skip it.
     solo = len(group_world) == 1
-    # The reference's serving twin of the divergence sentinel runs here
-    # under --health (A13, not ported: the flag raises at the launcher).
+    # Serving twin of the divergence sentinel (obs/divergence.py):
+    # armed by --health, cadence --health-check-steps.  Solo groups
+    # have no replica to diverge from, so they skip it entirely.
+    from ..obs.health import HealthConfig  # noqa: PLC0415
+
+    health_cfg = HealthConfig.from_env()
+    health_every = (health_cfg.check_steps
+                    if health_cfg.enabled and not solo else 0)
     # The drain sentinel is write-once; probing it every busy step is
     # another roundtrip per step.  Probe on idle steps and every 8th
     # busy step (drain latency <= 8 steps), and latch the first hit.
@@ -785,6 +881,14 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
             # leader's log probe and put, or a follower's wait for them.
             sched_ms.append((t_sched - t_step0) * 1000.0)
 
+        # -- serving divergence sentinel: digest the schedule doc this
+        # rank is about to obey + its page-table state, compare across
+        # the width group (every rank, identical verdict) ----------------
+        if health_every and step % health_every == 0:
+            _serve_health_check(ctx, scope, group, group_world, step,
+                                sdoc_raw, getattr(engine, "paged", None),
+                                health_cfg.divergence_action)
+
         # -- weight hot-swap transitions (between decode steps, before
         # this step's admissions: a flip is version-stamped to exactly
         # this step on every rank) --------------------------------------
@@ -827,11 +931,34 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
                 rid=adm.req.rid,
             )
             t_a1 = time.time()
+            # A recycled slot must never inherit the previous tenant's
+            # decode-window mark.
+            dspan.pop(adm.slot, None)
+            req_traced = tracing and obs_trace.sampled(adm.req.rid,
+                                                       t_rate)
+            if tracing:
+                # Step-lane twin of the request-lane prefill span,
+                # ungated on per-request sampling: the tpot report
+                # subtracts named phases from the whole-step span.
+                obs_trace.add_span("serve.steps", "prefill", t_a0, t_a1,
+                                   epoch=epoch, step=step,
+                                   slot=adm.slot)
             if tok is None:
-                # Replay rebuild; its tokens already streamed.
+                # Replay rebuild; its tokens already streamed.  The
+                # replay_prefill span marks the second incarnation's
+                # restart point on the request's lane.
+                if req_traced:
+                    obs_trace.add_span(
+                        adm.req.rid, "replay_prefill", t_a0, t_a1,
+                        epoch=epoch, step=step, slot=adm.slot,
+                        resumed=len(adm.resume),
+                    )
+                    dspan[adm.slot] = (t_a1, len(adm.resume))
                 continue
             sched.record(adm.slot, tok)
             rate_win.observe(t_a1, 1)
+            if req_traced:
+                dspan[adm.slot] = (t_a1, 1)
             # Dedup by rid, like evictions: a request admitted just
             # before a world break whose first out doc never landed is
             # re-admitted as fresh on replay, and survivors' counters
@@ -858,6 +985,36 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
                     # (tenant, class), never on the fleet aggregate.
                     slo_plane.observe_ttft(adm.req.tenant, adm.req.slo,
                                            ttft_ms, t_a1)
+            if req_traced:
+                # The four spans tile [arrival, first token] exactly:
+                # queue_wait ends where this step began, the broadcast
+                # span covers the schedule fetch, admit_wait absorbs
+                # validation plus same-step earlier prefills, and
+                # prefill is the engine.admit call whose result IS the
+                # first token.  The ingest pump appends concurrently
+                # with this loop, so an arrival can land inside
+                # (t_step0, t_sched]: schedule_broadcast then starts at
+                # the arrival, or the components would over-tile.
+                t_q1 = t_step0
+                if adm.req.arrival:
+                    t_q1 = min(max(adm.req.arrival, t_step0), t_sched)
+                    obs_trace.add_span(
+                        adm.req.rid, "queue_wait",
+                        min(adm.req.arrival, t_q1), t_q1,
+                        epoch=epoch, step=step,
+                    )
+                obs_trace.add_span(adm.req.rid, "schedule_broadcast",
+                                   t_q1, t_sched, epoch=epoch,
+                                   step=step)
+                obs_trace.add_span(adm.req.rid, "admit_wait", t_sched,
+                                   t_a0, epoch=epoch, step=step)
+                obs_trace.add_span(
+                    adm.req.rid, "prefill", t_a0, t_a1, epoch=epoch,
+                    step=step, slot=adm.slot,
+                    prompt_len=len(adm.req.prompt),
+                    ttft_ms=(round(ttft_ms, 3)
+                             if ttft_ms is not None else None),
+                )
         evictions = sched.evict_finished()
         for ev in evictions:
             # Paged mode: an eviction returns the slot's pages to the
@@ -883,6 +1040,24 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
             rate_win.observe(t_d1, len(active))
             if profiler is not None:
                 profiler.observe(t_d1 - t_d0)
+            if tracing:
+                obs_trace.add_span("serve.steps", "decode_compute",
+                                   t_d0, t_d1, epoch=epoch, step=step,
+                                   slots=len(active))
+                # Per-request decode windows: flush a span to the rid
+                # lane every _DECODE_SPAN_TOKENS tokens.
+                for slot in active:
+                    mark = dspan.get(slot)
+                    if mark is None:
+                        continue
+                    n = len(sched.active[slot].emitted)
+                    if n - mark[1] >= _DECODE_SPAN_TOKENS:
+                        obs_trace.add_span(
+                            sched.active[slot].req.rid, "decode",
+                            mark[0], t_d1, epoch=epoch, step=step,
+                            tokens=n - mark[1],
+                        )
+                        dspan[slot] = (t_d1, n)
             post = sched.evict_finished()
             for ev in post:
                 engine.release_slot(ev.slot)
@@ -890,6 +1065,7 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
 
         # -- stream results (leader only writes; peers computed the
         # identical tokens and discard them) -------------------------
+        t_p0 = time.time()
         if is_leader:
             for slot in sorted(sched.active):
                 act = sched.active[slot]
@@ -929,6 +1105,18 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
                 totals["done_rids"].add(ev.rid)
                 reg.counter("serve.evicted").inc()
                 totals["completed"] += 1
+            mark = dspan.pop(ev.slot, None)
+            if tracing and obs_trace.sampled(ev.rid, t_rate):
+                t_fin = time.time()
+                if mark is not None and len(ev.tokens) > mark[1]:
+                    obs_trace.add_span(ev.rid, "decode", mark[0], t_fin,
+                                       epoch=epoch, step=step,
+                                       tokens=len(ev.tokens) - mark[1])
+                obs_trace.add_span(ev.rid, "finish", t_fin, t_fin,
+                                   epoch=epoch, step=step,
+                                   reason=ev.reason,
+                                   tokens=len(ev.tokens),
+                                   resumed=ev.resumed)
 
         # -- gauges + progress beat ----------------------------------
         t_step1 = time.time()
@@ -936,6 +1124,16 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
         if not busy and sched_ms:
             sched_ms.pop()  # only busy steps' broadcasts are timed
         was_busy = busy
+        if tracing and busy:
+            if is_leader:
+                obs_trace.add_span("serve.steps", "stream_publish",
+                                   t_p0, t_step1, epoch=epoch,
+                                   step=step)
+            obs_trace.add_span("serve.steps", "schedule_broadcast",
+                               t_step0, t_sched, epoch=epoch, step=step)
+            obs_trace.add_span("serve.steps", "step", t_step0, t_step1,
+                               epoch=epoch, step=step,
+                               active=len(active))
         reg.gauge("serve.queue_depth").set(sched.queue_depth)
         reg.gauge("serve.active_slots").set(sched.active_slots)
         if sched.qos is not None and busy:
@@ -1085,8 +1283,8 @@ def _serve_epoch(ctx, engine, spec: dict, totals: Dict[str, Any],
                 out["weight_flips"] = [list(f) for f in swap.flips]
             if profiler is not None:
                 out["perf"] = profiler.summary()
-            # The rank's memory story rides the drain summary (the census
-            # is A13's; the KV pool's bytes are the engine's own).
+            # The rank's memory story rides the drain summary: the
+            # census (owners, device totals) and the KV pool's bytes.
             mem = memplane.memory_record()
             mem["kv_pool_bytes"] = engine.kv_stats(())["pool_bytes"]
             out["memory"] = mem
@@ -1180,15 +1378,19 @@ def serve_worker(spec: Optional[dict] = None):
         width=max(width, 1), width_axis=None,
         sample_seed=int(spec.get("seed") or 0),
     )
-    # The serving MFU accountant's interface (its gauges are A13's):
-    # decode-step FLOPs counted from the shapes.
-    from .._obs.profile import MFUProfiler  # noqa: PLC0415
+    # The serving MFU accountant: decode-step FLOPs counted from the
+    # shapes over the measured step time, published live as perf.*
+    # gauges (estimate-flagged on a device without a peak).
+    from ..obs.profile import MFUProfiler  # noqa: PLC0415
 
     flops = engine.step_flops()
     dev = engine.device
     profiler = MFUProfiler(
         flops, torch.cuda.get_device_name(dev) if dev.type == "cuda"
         else "cpu", source="shapes")
+    # Memory plane: the engine registered its owner tags (kv_cache,
+    # params) at construction; arming the census collector here makes
+    # every live-stream snapshot carry mem.* gauges.
     memplane.install_census()
     # Weight hot-swap rider (spec["weights_dir"]): versions survive
     # epoch re-formation on this object; version 0 is the seed-derived
@@ -1209,9 +1411,10 @@ def serve_worker(spec: Optional[dict] = None):
               "admitted_rids": set(),
               "tenant_throttled": {}, "tenant_admitted_tokens": {}}
     # Goodput + SLO planes, built ONCE per process so their sliding
-    # windows span world re-formations: the token-goodput accountant
-    # over the slot pool and the per-tenant burn-rate plane from the
-    # spec's objectives (the wall-clock ledger is A13's).
+    # windows and lost-time books span world re-formations: the
+    # wall-clock ledger (fed by the flight-recorder tap), the
+    # token-goodput accountant over the slot pool, and the per-tenant
+    # burn-rate plane from the spec's objectives.
     obs_goodput.install()
     tok_goodput = obs_goodput.TokenGoodput(spec["num_slots"],
                                            time.time())
@@ -1224,7 +1427,7 @@ def serve_worker(spec: Optional[dict] = None):
                                 swap, slo_plane, tok_goodput)
         except RankDroppedError:
             # The launcher re-minted a world without us (a shrink past
-            # this rank; the reference's autoscale, A13, also drops ranks
+            # this rank; the reference's autoscale, A13b, also drops ranks
             # deliberately).  That is a clean release, not a failure —
             # exit 0 with a summary.  (RankDroppedError subclasses
             # HorovodShutdownError, so this arm must come first.)
@@ -1282,21 +1485,21 @@ class ServeJob:
                  live_history: Optional[str] = None,
                  timeout: Optional[float] = None):
         """``spec["weights_dir"]`` arms weight hot-swap on every rank.
-        ``max_workers``, ``autoscale``, ``live_stats_secs`` and
-        ``live_history`` are the reference's serving autoscale and live
-        telemetry (ROADMAP A13) and raise :class:`NotPortedError` when
+        ``live_stats_secs`` / ``live_history``: the live telemetry plane
+        (per-rank snapshots into this job's store, the console digest,
+        ``live_history.jsonl`` and ``GET /metrics`` on :attr:`port`).
+        ``max_workers`` and ``autoscale`` are the reference's serving
+        autoscale (ROADMAP A13b) and raise :class:`NotPortedError` when
         set."""
         from ..exceptions import NotPortedError  # noqa: PLC0415
         from ..run.rendezvous import KVStoreServer  # noqa: PLC0415
 
         for name, value in (("max_workers", max_workers),
-                            ("autoscale", autoscale),
-                            ("live_stats_secs", live_stats_secs),
-                            ("live_history", live_history)):
+                            ("autoscale", autoscale)):
             if value is not None:
                 raise NotPortedError(
-                    f"ServeJob({name}=...) is not ported yet (ROADMAP A13: "
-                    f"serving autoscale and the live telemetry plane)")
+                    f"ServeJob({name}=...) is not ported yet (ROADMAP A13b: "
+                    f"serving autoscale)")
         self.spec = dict(DEFAULT_SPEC)
         self.spec.update(spec or {})
         self.np = np
@@ -1306,6 +1509,7 @@ class ServeJob:
             heartbeat_timeout=heartbeat_timeout,
             progress_timeout=progress_timeout,
             blacklist_cooldown=blacklist_cooldown,
+            live_stats_secs=live_stats_secs, live_history=live_history,
             job_timeout=timeout,
         )
         self._server = KVStoreServer()
@@ -1399,13 +1603,37 @@ class ServeJob:
             self.shutdown()
 
     def shutdown(self) -> None:
-        """Release launcher-side resources (idempotent)."""
+        """Release launcher-side resources (idempotent).  Under
+        ``HVDTPU_TRACE`` (this process's env or the job's ``env``) also
+        dump the launcher's own spans and merge every rank's into the
+        per-request waterfall and latency-decomposition report: the
+        python-API twin of the ``hvdrun --trace`` end-of-job merge."""
         try:
             self._pump.stop()
         except Exception:  # pragma: no cover - defensive
             pass
         try:
             self._server.stop()
+        except Exception:  # pragma: no cover - defensive
+            pass
+        try:
+            import os  # noqa: PLC0415
+
+            from ..utils import env as envmod  # noqa: PLC0415
+
+            raw = self._env.get(envmod.TRACE) \
+                or os.environ.get(envmod.TRACE)
+            if raw:
+                # Explicit path: the dump target may be armed only in
+                # the workers' env dict, not this process's os.environ.
+                obs_trace.flush(obs_trace.resolve_dump_path(raw))
+                from ..obs import trace_merge  # noqa: PLC0415
+
+                out = trace_merge.merge_glob(raw,
+                                             expected_ranks=self.np)
+                if out is not None:
+                    LOG.info("merged trace -> %s (report %s)",
+                             out["waterfall"], out["report"])
         except Exception:  # pragma: no cover - defensive
             pass
 

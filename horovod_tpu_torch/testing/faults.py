@@ -23,9 +23,10 @@ Grammar::
   commit), ``ckpt_write`` (``checkpoint.py``, rank 0's write),
   ``frontend_beat`` (``serve/frontend.py``, the top of each ingest pump
   round: the pump's frontend id is the rank, its beat counter the step),
-  ``mem_alloc`` (``_obs/memplane.alloc_guard`` on the serving prefill and
-  decode paths) and ``swap_commit`` (``serve/hotswap.py``, between a
-  successful prefetch and the version flip).  A spec naming another point
+  ``mem_alloc`` (``obs/memplane.alloc_guard`` on the serving prefill and
+  decode paths), ``swap_commit`` (``serve/hotswap.py``, between a
+  successful prefetch and the version flip) and ``trace_flush``
+  (``obs/trace.py``, the span dump).  A spec naming another point
   is refused at parse time: it would never fire.
 * ``rank`` — only fire on this rank (the ``rank=`` call argument, else
   ``HVDTPU_RANK``, else ``HVDTPU_ELASTIC_RANK``).  Absent means any rank.
@@ -49,7 +50,8 @@ Grammar::
   :func:`corrupt_bytes`), ``drop_replica`` (``replica_push``: the push is
   skipped), ``flip_bits`` and ``nan_inject`` (``grad_ready``: one element
   of the result is damaged with :func:`corrupt_grad`), ``frontend_exit``
-  (``frontend_beat``: the pump dies without draining), ``oom``
+  (``frontend_beat``: the pump dies without draining), ``trace_drop``
+  (``trace_flush``: the next span dump is suppressed), ``oom``
   (``mem_alloc``: a RESOURCE_EXHAUSTED ``RuntimeError`` is raised) and
   ``swap_abort`` (``swap_commit``: the rank exits with ``os._exit`` mid-swap).
   ``worker_exit`` / ``task_fn`` default to ``exit``.
@@ -71,7 +73,7 @@ DEFAULT_EXIT_CODE = 43
 # the injection sites this package wires (see the module docstring)
 POINTS = ("enqueue", "worker_exit", "task_fn", "grad_ready", "shard_write",
           "replica_push", "ckpt_write", "frontend_beat", "mem_alloc",
-          "swap_commit")
+          "swap_commit", "trace_flush")
 _EXIT_POINTS = ("worker_exit", "task_fn")
 # Advisory actions only take effect at call sites that consume
 # maybe_fail's return value; parse-time validation keeps a spec like
@@ -80,6 +82,7 @@ _EXIT_POINTS = ("worker_exit", "task_fn")
 _ADVISORY_POINTS = {
     "corrupt_write": ("shard_write",),
     "drop_replica": ("replica_push",),
+    "trace_drop": ("trace_flush",),
     "swap_abort": ("swap_commit",),
     "oom": ("mem_alloc",),
     "frontend_exit": ("frontend_beat",),
@@ -338,7 +341,7 @@ def maybe_fail(
         # Black-box the injection itself: a chaos run's post-mortem must
         # show the fault firing as an event, not leave the analyzer to
         # infer it from the wreckage.
-        from .._obs import flightrec  # noqa: PLC0415
+        from ..obs import flightrec  # noqa: PLC0415
 
         flightrec.record(
             "fault", name=point,

@@ -20,11 +20,14 @@ A step is ``step(*state) -> carry + (loss,)``: the first
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import basics
+from .obs import trace as obs_trace
 from .models import (VGG16, VGG19, InceptionV3, ResNet18, ResNet50,
                      ResNet101, gpt)
 from .models.layers import from_nhwc
@@ -80,7 +83,7 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
                    kv_heads: int = 0, pos_embedding: str = "learned",
                    moe_experts: int = 0, attention_window: int = 0,
                    overlap_mode: str = "off", grad_bucket_mb=None, *,
-                   device=None):
+                   device=None, health: bool = False):
     """GPT causal-LM training step, with the reference's keywords and
     defaults.  Returns ``(step, state, static)`` like the reference:
     ``step(*state) -> (model, optimizer, loss)`` with ``state = (model,
@@ -98,6 +101,12 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
     capacity factor 2, routing groups of 4096: the reference model's
     defaults), and the loss adds ``MOE_AUX_WEIGHT`` times the blocks' aux
     losses, as the reference's step does.
+
+    ``health=True`` builds the optimizer as an ``OverlapPlan(health=True)``
+    (of mode ``overlap_mode``, ``off`` included) and ``step`` returns
+    ``(model, optimizer, loss, bundle)``: the step's training-health
+    bundle (``obs/health.py``), a device tensor that nothing reads on the
+    host.  The losses are those of ``health=False``, bit for bit.
     """
     _check_dtype(dtype)
     if overlap_mode not in MODES:
@@ -123,19 +132,34 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
         tokens[r * batch_size:(r + 1) * batch_size]).to(dev)
     broadcast_parameters(model.state_dict(), root_rank=0)
 
-    if overlap_mode == "off":
+    if overlap_mode == "off" and not health:
         opt = DistributedOptimizer(make_adamw(model.parameters()))
     else:
         opt = OverlapPlan(model.parameters(), make_adamw, mode=overlap_mode,
-                          bucket_mb=grad_bucket_mb)
+                          bucket_mb=grad_bucket_mb, health=health)
+
+    steps = [0]
 
     def step(model, opt, toks):
+        t0 = time.time()
         opt.zero_grad()
         loss = lm_loss(model, toks)
         loss.backward()
-        opt.step()
-        # the mean over the world, so a non-finite loss on any rank shows
-        return model, opt, allreduce(loss.detach())
+        if health:
+            opt.step(loss=loss.detach())
+            out = (model, opt, allreduce(loss.detach()), opt.bundle)
+        else:
+            opt.step()
+            # the mean over the world, so a non-finite loss on any rank
+            # shows
+            out = (model, opt, allreduce(loss.detach()))
+        steps[0] += 1
+        if obs_trace.enabled():
+            # host clock: the span covers the step's issue, and waits
+            # for nothing on the device
+            obs_trace.add_span("train.steps", "step", t0, time.time(),
+                               step=steps[0])
+        return out
 
     state = (model, opt, local)
     return step, state, {"n_chips": n_gpus, "global_batch": global_batch,

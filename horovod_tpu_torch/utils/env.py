@@ -68,6 +68,34 @@ DEFAULT_REPLAY_CYCLES = 50
 # Logging (utils/logging.py)
 LOG_LEVEL = "HVDTPU_LOG_LEVEL"
 
+# Observability planes (obs/, horovod_tpu/utils/env.py:75-120, 181-187):
+# the per-rank metrics dump target (a dir, a {rank} template or a plain
+# path that gets a rank tag); the live stream's snapshot period in seconds
+# and its KV endpoint (the elastic store's when unset); the straggler
+# alert threshold in ms; the flight recorder's dump target and ring
+# capacity; the span dump target, sample rate and ring capacity.  The
+# sample verdict is a pure function of the trace id, so every rank and the
+# launcher reach the same one.
+METRICS_DUMP = "HVDTPU_METRICS_DUMP"
+LIVE_STATS = "HVDTPU_LIVE_STATS_SECS"
+LIVE_KV = "HVDTPU_LIVE_KV"
+ALERT_SKEW = "HVDTPU_ALERT_SKEW_MS"
+FLIGHTREC_DUMP = "HVDTPU_FLIGHTREC_DUMP"
+FLIGHTREC_CAPACITY = "HVDTPU_FLIGHTREC_CAPACITY"
+TRACE = "HVDTPU_TRACE"
+TRACE_SAMPLE_RATE = "HVDTPU_TRACE_SAMPLE_RATE"
+TRACE_CAPACITY = "HVDTPU_TRACE_CAPACITY"
+# Training-health plane (obs/health.py, obs/divergence.py): HEALTH arms
+# the step's numerics bundle and the anomaly judge ("on"/"off", default
+# off: off leaves the step as it was); HEALTH_CHECK_STEPS is the
+# divergence sentinel's cadence (default 100); DIVERGENCE_ACTION is what a
+# confirmed divergence does: warn | dump | halt.  Fleet-wide: the
+# sentinel's exchange is a collective, so every rank derives the same
+# cadence and action.
+HEALTH = "HVDTPU_HEALTH"
+HEALTH_CHECK_STEPS = "HVDTPU_HEALTH_CHECK_STEPS"
+DIVERGENCE_ACTION = "HVDTPU_DIVERGENCE_ACTION"
+
 # Sharded checkpoint + peer-replica recovery tier (ckpt/,
 # horovod_tpu/utils/env.py:97-109): CKPT_DIR is the sharded-manifest
 # directory the elastic State saves to and falls back to on restore when
@@ -144,3 +172,25 @@ def resolve_rank(default=None):
         if value not in (None, ""):
             return int(value)
     return default
+
+
+# The launcher inherits the job's dump env but has no rank, so an
+# env-driven dump there would resolve to rank 0 and overwrite worker rank
+# 0's file.  Launchers mark themselves here; their artifacts take the tag
+# "launcher", which the aggregators skip.
+_is_launcher = False
+
+
+def mark_launcher() -> None:
+    global _is_launcher
+    _is_launcher = True
+
+
+def artifact_rank() -> str:
+    """The rank tag of this process's per-rank artifacts (metrics, flight
+    recorder, spans): the resolved rank for a worker, ``launcher`` for a
+    marked launcher.  A rank in the env wins over the mark."""
+    rank = resolve_rank(None)
+    if rank is None and _is_launcher:
+        return "launcher"
+    return str(rank if rank is not None else 0)

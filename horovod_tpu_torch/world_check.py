@@ -59,7 +59,17 @@ inputs:
   against the replicated engine's greedy streams.  :func:`a11_checks`
   runs the same at any world size (``chip_smoke.py`` at a world of one).
 
-``--only a11`` runs that section alone.  Prints three JSON lines (every
+* the observability planes (``a13``, ROADMAP A13a): gpt-nano bf16 in
+  ``bucket`` mode through ``OverlapPlan(health=True)`` and the
+  divergence sentinel (``StepHealth``, one check after step 2) with a
+  ``grad_ready`` ``flip_bits`` on rank 2's bucket 1 in step 2: every rank
+  names rank 2 alone, and the same bucket and leaf; then eager
+  allreduces with an ``enqueue`` ``delay`` of 300 ms on rank 3: the
+  straggler gauges rank 0's controller keeps blame rank 3 for every
+  delayed collective.
+
+``--only a11`` / ``--only a13`` runs that section alone.  Prints three
+JSON lines (every
 rank's checks, rank 0's training runs, the verdict) and exits nonzero if
 any check fails on any rank.  Times are the host clock around
 ``torch.cuda.synchronize()``.
@@ -79,7 +89,14 @@ import sys
 import time
 import traceback
 
-__all__ = ["main", "a11_checks", "a11_failures"]
+__all__ = ["main", "a11_checks", "a11_failures", "a13_checks",
+           "a13_failures"]
+
+# the a13 section's faults: one flipped bit in rank 2's bucket 1 in step 2,
+# and rank 3 late by 300 ms to its first A13_DELAYED collectives
+A13_FLIP = "grad_ready:rank=2:step=2:name=bucket1:action=flip_bits"
+A13_DELAYED = 4
+A13_DELAY = f"enqueue:rank=3:action=delay:300:count={A13_DELAYED}"
 
 LENGTH = 4099          # not a multiple of any local size
 TOL = 1e-5             # fp32 sums of a few terms in another order
@@ -371,7 +388,7 @@ def _time_synchronize(opt) -> list:
 def _cycle_hists():
     """``(count, sum)`` of the engine's cycle work time (a cycle's time
     without its sleep) and of its negotiation time, in ms."""
-    from ._obs import get_registry
+    from .obs import get_registry
 
     reg = get_registry()
     return tuple((h.count, h.sum) for h in (
@@ -834,7 +851,79 @@ def a11_failures(checks: dict) -> list:
     return bad
 
 
+def a13_checks(hvd, torch, cpu: bool) -> dict:
+    """The divergence sentinel localizing a flipped bit, and straggler
+    attribution naming a delayed rank (the module docstring's ``a13``)."""
+    from .obs import straggler
+    from .obs.health import HealthConfig, StepHealth
+    from .testing import faults
+    from .train import build_gpt_step
+
+    out = {}
+    with _engine_env(HVDTPU_FAULT_SPEC=A13_FLIP):
+        faults.reset()
+        step, (model, plan, toks), _ = build_gpt_step(
+            "nano", "bf16", 4, 128, overlap_mode="bucket",
+            grad_bucket_mb=0.25, device="cpu" if cpu else None, health=True)
+        names = [n for n, _ in model.named_parameters()]
+        sh = StepHealth(plan, rank=hvd.rank(), leaf_names=names,
+                        config=HealthConfig(enabled=True, check_steps=2,
+                                            divergence_action="warn"))
+        for k in (1, 2):
+            out_k = step(model, plan, toks)
+            sh.after_step(k, out_k[3])
+        sh.drain()
+        rep = sh.reports[0] if sh.reports else None
+        out["sentinel"] = None if rep is None else {
+            "minority": list(rep.minority_ranks), "bucket": rep.bucket,
+            "leaf": rep.leaf_name, "checks": sh.sentinel.checks}
+        plan.close()
+    faults.reset()
+    straggler.reset()
+    with _engine_env(HVDTPU_FAULT_SPEC=A13_DELAY):
+        faults.reset()
+        for i in range(A13_DELAYED):
+            hvd.synchronize(hvd.allreduce_async(torch.ones(8),
+                                                name=f"a13.late{i}"))
+        from .obs import get_registry
+
+        blamed = {m["tags"]["rank"]: m["value"]
+                  for m in get_registry().snapshot()
+                  if m["name"] == straggler.PREFIX + "last_arrivals"}
+        out["straggler"] = {"last_arrivals": blamed}
+    faults.reset()
+    return out
+
+
+def a13_failures(checks: dict) -> list:
+    """The A13 checks out of bounds on one rank's checks (the verdicts
+    across ranks and the straggler books are ``_a13_world_failures``')."""
+    bad = []
+    rep = checks["sentinel"]
+    if rep is None or rep["minority"] != [2]:
+        bad.append(f"a13 sentinel: {rep}")
+    return bad
+
+
+def _a13_world_failures(per_rank: dict) -> list:
+    """Across ranks: one verdict (bucket and leaf) everywhere, and rank 0's
+    straggler books blaming rank 3 the most, for every delayed
+    collective."""
+    bad = []
+    verdicts = {(c["sentinel"] or {}).get("bucket") for c in per_rank.values()}
+    leaves = {(c["sentinel"] or {}).get("leaf") for c in per_rank.values()}
+    if len(verdicts) != 1 or len(leaves) != 1 or None in leaves:
+        bad.append(f"a13 sentinel verdicts differ: {verdicts} {leaves}")
+    blamed = per_rank[0]["straggler"]["last_arrivals"]
+    top = max(blamed, key=blamed.get) if blamed else None
+    if top != "3" or blamed["3"] < A13_DELAYED:
+        bad.append(f"a13 straggler: {blamed}")
+    return bad
+
+
 def _failures(checks: dict, train: dict) -> list:
+    if "a13" in checks:  # --only a13
+        return a13_failures(checks["a13"])
     if "eager" not in checks:  # --only a11
         return a11_failures(checks["a11"])
     bad = a11_failures(checks["a11"])
@@ -917,6 +1006,11 @@ def _worker(rank, world, local_size, port, cpu, out, only):
         device = "cpu" if cpu else f"cuda:{rank % torch.cuda.device_count()}"
         hvd.init(device=device)
         checks, train = {}, {}
+        if only == "a13":
+            checks["a13"] = a13_checks(hvd, torch, cpu)
+            out.put((rank, True, {"checks": checks, "train": train,
+                                  "failures": _failures(checks, train)}))
+            return
         if only != "a11":
             checks = _collective_checks(hvd, torch)
             with _engine_env(HVDTPU_SCHEDULE_REPLAY_CYCLES=REPLAY_CYCLES):
@@ -944,9 +1038,9 @@ def main(argv=None) -> int:
                    help="a gloo world on the CPU (a rehearsal of the "
                    "paths; its times are no device's)")
     p.add_argument("--timeout", type=float, default=900.0)
-    p.add_argument("--only", choices=["a11"], default=None,
+    p.add_argument("--only", choices=["a11", "a13"], default=None,
                    help="run one section alone (a11: the parallel "
-                   "schedules)")
+                   "schedules; a13: the observability planes)")
     args = p.parse_args(argv)
     import torch
 
@@ -992,6 +1086,9 @@ def main(argv=None) -> int:
         return 1
     failures = sorted({f for res in results.values()
                        for f in res["failures"]})
+    if args.only == "a13":
+        failures += _a13_world_failures(
+            {r: results[r]["checks"]["a13"] for r in results})
     print(json.dumps({"world": world, "local_size": args.local_size,
                       "device": "cpu" if args.cpu
                       else torch.cuda.get_device_name(0),

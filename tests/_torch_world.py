@@ -1197,3 +1197,74 @@ def checkpoint_worker(directory, fault):
             "avg": avg,
             "synced": synced["v"].tolist(), "raised": raised, "msg": msg,
             "latest": hvd.latest_checkpoint_step(directory)}
+
+
+def health_worker(state_np, tokens, steps, bucket_mb, flip, overrides):
+    """gpt-nano (fp32) AdamW steps through ``OverlapPlan(health=True)`` in
+    ``bucket`` and ``bucket+zero1`` from ``state_np`` on this rank's rows
+    of ``tokens``: each step's health bundle and local loss.  Then a
+    ``bucket`` run under the fault spec ``flip`` (a ``grad_ready``
+    ``flip_bits``) with the divergence sentinel (``StepHealth``, a check
+    every ``steps`` steps): its report and this rank's final parameters
+    by name.  ``overrides``: gpt-nano's config overrides."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.obs.health import HealthConfig, StepHealth
+    from horovod_tpu_torch.optim.overlap import OverlapPlan
+    from horovod_tpu_torch.testing import faults
+    from horovod_tpu_torch.train import lm_loss, make_adamw
+
+    r, n = hvd.rank(), hvd.size()
+    rows = tokens.shape[0] // n
+    mine = torch.from_numpy(tokens[r * rows:(r + 1) * rows])
+
+    def run(mode, health=None):
+        model = gpt("nano", device="cpu", dtype=torch.float32,
+                    **overrides)
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state_np.items()})
+        plan = OverlapPlan(model.parameters(), make_adamw, mode=mode,
+                           bucket_mb=bucket_mb, health=True)
+        sh = health(plan) if health else None
+        losses, bundles = [], []
+        for k in range(1, steps + 1):
+            plan.zero_grad()
+            loss = lm_loss(model, mine)
+            loss.backward()
+            plan.step(loss=loss.detach())
+            losses.append(loss.item())
+            bundles.append(plan.bundle.tolist())
+            if sh is not None:
+                sh.after_step(k, plan.bundle)
+        plan.close()
+        return model, plan, sh, losses, bundles
+
+    out = {"names": [name for name, _ in gpt(
+        "nano", device="cpu", dtype=torch.float32,
+        **overrides).named_parameters()]}
+    for mode in ("bucket", "bucket+zero1"):
+        _, plan, _, losses, bundles = run(mode)
+        out[mode] = {"losses": losses, "bundles": bundles,
+                     "buckets": [list(b.leaf_indices)
+                                 for b in plan.layout.buckets]}
+    os.environ["HVDTPU_FAULT_SPEC"] = flip
+    faults.reset()
+    config = HealthConfig(enabled=True, check_steps=steps,
+                          divergence_action="warn")
+    model, plan, sh, _, _ = run(
+        "bucket", lambda plan: StepHealth(plan, rank=r, config=config,
+                                          leaf_names=out["names"]))
+    sh.drain()
+    rep = sh.reports[0] if sh.reports else None
+    out["sentinel"] = None if rep is None else {
+        "bucket": rep.bucket, "leaf": rep.leaf_name,
+        "minority": list(rep.minority_ranks),
+        "buckets": [list(b.leaf_indices) for b in plan.layout.buckets],
+        "params": {k: v.detach().numpy().copy()
+                   for k, v in model.named_parameters()}}
+    out["alerts"] = sh.monitor.judge.alerts_total
+    del os.environ["HVDTPU_FAULT_SPEC"]
+    faults.reset()
+    return out

@@ -1,5 +1,5 @@
 """The port's elastic training (``horovod_tpu_torch.elastic``, the
-progress beat ``_obs.progress`` and the fault registry
+progress beat ``obs.progress`` and the fault registry
 ``testing/faults.py``) against the JAX package's.
 
 * Decision tables through both packages on the same inputs: the fault
@@ -35,7 +35,7 @@ import horovod_tpu.elastic as j_elastic
 from horovod_tpu.obs import progress as j_progress
 from horovod_tpu.testing import faults as j_faults
 import horovod_tpu_torch.elastic as elastic
-from horovod_tpu_torch._obs import progress
+from horovod_tpu_torch.obs import progress
 from horovod_tpu_torch.elastic.context import ElasticContext
 from horovod_tpu_torch.elastic.exceptions import (
     HorovodShutdownError,
@@ -113,9 +113,12 @@ def test_malformed_specs_raise_in_both(bad):
 def test_unwired_points_are_refused():
     """The port refuses a point it does not wire: a chaos run built on it
     would never fire."""
-    for point in ("trace_flush", "scale_admit", "campaign_point"):
+    for point in ("scale_admit", "campaign_point"):
         with pytest.raises(ValueError, match="not wired"):
             faults.parse_spec(f"{point}:action=raise")
+    # wired with the tracer (obs/trace.py) since A13a
+    assert faults.parse_spec("trace_flush:action=trace_drop")[0].action \
+        == "trace_drop"
 
 
 # (env spec, epoch, calls): each call is (point, step, rank, name); the

@@ -29,7 +29,7 @@ import _torch_world
 from horovod_tpu.runtime.engine import _replay_plan_ok as jax_replay_plan_ok
 from horovod_tpu.runtime.messages import Response as JaxResponse
 from horovod_tpu.runtime.messages import ResponseType as JaxResponseType
-from horovod_tpu_torch._obs import get_registry
+from horovod_tpu_torch.obs import get_registry
 from horovod_tpu_torch.ops.collectives import ReduceOp
 from horovod_tpu_torch.runtime import response_cache as rcache
 from horovod_tpu_torch.runtime.autotune import (

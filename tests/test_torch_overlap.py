@@ -331,12 +331,11 @@ def test_a_dropped_plan_is_freed(mode):
 
 
 def test_plan_refuses_what_is_not_ported():
-    """``health`` is not ported (A13); a bad mode, hierarchical axes that
-    are not a pair and an unknown cross-leg wire are refused.  (The
-    two-level schedule itself is ``test_torch_hierarchical.py``'s.)"""
+    """A bad mode, hierarchical axes that are not a pair and an unknown
+    cross-leg wire are refused.  (``health=True`` is ported: its bundles
+    are ``test_torch_health.py``'s; the two-level schedule is
+    ``test_torch_hierarchical.py``'s.)"""
     params = [torch.nn.Parameter(torch.ones(3))]
-    with pytest.raises(NotImplementedError, match="A13"):
-        overlap.OverlapPlan(params, torch.optim.SGD, health=True)
     for kw, match in (({"mode": "zero3"}, "mode"),
                       ({"hierarchical_axes": ("a",)}, "local_axis"),
                       ({"dcn_compression": "ef_bf16"},

@@ -73,8 +73,8 @@ def test_every_module_imports_without_jax():
                 "runtime.controller", "runtime.device_plane",
                 "runtime.messages", "runtime.response_cache",
                 "runtime.timeline", "ops.eager", "interop.torch",
-                "_engine_registry", "_obs", "_obs.progress",
-                "_obs.pathspec", "testing.faults", "run.runner",
+                "_engine_registry", "obs", "obs.progress",
+                "obs.pathspec", "testing.faults", "run.runner",
                 "run.rendezvous", "run.allocate", "run.blacklist",
                 "run.config_parser", "run.exec", "run.__main__",
                 "elastic.context", "elastic.state", "elastic.run",
@@ -83,8 +83,12 @@ def test_every_module_imports_without_jax():
                 "utils.logging", "run.api", "run.task_fn",
                 "run.driver_service", "cluster", "serve.frontend",
                 "serve.hotswap", "serve.service", "serve.__main__",
-                "_obs.slo", "_obs.goodput", "_obs.memplane",
-                "_obs.profile"):
+                "obs.slo", "obs.goodput", "obs.memplane",
+                "obs.profile", "obs.registry", "obs.flightrec",
+                "obs.trace", "obs.straggler", "obs.stream", "obs.trend",
+                "obs.live", "obs.summary", "obs.timeline_merge",
+                "obs.trace_merge", "obs.postmortem", "obs.health",
+                "obs.divergence"):
         assert f"horovod_tpu_torch.{mod}" in res["modules"], mod
     assert res["leaked"] == []
     # causal pairs of gpt-small's attention x 4 * head_dim

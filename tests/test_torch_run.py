@@ -169,18 +169,11 @@ def test_config_file_layering_matches_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--alert-skew-ms", "5"], "A13"),
-    (["--health-check-steps", "10"], "A13"),
-    (["--scale-up-queue", "4"], "A13"),
-    (["--serve-autoscale"], "A13"),
-    (["--max-workers", "4"], "A13"),
-    (["--stats-summary"], "A13"),
-    (["--metrics-dump", "/tmp/m"], "A13"),
-    (["--live-stats-secs", "1"], "A13"),
-    (["--flightrec-dump", "/tmp/f"], "A13"),
-    (["--trace", "/tmp/t"], "A13"),
-    (["--dump-grace-secs", "0"], "A13"),
-    (["--scale-cooldown-secs", "5"], "A13"),
+    (["--scale-up-queue", "4"], "A13b"),
+    (["--serve-autoscale"], "A13b"),
+    (["--max-workers", "4"], "A13b"),
+    (["--scale-down-idle-secs", "30"], "A13b"),
+    (["--scale-cooldown-secs", "5"], "A13b"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
     args = runner.parse_args(["-np", "1", *flags, "python", "x"])
@@ -190,21 +183,81 @@ def test_unported_flags_raise_naming_their_item(flags, item):
         runner.main(["-np", "1", *flags, "python", "-c", "raise SystemExit(3)"])
 
 
+# The observability planes' flags (ported with obs/): they parse as the
+# reference's do and land in the same env for every rank.
+OBS_FLAGS = [
+    ["--alert-skew-ms", "5"], ["--health-check-steps", "10"],
+    ["--stats-summary"], ["--metrics-dump", "/tmp/m"],
+    ["--live-stats-secs", "1"], ["--live-port", "0"],
+    ["--live-history-file", "/tmp/h.jsonl"],
+    ["--flightrec-dump", "/tmp/f"], ["--trace", "/tmp/t"],
+    ["--trace-sample-rate", "0.25"], ["--health", "on"],
+    ["--divergence-action", "halt"], ["--dump-grace-secs", "0"],
+]
+
+
+@pytest.mark.parametrize("flags", OBS_FLAGS)
+def test_obs_flags_are_ported_like_the_reference(flags):
+    argv = ["-np", "1", *flags, "python", "x"]
+    port, ref = runner.parse_args(argv), j_runner.parse_args(argv)
+    runner.check_ported(port)
+    attr = flags[0][2:].replace("-", "_")
+    assert getattr(port, attr) == getattr(ref, attr)
+    env_port, env_ref = {}, {}
+    config_parser.set_env_from_args(env_port, port)
+    j_cfg.set_env_from_args(env_ref, ref)
+    assert env_port == env_ref
+
+
 def test_unported_config_keys_raise(tmp_path):
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("serve:\n  autoscale: true\n")
-    with pytest.raises(NotPortedError, match="ROADMAP A13"):
+    with pytest.raises(NotPortedError, match="ROADMAP A13b"):
         runner.parse_args(["-np", "1", "--config-file", str(cfg), "x"])
 
 
+def test_obs_config_keys_match_the_reference(tmp_path):
+    cfg = tmp_path / "cfg.yaml"
+    cfg.write_text(textwrap.dedent("""
+        metrics:
+          dump: /from/file/m
+          flightrec-dump: /from/file/f
+          live-stats-secs: 2
+          alert-skew-ms: 7
+          health: "on"
+          health-check-steps: 4
+          divergence-action: dump
+        trace:
+          target: /from/file/t
+          sample-rate: 0.5
+        """))
+    argv = ["-np", "1", "--config-file", str(cfg), "python", "x"]
+    port, ref = runner.parse_args(argv), j_runner.parse_args(argv)
+    env_port, env_ref = {}, {}
+    config_parser.set_env_from_args(env_port, port)
+    j_cfg.set_env_from_args(env_ref, ref)
+    assert env_port == env_ref and len(env_port) == 9
+
+
 @pytest.mark.parametrize("kwarg,item", [
-    ({"autoscale": {}}, "A13"), ({"live_history": "h.jsonl"}, "A13"),
-    ({"max_workers": 4}, "A13"), ({"live_stats_secs": 1.0}, "A13"),
-    ({"dump_grace_secs": 5.0}, "A13"),
+    ({"autoscale": {}}, "A13b"), ({"max_workers": 4}, "A13b"),
 ])
 def test_unported_elastic_keywords_raise(kwarg, item):
     with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
         runner.launch_elastic_job(["true"], 1, **kwarg)
+
+
+@pytest.mark.parametrize("kwarg", [
+    {"live_history": "h.jsonl", "live_stats_secs": 0.2},
+    {"dump_grace_secs": 0.5},
+])
+def test_obs_elastic_keywords_are_accepted(kwarg, tmp_path, monkeypatch):
+    """The observability keywords of ``launch_elastic_job`` run a job (a
+    world of one ``true``): the live plane's history lands where asked."""
+    monkeypatch.chdir(tmp_path)
+    result = runner.launch_elastic_job([sys.executable, "-c", "pass"], 1,
+                                       job_timeout=60, **kwarg)
+    assert result.exit_codes == {0: 0}
 
 
 def test_build_slot_env_matches_the_reference():

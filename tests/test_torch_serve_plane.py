@@ -1,6 +1,6 @@
 """The port's serving plane end to end on the CPU (horovod_tpu_torch.serve:
 service, __main__, the launcher's ``--serve`` and the bench's ``--serve``)
-and its observability books (``_obs.slo``, ``_obs.goodput``), each held
+and its observability books (``obs.slo``, ``obs.goodput``), each held
 against the reference.
 
 * ``SLOPlane`` and ``TokenGoodput`` keep the same books as the
@@ -48,7 +48,7 @@ from _torch_serving import check_margin, teacher_scores
 from horovod_tpu.models.decode import generate as jax_generate
 from horovod_tpu.models.transformer import gpt as jax_gpt
 from horovod_tpu.serve.__main__ import parse_spec as jax_parse_spec
-from horovod_tpu_torch._obs import goodput, slo
+from horovod_tpu_torch.obs import goodput, slo
 from horovod_tpu_torch.models import params_from_jax
 from horovod_tpu_torch.run.rendezvous import KVStoreClient
 from horovod_tpu_torch.serve import ServeClient, ServeJob, publish_weights
@@ -181,10 +181,19 @@ def test_token_goodput_keeps_the_references_books(seed):
 
 
 def test_the_ledger_hooks_record_nothing_until_a13():
-    assert goodput.install() is None and goodput.get_ledger() is None
-    reg = _Registry()
-    goodput.publish(reg)
-    assert reg.items == {}
+    """Since A13a the hooks arm the reference's wall-clock ledger: the
+    same books as the reference's ledger on the same clock."""
+    try:
+        ledger = goodput.install(now=100.0, epoch=2)
+        assert goodput.get_ledger() is ledger
+        ref = jgoodput.GoodputLedger(100.0, epoch=2)
+        mine, want = _Registry(), _Registry()
+        goodput.publish(mine, now=107.5)
+        ref.publish(want, 107.5)
+        assert mine.values() == want.values() and mine.items
+    finally:
+        goodput.uninstall()
+    assert goodput.get_ledger() is None
 
 
 # ---------------------------------------------------------------------------

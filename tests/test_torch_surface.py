@@ -166,8 +166,8 @@ def test_the_serving_and_run_names_exist_under_the_references_names():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--serve-autoscale"], "A13"),
-    (["--scale-up-queue", "4"], "A13"),
+    (["--serve-autoscale"], "A13b"),
+    (["--scale-up-queue", "4"], "A13b"),
 ])
 def test_hvdrun_serving_refusals_name_their_item(flags, item):
     from horovod_tpu_torch.run import runner
