@@ -267,6 +267,43 @@ through their launch helpers.  Phases, one JSON line each:
    blames rank 1 (the three launchers side by side).  Printed: step ms with and without the flags (host
    clock around a device synchronize), the phase's wall time, the card.
 
+18. ``anatomy`` (after ``serve_fleet``; runs nothing new): the
+   ``anatomy`` block of every bench record above (gpt-nano bf16,
+   gpt-small fp32, MoE-8, ``bench --serve``): its components tile
+   ``step_ms`` within ``ANATOMY_RTOL``, compute is MFU x step (method
+   ``"mfu x step"``), the roofline is no estimate on the H100, and
+   ``top_ops`` names the route's flash kernels at their launches a step
+   (none for the serving record).  Printed: each record's host-gap share
+   (ROADMAP C14).  ``campaign``: ``python -m horovod_tpu_torch.bench
+   --campaign`` on gpt-small bf16 (``GPT_STEP``, full width and depth)
+   over ``overlap`` in {off, bucket} at 16 MB buckets, two points, each a
+   bench process on the card: both ``done``, each record with
+   ``attention == "kernels"``, ``MAIN_PATH``'s launches for its steps and
+   an ``anatomy`` block; then the same spec again, which runs no point
+   and leaves the journal (``spec_sha`` included) as it was.  Printed:
+   each point's tokens/s/GPU beside this call's ``train`` and ``overlap``
+   numbers.  ``estimator``: (i) the reference estimator test's MLP on its
+   blobs, ``backend="local"`` on the card (fp32, TF32 off): every epoch's
+   loss within ``EST_LOSS_TOL`` of the same fit on the CPU (a launcher
+   worker with the GPUs hidden), and ``Model.load`` from the
+   ``LocalStore`` predicting bit for bit what the fitted Model does; (ii)
+   gpt-small bf16 (seq 1024, batch 8, 32 sequences of ``RandomState(0)``
+   tokens, 1 epoch of 4 steps, next-token loss) with
+   ``backend="launcher"``, ``np_workers=1``: a finite loss, exactly
+   ``train``'s launches a step of ``MAIN_PATH`` in the worker (read at
+   each loss call), the final checkpoint in the store.  ``autoscale``:
+   ``python -m horovod_tpu_torch.run --elastic --serve --serve-autoscale
+   -np 1 --max-workers 2`` (``AUTOSCALE_FLAGS``) with ``serve_fleet``'s
+   fleet; the ``serve`` phase's 48 requests arrive as a backlog at t = 0,
+   the queue grows the world to two ranks on the card and the drain
+   shrinks it back.  Gates: one scale-up and one scale-down, the live
+   digest's world tokens 1 -> 2 -> 1, no request dropped, every budget
+   met, greedy streams by the margin rule at ``SERVE_BF16_MARGIN``
+   against the teacher-forced forward, rank 1 released, the summary's
+   autoscale section.  Printed: the time from the grow decision to the
+   grown world's first step, and tokens/s, TTFT p50/p99 and TPOT p50
+   before and after the grow.
+
 Then the ``kernels`` summary, one record per kernel and route shape (its
 launches from that route's run: ``train`` at ``bf16_main``,
 ``train_fp32`` at ``fp32_main``, ``train_nano`` at ``bf16_nano``; the
@@ -1269,6 +1306,7 @@ def moe_phase(fa):
     if record["device_index"] != 0 or record["n_gpus"] != 1:
         raise AssertionError(f"MoE bench ran on {record['device']} "
                              f"{record['device_index']}")
+    run["bench"] = record
     return run
 
 
@@ -1386,6 +1424,7 @@ def overlap(fa, off_losses):
     emit("overlap", model="gpt-small", dtype="bf16",
          batch_per_gpu=GPT_STEP[2], seq=GPT_STEP[3], world=1,
          off_losses=off_losses, loss_rtol=OVERLAP_LOSS_RTOL, modes=out)
+    return out
 
 
 def rope_remat(fa):
@@ -2828,9 +2867,10 @@ FLEET_SWAP_POLL = 8
 FLEET_SWAP_SEED = 1
 FLEET_SWAP_REQUESTS = 8
 FLEET_TIMEOUT = 240
-# bench --serve: the same pool at half the serve phase's requests/s (24
-# requests: ~14 s of arrivals at ~1.7-3.5 a second)
-FLEET_BENCH_REQUESTS = 24
+# bench --serve: the same pool at half the serve phase's requests/s (12
+# requests: ~3.5-7 s of arrivals at ~1.7-3.5 a second; it was 24 before
+# the A13b phases needed the time)
+FLEET_BENCH_REQUESTS = 12
 
 
 class Fleet:
@@ -2839,7 +2879,8 @@ class Fleet:
     the host clock), the client built from the printed ingest endpoint
     and the secret this script gave the launcher (``HVDTPU_SECRET``)."""
 
-    def __init__(self, fault: str = "", weights_dir=None):
+    def __init__(self, fault: str = "", weights_dir=None, np: int = FLEET_NP,
+                 ranks: int = FLEET_NP, launcher_args=()):
         import os
         import secrets
         import threading
@@ -2847,8 +2888,11 @@ class Fleet:
         from horovod_tpu_torch.serve import ServeClient
 
         self.secret = secrets.token_hex(16)
-        args = ["--elastic", "--serve", "-np", str(FLEET_NP), "--frontends",
-                str(FLEET_FRONTENDS)]
+        # the ranks whose summaries stop() reads: np, or the autoscale
+        # envelope's ceiling
+        self.ranks = ranks
+        args = ["--elastic", "--serve", "-np", str(np), "--frontends",
+                str(FLEET_FRONTENDS), *launcher_args]
         if weights_dir:
             args += ["--serve-weights-dir", weights_dir,
                      "--serve-swap-poll-steps", str(FLEET_SWAP_POLL)]
@@ -2908,7 +2952,7 @@ class Fleet:
             raise AssertionError(f"the serving launcher exited {rc}:\n"
                                  f"{self.stderr()[-6000:]}")
         summaries = {}
-        for rank in range(FLEET_NP):
+        for rank in range(self.ranks):
             got = [r["serve_summary"] for r in tagged(self.stdout(), rank)
                    if "serve_summary" in r]
             if not got:
@@ -3941,6 +3985,464 @@ def obs_elastic_runs(root: str) -> dict:
     return runs
 
 
+# --------------------------------------------------------------------------
+# A13b: the step anatomy, the bench campaign, the Estimator, autoscale
+# --------------------------------------------------------------------------
+
+# compute + collective wait + host gap against the step, and compute
+# against MFU x step: the anatomy rounds each to 4 decimals
+ANATOMY_RTOL = 1e-3
+
+
+def anatomy_phase(records: dict) -> dict:
+    """Phase ``anatomy``: the ``anatomy`` block of each bench record the
+    script took (``records``: name -> (record, the route's flash kernels,
+    launches of each a step)): the components tile ``step_ms``, compute is
+    MFU x step, the H100's peak and bandwidth are no estimate, and
+    ``top_ops`` names the route's kernels at their launches a step (none
+    for the serving record, whose decode runs no kernel of this repo).
+    Prints each record's host-gap share (ROADMAP C14)."""
+    card = card_line()
+    out = {}
+    for name, (record, path, per_step) in records.items():
+        anat = record.get("anatomy")
+        if not anat:
+            raise AssertionError(f"{name}: record without anatomy: {record}")
+        step = anat["step_ms"]
+        comp = anat["components_ms"]
+        mfu = record["mfu"] if "mfu" in record else record["perf"]["mfu"]
+        top = {t["op"]: t["count"] for t in anat.get("top_ops", [])}
+        want = {n: per_step for n in path}
+        checks = {
+            "tile": abs(sum(comp.values()) - step) <= ANATOMY_RTOL * step,
+            "compute": abs(comp["compute_ms"] - mfu * step)
+            <= ANATOMY_RTOL * comp["compute_ms"] + 1e-4,
+            "method": anat["method"]["compute"] == "mfu x step",
+            "not_estimate": anat["roofline"]["estimate"] is False,
+            "top_ops": top == want,
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"{name}: anatomy gates {checks}: {anat} "
+                                 f"(kernels a step wanted {want})")
+        out[name] = {"step_ms": step, "mfu": mfu,
+                     "components_ms": comp,
+                     "host_gap_pct": anat["components_pct"]["host_gap_pct"],
+                     "verdict": anat["roofline"]["verdict"],
+                     "top_ops": anat.get("top_ops", [])}
+    emit("anatomy", card=card, records=out)
+    for name, r in out.items():
+        print(f"anatomy {name}: step {r['step_ms']:.3f} ms, host gap "
+              f"{r['host_gap_pct']}% (compute {r['components_ms']['compute_ms']}"
+              f" ms, collective wait "
+              f"{r['components_ms']['collective_wait_ms']} ms), "
+              f"{r['verdict']}; {card}", flush=True)
+    return out
+
+
+CAMPAIGN_BUCKET_MB = 16
+CAMPAIGN_TIMEOUT = 600
+# extra flags of the campaign's bench points (none on the card)
+CAMPAIGN_ARGS = ()
+
+
+def campaign_phase(fa, train_run: dict, overlap_runs: dict) -> dict:
+    """Phase ``campaign``: ``bench --campaign`` on gpt-small bf16 at full
+    width and depth over ``overlap`` in {off, bucket} (16 MB buckets): two
+    points, each a bench process on the card; then the same spec again,
+    which must run no point and leave the journal as it was."""
+    import os
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.bench import campaign
+    from horovod_tpu_torch.ops import kernels
+
+    release()
+    card = card_line()
+    size, dtype, batch, seq = GPT_STEP
+    spec = {"name": "gpt_small_overlap", "retry_degraded": 0,
+            "point_budget_secs": CAMPAIGN_TIMEOUT // 2,
+            "base_args": ["--model", f"gpt-{size}", "--dtype", dtype,
+                          "--seq-len", str(seq), "--batch-size", str(batch),
+                          "--iters", str(STEPS), "--warmup", str(WARMUP),
+                          *CAMPAIGN_ARGS],
+            "axes": {"overlap": ["off", "bucket"],
+                     "grad_bucket_mb": [CAMPAIGN_BUCKET_MB]}}
+    os.makedirs(kernels.build_dir(), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="campaign_", dir=kernels.build_dir())
+    try:
+        spec_path = os.path.join(root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.bench", "--campaign",
+               spec_path]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True,
+                             env=dict(os.environ, HVDTPU_RECORD_DIR=root),
+                             timeout=CAMPAIGN_TIMEOUT)
+        if out.returncode != 0:
+            raise AssertionError(f"bench --campaign exited {out.returncode}:"
+                                 f"\n{out.stderr[-4000:]}")
+        first = {"wall_s": time.perf_counter() - t0,
+                 "summary": json.loads(out.stdout.strip().splitlines()[-1]),
+                 "journal": campaign.load_journal(root)}
+        # the same spec again, through the driver's own entry in this
+        # process: every point is done, so it must launch none
+        log = []
+        t0 = time.perf_counter()
+        again = campaign.run_campaign(campaign.load_spec(spec_path), root,
+                                      log=log.append)
+        second = {"wall_s": time.perf_counter() - t0,
+                  "summary": campaign.summarize_journal(again),
+                  "journal": campaign.load_journal(root),
+                  "log": "\n".join(log)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    journal = first["journal"]
+    want = {n: train_run["launches_per_step"][n] * (STEPS + WARMUP)
+            for n in MAIN_PATH}
+    points = {}
+    for pid, entry in journal["points"].items():
+        rec = entry.get("record") or {}
+        ok = (entry["status"] == "done"
+              and rec.get("attention") == ("kernels" if want else "plain")
+              and rec.get("flash_launches") == want and "anatomy" in rec)
+        if not ok:
+            raise AssertionError(f"campaign point {pid}: {entry}")
+        points[pid] = {"tokens_per_s_per_gpu": rec["value"],
+                       "step_ms": rec["step_ms"], "mfu": rec["mfu"],
+                       "elapsed_s": entry["elapsed_secs"],
+                       "host_gap_pct": rec["anatomy"]["components_pct"][
+                           "host_gap_pct"]}
+    if len(points) != 2:
+        raise AssertionError(f"campaign ran {sorted(points)}, not 2 points")
+    if (second["journal"] != journal or "running" in second["log"]
+            or second["summary"]["done"] != 2):
+        raise AssertionError(f"the second campaign run changed the journal "
+                             f"or ran a point:\n{second['log']}")
+    emit("campaign", card=card, spec=spec, points=points,
+         first_wall_s=first["wall_s"], second_wall_s=second["wall_s"],
+         spec_sha=journal["spec_sha"], summary=first["summary"])
+    same = {"off": train_run["tokens_per_s_per_gpu"],
+            "bucket": overlap_runs["bucket"]["tokens_per_s_per_gpu"]}
+    for pid, p in points.items():
+        mode = "bucket" if "bucket" in pid else "off"
+        print(f"campaign {pid}: {p['tokens_per_s_per_gpu']:.1f} "
+              f"tokens/s/GPU, step {p['step_ms']:.2f} ms (this call's "
+              f"{'train' if mode == 'off' else 'overlap bucket'} phase: "
+              f"{same[mode]:.1f}); {card}", flush=True)
+    return points
+
+
+# the reference estimator test's MLP and blobs (tests/test_estimator.py)
+EST_MLP = {"features": (16,), "epochs": 5, "batch": 32, "lr": 1e-2,
+           "rows": 256}
+EST_LOSS_TOL = 1e-5
+# gpt-small bf16: 32 sequences of RandomState(0) tokens, 1 epoch of 4 steps
+EST_GPT = {"sequences": 32, "batch": 8, "lr": 1e-4}
+
+
+def est_blobs(n: int, seed: int = 0) -> dict:
+    """Two linearly separable 2-D blobs (the reference estimator test's)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    half = n // 2
+    x = np.concatenate([rng.randn(half, 2).astype(np.float32) + 2.0,
+                        rng.randn(n - half, 2).astype(np.float32) - 2.0])
+    y = np.concatenate([np.zeros(half, np.int64),
+                        np.ones(n - half, np.int64)])
+    return {"features": x, "label": y}
+
+
+class LaunchLog:
+    """The gpt-small fit's loss (next-token cross-entropy): before each
+    loss it appends the worker's cumulative flash launches and the host
+    clock to ``path`` — between two calls lie one step's backward and the
+    next step's forward."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __call__(self, logits, labels):
+        import torch.nn.functional as F
+
+        from horovod_tpu_torch.ops import flash_attention as fa
+
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"t": time.time(),
+                                "launches": dict(fa.LAUNCHES)}) + "\n")
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                               labels.reshape(-1))
+
+
+def estimator_phase(fa, train_per_step: dict, device: str = "cuda") -> dict:
+    """Phase ``estimator``: (i) the reference test's MLP fit on its blobs
+    with ``backend="local"`` on the card (fp32, TF32 off), every epoch's
+    loss within ``EST_LOSS_TOL`` of the same fit on the CPU (a launcher
+    worker with the GPUs hidden), and ``Model.load`` from the store
+    predicting bit for bit what the fitted Model does; (ii) gpt-small bf16
+    with ``backend="launcher"``, ``np_workers=1``: finite loss, the
+    ``train`` phase's launches a step (``train_per_step``: 12 of each of
+    ``MAIN_PATH``) in the worker, the final checkpoint in the store."""
+    import functools
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.checkpoint import LocalStore, latest_checkpoint_step
+    from horovod_tpu_torch.estimator import Estimator, Model
+    from horovod_tpu_torch.models import MLP, gpt
+    from horovod_tpu_torch.ops import kernels
+
+    release()
+    card = card_line()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on")
+    on_cpu = device == "cpu"
+    os.makedirs(kernels.build_dir(), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="estimator_", dir=kernels.build_dir())
+    out = {}
+    try:
+        data = est_blobs(EST_MLP["rows"])
+        kw = dict(batch_size=EST_MLP["batch"], epochs=EST_MLP["epochs"],
+                  run_id="blobs")
+        adam = functools.partial(torch.optim.Adam, lr=EST_MLP["lr"])
+        store = LocalStore(os.path.join(root, "mlp"))
+        t0 = time.perf_counter()
+        card_fit = Estimator(MLP(2, EST_MLP["features"], 2), adam,
+                             store=store, use_cpu=on_cpu, **kw).fit(data)
+        card_s = time.perf_counter() - t0
+        cpu_fit = Estimator(MLP(2, EST_MLP["features"], 2), adam,
+                            backend="launcher", np_workers=1, use_cpu=True,
+                            timeout=300, **kw).fit(data)
+        card_losses = [h["loss"] for h in card_fit.history]
+        cpu_losses = [h["loss"] for h in cpu_fit.history]
+        diff = max(abs(a - b) for a, b in zip(card_losses, cpu_losses))
+        if len(card_losses) != EST_MLP["epochs"] or diff > EST_LOSS_TOL:
+            raise AssertionError(f"MLP epoch losses card {card_losses} vs "
+                                 f"CPU {cpu_losses}: {diff:.2e}")
+        loaded = Model.load(MLP(2, EST_MLP["features"], 2), store, "blobs",
+                            device=device)
+        pred, again = (m.predict(data["features"])
+                       for m in (card_fit, loaded))
+        if not np.array_equal(pred, again):
+            raise AssertionError("Model.load predicts other outputs than "
+                                 "the fitted Model")
+        acc = float((card_fit.transform(data)["prediction"]
+                     == data["label"]).mean())
+        out["mlp"] = {"card_losses": card_losses, "cpu_losses": cpu_losses,
+                      "max_loss_diff": diff, "card_fit_s": card_s,
+                      "accuracy": acc, "load_bitwise": True}
+        del card_fit, cpu_fit, loaded
+
+        # (ii) gpt-small bf16 through the launcher backend
+        n, batch = EST_GPT["sequences"], EST_GPT["batch"]
+        seq = GPT_STEP[3]
+        model = gpt(GPT_STEP[0], device="cpu",
+                    dtype={"bf16": torch.bfloat16,
+                           "fp32": torch.float32}[GPT_STEP[1]],
+                    max_len=seq, attention_impl="flash",
+                    generator=torch.Generator().manual_seed(0))
+        tokens = np.random.RandomState(0).randint(
+            0, model.cfg.vocab_size, (n, seq + 1)).astype(np.int64)
+        gdata = {"features": tokens[:, :-1], "label": tokens[:, 1:]}
+        log = os.path.join(root, "launches.jsonl")
+        gstore = LocalStore(os.path.join(root, "gpt"))
+        t0 = time.perf_counter()
+        fitted = Estimator(
+            model, functools.partial(torch.optim.AdamW, lr=EST_GPT["lr"]),
+            loss=LaunchLog(log), batch_size=batch, epochs=1, shuffle=False,
+            store=gstore, run_id="gpt_small", backend="launcher",
+            np_workers=1, use_cpu=on_cpu, timeout=600).fit(gdata)
+        fit_s = time.perf_counter() - t0
+        loss = fitted.history[0]["loss"]
+        calls = [json.loads(ln) for ln in open(log)]
+        steps = n // batch
+        per_step = {k: train_per_step.get(k, 0)
+                    for k in calls[0]["launches"]}
+        first = {k: n if PASS[k] == "fwd" else 0
+                 for k, n in per_step.items()}
+        deltas = [{k: b["launches"][k] - a["launches"][k]
+                   for k in b["launches"]} for a, b in zip(calls, calls[1:])]
+        ckpt = latest_checkpoint_step(gstore.checkpoint_dir("gpt_small"))
+        if (not math.isfinite(loss) or len(calls) != steps
+                or calls[0]["launches"] != first
+                or any(d != per_step for d in deltas) or ckpt != 1):
+            raise AssertionError(f"gpt-small estimator fit: loss {loss}, "
+                                 f"{len(calls)} loss calls (want {steps}), "
+                                 f"first {calls[0]}, deltas {deltas}, "
+                                 f"checkpoint step {ckpt}")
+        step_s = [b["t"] - a["t"] for a, b in zip(calls, calls[1:])]
+        out["gpt_small"] = {
+            "backend": "launcher", "np_workers": 1, "steps": steps,
+            "loss": loss, "fit_wall_s": fit_s,
+            "step_ms_between_loss_calls": [x * 1e3 for x in step_s],
+            "launches_per_step": per_step, "checkpoint_step": ckpt}
+        del fitted, model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    release()
+    emit("estimator", card=card, **out)
+    g = out["gpt_small"]
+    print(f"estimator: MLP card vs CPU epoch losses within "
+          f"{out['mlp']['max_loss_diff']:.2e}; gpt-small launcher fit "
+          f"{g['fit_wall_s']:.1f} s, steps "
+          f"{', '.join(f'{x:.1f}' for x in g['step_ms_between_loss_calls'])}"
+          f" ms apart, loss {g['loss']:.4f}; {card}", flush=True)
+    return out
+
+
+# hvdrun --serve-autoscale over the serve phase's fleet, on the one card
+AUTOSCALE_FLAGS = ("--serve-autoscale", "--max-workers", "2",
+                   "--scale-up-queue", "4", "--scale-down-idle-secs", "5",
+                   "--scale-cooldown-secs", "5", "--stats-summary")
+AUTOSCALE_SHRINK_WAIT = 60
+
+
+def _pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def _window(docs, growth, t_lo, t_hi):
+    """Generated tokens/s, TTFT p50/p99 and TPOT p50 of one window of a
+    fleet's run: the tokens that streamed in [t_lo, t_hi), the requests
+    whose first token came in it, those that finished in it."""
+    seen, toks = {}, 0
+    for t, rid, n, _ in sorted(growth):
+        if t_lo <= t < t_hi:
+            toks += n - seen.get(rid, 0)
+        seen[rid] = n
+    ttft = [(d["t_first"] - d["t_submit"]) * 1e3 for d in docs.values()
+            if t_lo <= d["t_first"] < t_hi]
+    tpot = [(d["t_client_done"] - d["t_first"]) * 1e3
+            / max(len(d["tokens"]) - 1, 1) for d in docs.values()
+            if t_lo <= d["t_client_done"] < t_hi and len(d["tokens"]) > 1]
+    return {"seconds": t_hi - t_lo, "tokens": toks,
+            "tokens_per_s": toks / max(t_hi - t_lo, 1e-9),
+            "ttft_ms": {"p50": _pct(ttft, 50), "p99": _pct(ttft, 99)},
+            "tpot_ms_p50": _pct(tpot, 50)}
+
+
+def live_worlds(lines) -> list:
+    """The serving world sizes the launcher's live digest printed, in
+    order, repeats dropped (``world 1``, ``world 1→2``, ...)."""
+    import re
+
+    worlds = []
+    for _, ln in lines:
+        if ln.startswith("[live]"):
+            for m in re.finditer(r"world (\d+)(?:→(\d+))?", ln):
+                w = int(m.group(2) or m.group(1))
+                if not worlds or worlds[-1] != w:
+                    worlds.append(w)
+    return worlds
+
+
+def autoscale_phase(device: str = "cuda") -> dict:
+    """Phase ``autoscale``: ``hvdrun --elastic --serve --serve-autoscale
+    -np 1 --max-workers 2`` with the ``serve_fleet`` phase's fleet; the
+    serve phase's 48 requests arrive as a backlog at t = 0.  The queue
+    grows the world to 2 ranks on the card, the drain shrinks it back:
+    one ``scale_up`` and one ``scale_down``, world tokens 1 -> 2 -> 1 in
+    the live digest, no request dropped, every budget met, greedy streams
+    by the margin rule against the teacher-forced forward, the summary's
+    autoscale section."""
+    import re
+
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.serve import Request
+
+    release()
+    card = card_line()
+    reqs = serve_requests(SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW,
+                          SERVE_SAMPLE_EVERY, vocab=VOCAB)
+    greedy = [r for r in reqs if r.temperature == 0]
+    sampled = [r for r in reqs if r.temperature > 0]
+    warm = Request(rid="warm", prompt=tuple(FLEET_WARM[0]),
+                   max_new_tokens=FLEET_WARM[1])
+    fleet = Fleet(np=1, ranks=2, launcher_args=AUTOSCALE_FLAGS)
+    try:
+        fleet_traffic(fleet.client, [warm], [0.0])
+        docs, growth = fleet_traffic(fleet.client, reqs, [0.0] * len(reqs))
+        t_drained = time.time()
+        deadline = t_drained + AUTOSCALE_SHRINK_WAIT
+        # the drain-driven shrink, and the live digest's round after it
+        while not (any("elastic: scale down" in ln for _, ln in fleet.err)
+                   and live_worlds(fleet.out)[-2:] == [2, 1]):
+            if time.time() > deadline or fleet.proc.poll() is not None:
+                raise AssertionError(
+                    f"no scale down to a world of 1 in the live digest "
+                    f"within {AUTOSCALE_SHRINK_WAIT} s of the drain (worlds "
+                    f"{live_worlds(fleet.out)}):\n{fleet.stderr()[-4000:]}")
+            time.sleep(0.1)
+        summaries = fleet.stop()
+        wall = time.time() - fleet.t0
+    finally:
+        fleet.close()
+    fleet_gates("autoscale", reqs, docs, {0: summaries[0]})
+    ups = [(t, ln) for t, ln in fleet.err if "elastic: scale up" in ln]
+    downs = [(t, ln) for t, ln in fleet.err if "elastic: scale down" in ln]
+    if len(ups) != 1 or len(downs) != 1:
+        raise AssertionError(f"{len(ups)} scale-ups and {len(downs)} "
+                             f"scale-downs:\n{fleet.stderr()[-4000:]}")
+    worlds = live_worlds(fleet.out)
+    if worlds != [1, 2, 1]:
+        raise AssertionError(f"world tokens {worlds}, not 1 -> 2 -> 1")
+    if not summaries[1].get("released"):
+        raise AssertionError(f"rank 1 was not released: {summaries[1]}")
+    if "== autoscale / weight hot-swap ==" not in fleet.stdout():
+        raise AssertionError("no autoscale section in the summary")
+    section = fleet.stdout().split("== autoscale / weight hot-swap ==",
+                                   1)[1].strip().split("\n\n")[0]
+    model = gpt(FLEET_SIZE, device=device)
+    tokens = {r.rid: docs[r.rid]["tokens"] for r in reqs}
+    margins = bf16_margins(model, greedy, tokens, device)
+    finite_streams(model, sampled, tokens, device)
+    del model
+    release_cache()
+    t_up = ups[0][0]
+    up_epoch = int(re.search(r"at epoch (\d+)", ups[0][1]).group(1))
+    after = sorted(t for t, _, _, epoch in growth
+                   if epoch is not None and epoch >= up_epoch)
+    if not after:
+        raise AssertionError("no token streamed in the grown world")
+    t0 = min(d["t_submit"] for d in docs.values())
+    t1 = max(d["t_client_done"] for d in docs.values())
+    run = {
+        "command": fleet.command, "job_wall_s": wall,
+        "worlds": worlds, "scale_up": ups[0][1], "scale_down": downs[0][1],
+        "grow_decision_to_first_step_s": after[0] - t_up,
+        "drain_to_shrink_s": downs[0][0] - t_drained,
+        "before_grow": _window(docs, growth, t0, t_up),
+        "after_grow": _window(docs, growth, after[0], t1 + 1e-6),
+        "whole": fleet_record(docs, reqs, {0: summaries[0]}),
+        "dropped": 0, "released": summaries[1].get("released"),
+        "greedy_near_ties": sum(len(m["near_ties"])
+                                for m in margins.values()),
+        "summary_section": section,
+    }
+    emit("autoscale", card=card, model=f"gpt-{FLEET_SIZE}", dtype="bf16",
+         slots=SERVE_SLOTS, page_pool={"page_size": SERVE_PAGE_SIZE,
+                                       "num_pages": SERVE_PAGES},
+         requests=len(reqs), flags=list(AUTOSCALE_FLAGS), run=run)
+    b, a = run["before_grow"], run["after_grow"]
+    print(f"autoscale: grow decision to the grown world's first step "
+          f"{run['grow_decision_to_first_step_s']:.2f} s; before the grow "
+          f"{b['tokens_per_s']:.1f} tokens/s, TTFT p50/p99 "
+          f"{b['ttft_ms']['p50']}/{b['ttft_ms']['p99']} ms, TPOT p50 "
+          f"{b['tpot_ms_p50']} ms; after {a['tokens_per_s']:.1f} tokens/s, "
+          f"TTFT p50/p99 {a['ttft_ms']['p50']}/{a['ttft_ms']['p99']} ms, "
+          f"TPOT p50 {a['tpot_ms_p50']} ms; worlds {worlds}; {card}",
+          flush=True)
+    return run
+
+
 def profile_step(state, step, step_ms: float, top: int = 12) -> dict:
     """One more step under torch.profiler: device time by kernel, the
     share of the timed (unprofiled) step the device was busy, the share of
@@ -4043,14 +4545,15 @@ def main(argv=()) -> int:
     del state, step
     release()
     nano_run = train_nano(fa)
-    bench("--model", "gpt-nano", "--seq-len", str(NANO_STEP[3]),
-          "--batch-size", str(NANO_STEP[2]), path=NANO_PATH)
+    nano_bench = bench("--model", "gpt-nano", "--seq-len", str(NANO_STEP[3]),
+                       "--batch-size", str(NANO_STEP[2]), path=NANO_PATH)
     fp32_run = train_fp32(fa)
-    bench("--model", "gpt-small", "--dtype", "fp32",
-          path=[n for n, k in fp32_run["launches_per_step"].items() if k])
+    fp32_path = [n for n, k in fp32_run["launches_per_step"].items() if k]
+    fp32_bench = bench("--model", "gpt-small", "--dtype", "fp32",
+                       path=fp32_path)
     # each record's launches from the run of its shape's route
     runs = {"bf16_main": run, "fp32_main": fp32_run, "bf16_nano": nano_run}
-    overlap(fa, run["losses"])
+    overlap_runs = overlap(fa, run["losses"])
     rope_remat(fa)
     moe_run = moe_phase(fa)
     release()
@@ -4069,7 +4572,18 @@ def main(argv=()) -> int:
     serve_check()
     serve_run = serve(fa)
     sampler_check()
-    serve_fleet(serve_run)
+    fleet_runs = serve_fleet(serve_run)
+    anatomy_phase({
+        "gpt-nano bf16": (nano_bench, NANO_PATH,
+                          nano_run["launches_per_step"][NANO_PATH[0]]),
+        "gpt-small fp32": (fp32_bench, fp32_path,
+                           fp32_run["launches_per_step"][fp32_path[0]]),
+        "gpt-small MoE-8": (moe_run["bench"], MAIN_PATH,
+                            moe_run["launches_per_step"][MAIN_PATH[0]]),
+        "bench --serve gpt-small": (fleet_runs["bench"]["record"], (), 0)})
+    campaign_phase(fa, run, overlap_runs)
+    estimator_phase(fa, run["launches_per_step"])
+    autoscale_phase()
 
     summary = [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],

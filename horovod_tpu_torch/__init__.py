@@ -37,7 +37,9 @@ the slot engine, the front door, the elastic serving fleet behind
 the weight hot-swap), the function-shipping ``run.run(fn, np=...)`` and
 ``cluster``; and the observability planes (``obs``: metrics dumps, the
 flight recorder and post-mortem, tracing, live telemetry, the memory
-plane, and the training-health and divergence planes).
+plane, and the training-health and divergence planes) with the step
+anatomy and the bench's campaigns; the ``Estimator`` / ``Model``
+frontend; and the TensorFlow, Keras and MXNet frontends (``interop``).
 
 The names of the reference's top level that the port does not carry yet
 are in :data:`NOT_PORTED`, each with its ROADMAP item: reading one raises
@@ -129,6 +131,7 @@ from .optim import (
 )
 from .optim.overlap import OverlapPlan
 from .parallel.sync_batch_norm import SyncBatchNorm
+from .estimator import Estimator, Model
 from . import obs
 
 __version__ = "0.1.0"
@@ -155,6 +158,7 @@ __all__ = [
     "overlap", "SyncBatchNorm", "NOT_PORTED", "NotPortedError",
     "Store", "LocalStore", "save_checkpoint", "save_checkpoint_async",
     "restore_checkpoint", "latest_checkpoint_step", "callbacks", "obs",
+    "Estimator", "Model",
 ]
 
 
@@ -162,8 +166,6 @@ __all__ = [
 # port: name -> (ROADMAP item, what it is).  Keep in step with ROADMAP's
 # table of the same names.
 NOT_PORTED = {
-    "Estimator": ("A13b", "the estimator frontend"),
-    "Model": ("A13b", "the estimator frontend"),
     **{name: ("A14", "a JAX SPMD object: the port runs one process per GPU "
               "and reduces through DistributedOptimizer / OverlapPlan over "
               "process groups (basics.group_of_axis)")

@@ -34,6 +34,13 @@ counts; ``--serve-scaling`` adds the same traffic at np = w and 2w.
 
     python -m horovod_tpu_torch.bench --serve --model gpt-small \\
         --serve-slots 16 --serve-requests 48 --serve-rate 3
+
+Every record carries ``anatomy`` (``obs/anatomy.py``, as the root
+``bench.py:1612-1629`` and ``:1032-1045`` attach it): the step time split
+into compute (MFU x step), the eager engine's collective wait and the
+host gap, the roofline verdict, and (training records) the flash kernels
+one step launches.  ``--campaign SPEC`` runs a resumable sweep of bench
+points instead of one measurement (:mod:`.campaign`).
 """
 
 from __future__ import annotations
@@ -46,9 +53,10 @@ import time
 
 import torch
 
-from .obs.profile import PEAK_FLOPS, peak_flops
-from .optim.overlap import MODES
-from .utils import env as envmod
+from ..obs.anatomy import attach_anatomy
+from ..obs.profile import PEAK_FLOPS, peak_flops
+from ..optim.overlap import MODES
+from ..utils import env as envmod
 
 __all__ = ["PEAK_FLOPS", "BASELINE_IMAGES_PER_SEC", "conv_flops_per_image",
            "model_flops_per_step", "peak_flops", "serve_spec", "serve_trace",
@@ -97,8 +105,8 @@ def conv_flops_per_image(model: str, image_size: int = 224,
     out.  The root ``bench.py`` takes XLA's compiled cost analysis
     instead, which counts other work, so the two records'
     ``flops_per_image`` are not to be compared."""
-    from .models.layers import Conv2d, Dense
-    from .train import conv_model
+    from ..models.layers import Conv2d, Dense
+    from ..train import conv_model
 
     with torch.device("meta"):
         net = conv_model(model, "fp32", image_size, s2d_stem)
@@ -193,8 +201,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="run on the CPU (a check of the path; its numbers "
                    "are no device's)")
     p.add_argument("--campaign", default=None, metavar="SPEC",
-                   help="not ported yet (ROADMAP A13b: the reference's "
-                   "resumable sweep of bench points)")
+                   help="run a resumable benchmark campaign from this "
+                   "sweep-spec JSON instead of one measurement (each point "
+                   "its own bench process; see horovod_tpu_torch.bench."
+                   "campaign)")
     return p
 
 
@@ -202,13 +212,9 @@ def _check_args(args) -> None:
     """Refuse, before anything is built, the combinations the port's bench
     cannot run: a width-sharded serving fleet outside paged mode (the
     width-sharded decode is the paged one, as in the reference), and
-    experts on a model without blocks.  ``--campaign`` raises
-    :class:`NotPortedError` (ROADMAP A13b)."""
-    if args.campaign is not None:
-        from .exceptions import NotPortedError
-
-        raise NotPortedError("bench --campaign is not ported yet (ROADMAP "
-                             "A13b: bench/campaign.py)")
+    experts on a model without blocks.  (``--campaign`` never reaches
+    here: :func:`main` hands it to :mod:`.campaign` before the flags of a
+    measurement are read.)"""
     if args.serve and (args.serve_width or 0) > 1 \
             and args.serve_kv_mode != "paged":
         raise ValueError(
@@ -221,10 +227,10 @@ def _check_args(args) -> None:
 
 def run(args) -> dict:
     """Build, warm up and time the step; the record."""
-    from . import basics
-    from .obs.health import HealthConfig, StepHealth
-    from .ops import flash_attention as fa
-    from .train import build_gpt_step, build_step
+    from .. import basics
+    from ..obs.health import HealthConfig, StepHealth
+    from ..ops import flash_attention as fa
+    from ..train import build_gpt_step, build_step
 
     gpt = args.model.startswith("gpt-")
     device = "cpu" if args.cpu else None
@@ -329,6 +335,12 @@ def run(args) -> dict:
         record["buckets"] = len(layout.buckets)
         record["bucket_bytes"] = [b.nbytes for b in layout.buckets]
     record["health"] = health_gauges(final_loss)
+    steps_run = args.warmup + args.iters
+    attach_anatomy(
+        record, step_ms=step_s * 1e3, mfu=record["mfu"],
+        flops_per_step=flops, device_kind=name, dtype=args.dtype,
+        launches={k: v / steps_run for k, v in launched.items()},
+        steps_observed=steps_run)
     return record
 
 
@@ -339,7 +351,7 @@ def health_gauges(final_loss: float) -> dict:
     total at their current counts (0 when ``--health`` was off), and, when
     the step carried the health bundle, the grad-norm histogram's p50 and
     the alerts fired."""
-    from .obs import get_registry
+    from ..obs import get_registry
 
     reg = get_registry()
     reg.gauge("health.loss").set(final_loss)
@@ -430,8 +442,8 @@ def _run_serve_load(args, np_: int, width: int, frontends: int = 1) -> dict:
     measurement the record (or the scaling comparison) embeds."""
     import threading
 
-    from .models import GPT_CONFIGS
-    from .serve import ServeJob
+    from ..models import GPT_CONFIGS
+    from ..serve import ServeJob
 
     spec = serve_spec(args)
     spec["width"] = width
@@ -659,6 +671,15 @@ def serve_main(args) -> dict:
         sched = results[ranks[0]].get("sched_ms") or []
         out["serve"]["sched_ms_median"] = (
             _pct(sched, 50) if sched else None)
+        # the leader's decode-step accounting (obs/profile.py): the
+        # anatomy below splits its step into compute and host gap
+        perf = results[ranks[0]].get("perf")
+        if perf:
+            out["perf"] = perf
+    perf = out.get("perf") or {}
+    attach_anatomy(out, step_ms=perf.get("step_ms"), mfu=perf.get("mfu"),
+                   flops_per_step=perf.get("flops_per_step"),
+                   device_kind=out["device"])
     if args.cpu:
         out["degraded"] = True
     return out
@@ -666,6 +687,12 @@ def serve_main(args) -> dict:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    if args.campaign:
+        # this process becomes the sweep's driver: each point runs as a
+        # bench process of its own
+        from .campaign import main as campaign_main
+
+        return campaign_main(["--spec", args.campaign])
     if args.overlap is None:
         args.overlap = os.environ.get(envmod.OVERLAP, "off")
         if args.overlap not in MODES:
@@ -682,7 +709,7 @@ def main(argv=None) -> int:
                              "--cpu to serve on the CPU")
         print(json.dumps(serve_main(args)), flush=True)
         return 0
-    from . import basics
+    from .. import basics
 
     try:
         record = run(args)

@@ -652,7 +652,7 @@ class LiveAggregator:
         and the weight version every rank reports.  Absent on jobs that
         never set ``serve.world_size``, so training jobs and pre-swap
         fleets stay quiet.  Formatting is shared with the
-        ``--stats-summary`` section (summary.py world_token —
+        ``--stats-summary`` section (serve/autoscale.py world_token —
         one source)."""
         world = version = None
         world_seen = version_seen = -1.0
@@ -677,7 +677,7 @@ class LiveAggregator:
         # this branch, and their launcher already imported the serve
         # package (ingest pump) — a training job's launcher never pays
         # for it.
-        from .summary import world_token  # noqa: PLC0415
+        from ..serve.autoscale import world_token  # noqa: PLC0415
 
         token = world_token(self._serve_world_prev, world, version)
         self._serve_world_prev = world

@@ -514,27 +514,14 @@ def health_section(dumps: Dict[str, dict]) -> Optional[str]:
     return "\n".join(rows)
 
 
-def world_token(prev_world: Optional[int], world: int,
-                version: Optional[int] = None) -> str:
-    """The live-digest / summary token of a serving world and its weight
-    version (``world 4→6 v=12``): one formatter, so the console digest
-    and ``--stats-summary`` never disagree (a copy of the reference's
-    ``serve/autoscale.py::world_token``)."""
-    if prev_world is not None and prev_world != world:
-        token = f"world {prev_world}→{world}"
-    else:
-        token = f"world {world}"
-    if version is not None:
-        token += f" v={int(version)}"
-    return token
-
-
 def autoscale_section(dumps: Dict[str, dict]) -> Optional[str]:
     """End-of-job autoscale / weight hot-swap report: the world/version
     the fleet converged on (every rank must agree — a disagreement here
     is a single-version-guarantee violation worth reading twice), swap
     outcomes per rank, and the launcher's resize decisions/backoffs.
     None when the job neither autoscaled nor armed hot-swap."""
+    from ..serve.autoscale import world_token  # noqa: PLC0415
+
     worlds: Dict[str, int] = {}
     versions: Dict[str, int] = {}
     released_labels = set()

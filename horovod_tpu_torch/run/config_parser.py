@@ -1,6 +1,5 @@
 """CLI-args <-> env-var mapping and YAML config layering (a copy of
-``horovod_tpu/run/config_parser.py`` for the knobs whose planes the port
-carries; serving autoscale's are in :data:`NOT_PORTED_KNOBS`).
+``horovod_tpu/run/config_parser.py``).
 
 Reference: horovod/run/common/util/config_parser.py (set_env_from_args,
 args<->yaml key maps) and runner.py:163-218,446-450 (the override-action
@@ -12,11 +11,9 @@ from __future__ import annotations
 import argparse
 from typing import Dict, Optional
 
-from ..exceptions import NotPortedError
 from ..utils import env as envmod
 
-# arg attribute -> (env var, yaml section.key): the reference's knobs
-# whose planes the port carries
+# arg attribute -> (env var, yaml section.key)
 _ARG_ENV_MAP = {
     "fusion_threshold_mb": (envmod.FUSION_THRESHOLD, "params.fusion-threshold-mb"),
     "cycle_time_ms": (envmod.CYCLE_TIME, "params.cycle-time-ms"),
@@ -110,6 +107,17 @@ _ARG_ENV_MAP = {
     "slo_tpot_ms": (envmod.SERVE_SLO_TPOT_MS, "serve.slo-tpot-ms"),
     "slo_objective": (envmod.SERVE_SLO_OBJECTIVE, "serve.slo-objective"),
     "slo_class": (envmod.SERVE_SLO_CLASS, "serve.slo-class"),
+    "serve_autoscale": (envmod.SERVE_AUTOSCALE, "serve.autoscale"),
+    "max_workers": (envmod.MAX_WORKERS, "serve.max-workers"),
+    "scale_up_queue": (envmod.SCALE_UP_QUEUE, "serve.scale-up-queue"),
+    "scale_down_idle_secs": (
+        envmod.SCALE_DOWN_IDLE_SECS,
+        "serve.scale-down-idle-secs",
+    ),
+    "scale_cooldown_secs": (
+        envmod.SCALE_COOLDOWN_SECS,
+        "serve.scale-cooldown-secs",
+    ),
     "health": (envmod.HEALTH, "metrics.health"),
     "health_check_steps": (
         envmod.HEALTH_CHECK_STEPS,
@@ -120,23 +128,6 @@ _ARG_ENV_MAP = {
         "metrics.divergence-action",
     ),
 }
-
-_AUTOSCALE = ("A13b", "serving autoscale, whose controller reads the "
-              "live telemetry plane")
-# The reference's knobs whose planes are not ported: arg attribute ->
-# (yaml section.key or None, ROADMAP item, plane).  Setting one, on the
-# command line or in a config file, raises NotPortedError before anything
-# spawns (runner.check_ported); none is accepted and then ignored.
-NOT_PORTED_KNOBS = {
-    **{attr: (key, *_AUTOSCALE) for attr, key in (
-        ("serve_autoscale", "serve.autoscale"),
-        ("max_workers", "serve.max-workers"),
-        ("scale_up_queue", "serve.scale-up-queue"),
-        ("scale_down_idle_secs", "serve.scale-down-idle-secs"),
-        ("scale_cooldown_secs", "serve.scale-cooldown-secs"),
-    )},
-}
-
 
 def set_env_from_args(env: Dict[str, str], args: argparse.Namespace) -> Dict[str, str]:
     """Write HVDTPU_* entries for every set arg (reference
@@ -187,14 +178,6 @@ def apply_config_file(args: argparse.Namespace, path: Optional[str]) -> None:
 
     with open(path) as f:
         config = yaml.safe_load(f) or {}
-    for attr, (yaml_key, item, plane) in NOT_PORTED_KNOBS.items():
-        if yaml_key is None:
-            continue
-        section, key = yaml_key.split(".")
-        if key in (config.get(section) or {}):
-            raise NotPortedError(
-                f"config file {path!r} sets {yaml_key}, which is not ported "
-                f"yet (ROADMAP {item}: {plane})")
     explicit = getattr(args, "_explicit_args", set())
     for attr, (_, yaml_key) in _ARG_ENV_MAP.items():
         section, key = yaml_key.split(".")

@@ -25,10 +25,10 @@ rank runs ``python -m horovod_tpu_torch.serve`` unless a command is given.
 observability planes' flags (``--metrics-dump``, ``--flightrec-dump``,
 ``--stats-summary``, ``--live-*``, ``--trace``, ``--health``, ...) arm
 them in every rank and in the launcher, which merges the traces, prints
-the summary and, after a failure, the post-mortem verdict.  The
-reference's flags of serving autoscale parse, and raise
-:class:`~horovod_tpu_torch.exceptions.NotPortedError` naming their ROADMAP
-item (A13b) before anything spawns.
+the summary and, after a failure, the post-mortem verdict.
+``--serve-autoscale`` grows and shrinks a serving fleet between
+``--min-workers`` and ``--max-workers`` from the live plane's queue and
+TTFT gauges (``serve/autoscale.py``), through re-minted epochs.
 """
 
 from __future__ import annotations
@@ -41,7 +41,6 @@ import sys
 import time
 from typing import Dict, List, Optional
 
-from ..exceptions import NotPortedError
 from ..utils import env as envmod
 from ..utils.logging import get_logger
 from . import config_parser
@@ -61,19 +60,9 @@ DEFAULT_COORDINATOR_PORT = 29500
 # and the ones torch, CUDA and NCCL read
 TRAVEL_ENV = ("HVDTPU_", "CUDA_", "NCCL_", "TORCH_")
 
-__all__ = ["parse_args", "check_ported", "check_build", "discover_nics",
+__all__ = ["parse_args", "check_build", "discover_nics",
            "build_slot_env", "launch_job", "launch_elastic_job",
            "ElasticJobResult", "main"]
-
-
-def _not_ported(parser, flags: List[str], **kwargs) -> None:
-    """Flags of the reference whose plane is not ported: they parse (so
-    the error names the item, not "unrecognized arguments") and
-    :func:`check_ported` refuses them."""
-    dest = kwargs.pop("dest")
-    item = config_parser.NOT_PORTED_KNOBS[dest][1]
-    parser.add_argument(*flags, dest=dest, default=None,
-                        help=f"not ported yet (ROADMAP {item})", **kwargs)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -145,7 +134,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="Smallest world the elastic job may shrink to once the "
              "respawn budget is spent (default: np — never shrink).",
     )
-    _not_ported(elastic, ["--max-workers"], type=int, dest="max_workers")
+    elastic.add_argument(
+        "--max-workers", type=int, action=_StoreOverrideAction,
+        dest="max_workers", default=None,
+        help="Largest world the job may grow to (default: np).  Ranks "
+             "np..max_workers-1 are standby slots the autoscale "
+             "controller can admit under load; the host list must "
+             "carry slots for all of them.",
+    )
     elastic.add_argument(
         "--max-elastic-retries", type=int, action=_StoreOverrideAction,
         dest="max_elastic_retries", default=None,
@@ -310,13 +306,38 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
              "each of the model (one GPU per rank) and decode together "
              "over a torch.distributed group re-formed every epoch.",
     )
-    _not_ported(serve, ["--serve-autoscale"], action="store_true",
-                dest="serve_autoscale")
-    for flag, kind in (("--scale-up-queue", int),
-                       ("--scale-down-idle-secs", float),
-                       ("--scale-cooldown-secs", float)):
-        _not_ported(serve, [flag], type=kind,
-                    dest=flag[2:].replace("-", "_"))
+    serve.add_argument(
+        "--serve-autoscale", action=_StoreTrueOverrideAction,
+        dest="serve_autoscale", default=None,
+        help="Load-driven autoscaling: the launcher watches the "
+             "serve.queue_depth/serve.ttft_ms gauges the live plane "
+             "aggregates and grows/shrinks the fleet between "
+             "--min-workers and --max-workers through deliberately "
+             "re-minted rendezvous epochs — in-flight requests replay, "
+             "none is dropped.  Implies live stats at 0.5s when "
+             "--live-stats-secs is unset.",
+    )
+    serve.add_argument(
+        "--scale-up-queue", type=int, action=_StoreOverrideAction,
+        dest="scale_up_queue", default=None,
+        help="Queue-depth high-water mark: grow one worker when the "
+             "queue stays at/above this for the hysteresis window "
+             "(default 4).",
+    )
+    serve.add_argument(
+        "--scale-down-idle-secs", type=float, action=_StoreOverrideAction,
+        dest="scale_down_idle_secs", default=None,
+        help="Release one worker after the fleet has been fully "
+             "drained (empty queue, no active slot) this long "
+             "(default 10).",
+    )
+    serve.add_argument(
+        "--scale-cooldown-secs", type=float, action=_StoreOverrideAction,
+        dest="scale_cooldown_secs", default=None,
+        help="Minimum seconds between resizes in either direction "
+             "(flap guard, default 15).  Failed grows also back off "
+             "exponentially.",
+    )
 
     ckpt = parser.add_argument_group("checkpointing")
     ckpt.add_argument(
@@ -514,17 +535,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = parser.parse_args(argv)
     config_parser.apply_config_file(args, getattr(args, "config_file", None))
     return args
-
-
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise :class:`NotPortedError` naming the ROADMAP item of the first
-    flag set whose plane the port does not carry."""
-    for attr, (_, item, plane) in config_parser.NOT_PORTED_KNOBS.items():
-        value = getattr(args, attr, None)
-        if value is not None and value is not False:  # 0 is a setting
-            flag = "--" + attr.replace("_", "-")
-            raise NotPortedError(
-                f"hvdrun {flag} is not ported yet (ROADMAP {item}: {plane})")
 
 
 def check_build() -> str:
@@ -1194,7 +1204,18 @@ def launch_elastic_job(
 
     ``min_workers``: once the respawn budget is spent, the job may
     continue with a SHRUNKEN world as long as at least this many ranks
-    survive (default np — any unrecoverable failure aborts).
+    survive (default np — any unrecoverable failure aborts); under
+    autoscale it is also the envelope floor.
+    ``max_workers``: the envelope ceiling (default np) — ranks
+    ``np..max_workers-1`` are standby slots a deliberate grow admits;
+    the host list must carry slots for all of them.
+    ``autoscale``: a dict of :class:`~..serve.autoscale.AutoscaleConfig`
+    overrides; when set, the launcher reads the live plane's merged
+    ``serve.queue_depth`` / ``serve.ttft_ms`` gauges and executes the
+    policy's grow and shrink decisions through the same epoch-mint and
+    spawn/drop path failures use (``scale_up`` / ``scale_down`` trace
+    events).  Live stats are forced on (0.5 s) when nothing else armed
+    them: the gauges are the controller's only input.
     ``max_retries`` bounds total respawns across the job.
     ``progress_timeout`` / ``progress_grace``: the workload-aware
     progress-beat policy (``obs.progress.ProgressPolicy``).  Worker
@@ -1226,16 +1247,7 @@ def launch_elastic_job(
     rendezvous store (snapshots on the signed PUT path, ``/metrics`` on
     its port).  Every job gets a flight-recorder dump target; a failed one
     ends with the post-mortem verdict.
-
-    ``max_workers`` and ``autoscale`` (serving autoscale, ROADMAP A13b)
-    raise :class:`NotPortedError` when set.
     """
-    for name, value in (("max_workers", max_workers),
-                        ("autoscale", autoscale)):
-        if value is not None:
-            raise NotPortedError(
-                f"launch_elastic_job({name}=...) is not ported yet "
-                f"(ROADMAP A13b: serving autoscale)")
     from ..obs import get_registry  # noqa: PLC0415
     from ..obs.progress import ProgressPolicy, beat_epoch  # noqa: PLC0415
     from .rendezvous import (  # noqa: PLC0415
@@ -1248,9 +1260,18 @@ def launch_elastic_job(
         raise ValueError(
             f"min_workers must be in [1, np]; got {min_workers} for np={np}"
         )
+    capacity = np if max_workers is None else int(max_workers)
+    if capacity < np:
+        raise ValueError(
+            f"max_workers must be >= np; got {capacity} for np={np}"
+        )
 
-    host_slots = _resolve_host_slots(hosts, hostfile, f"localhost:{np}")
-    slots = allocate(host_slots, np)
+    # Slots are allocated for the whole envelope: standby ranks
+    # np..capacity-1 need a host the moment a grow admits them, and a
+    # host list that cannot carry them must fail here, before a spawn.
+    host_slots = _resolve_host_slots(hosts, hostfile,
+                                     f"localhost:{capacity}")
+    slots = allocate(host_slots, capacity)
     host_of: Dict[int, str] = {s.rank: s.hostname for s in slots}
     slot_of: Dict[int, SlotInfo] = {s.rank: s for s in slots}
     host_order: List[str] = []
@@ -1285,6 +1306,11 @@ def launch_elastic_job(
 
     # Live telemetry rides the rendezvous store: snapshots travel the
     # same signed PUT path as heartbeats, and /metrics shares the port.
+    # The autoscale controller's only input is this plane's merged
+    # gauges, so autoscale forces it on when nothing else armed it.
+    if autoscale is not None and live_stats_secs is None \
+            and not base_env.get(envmod.LIVE_STATS):
+        live_stats_secs = 0.5
     live_plane, _ = _maybe_start_live_plane(
         base_env, np, kv_server=kv_server, kv_addr=kv_addr,
         live_stats_secs=live_stats_secs, live_history=live_history,
@@ -1318,6 +1344,28 @@ def launch_elastic_job(
     result = ElasticJobResult()
     trace = result.trace
     blacklist = HostBlacklist(cooldown_base=blacklist_cooldown)
+
+    # Deliberate-resize controller (serving autoscale): the pure policy
+    # and its metrics live in serve/autoscale.py; this loop executes its
+    # decisions, because only it mints epochs and spawns processes.
+    scaler = None
+    if autoscale is not None:
+        from ..serve.autoscale import (  # noqa: PLC0415
+            AutoscaleConfig, AutoscaleController,
+        )
+        from ..testing.faults import maybe_fail  # noqa: PLC0415
+
+        scaler = AutoscaleController(
+            AutoscaleConfig(
+                min_workers=min_workers, max_workers=capacity,
+                **{k: v for k, v in autoscale.items() if v is not None},
+            ),
+            registry=metrics,
+        )
+        if live_plane is not None:
+            # autoscale.* series live in the launcher's registry, which
+            # worker snapshots never carry: expose them on /metrics
+            live_plane.add_render(scaler.prometheus)
 
     # Slice-aware blacklisting (multislice jobs): a failure is recorded
     # against its rank's slice too, and a quorum of dead hosts within
@@ -1401,8 +1449,13 @@ def launch_elastic_job(
     epoch = 0
     world = list(range(np))
     finished: Dict[int, int] = {}
+    # Ranks a deliberate scale-down released (they exit 0 and land in
+    # `finished`, but the job is not draining — the distinction keeps
+    # autoscale alive after its own shrinks).
+    released: set = set()
     hb_seen: Dict[int, tuple] = {}
     hb_next_scan = 0.0
+    scale_next = 0.0
     respawns_used = 0
     deadline = time.monotonic() + job_timeout if job_timeout else None
     black_box, owns_black_box = _ensure_black_box(base_env)
@@ -1420,6 +1473,12 @@ def launch_elastic_job(
                 if rc == 0:
                     finished[rank] = 0
                     continue
+                if rank in released:
+                    # A released rank that died on its way out owes the
+                    # job nothing: it is neither respawned nor counted
+                    # as a host failure.
+                    trace.append(("released_exit", rank, rc, epoch))
+                    continue
                 tb = posted_error(rank, epoch)
                 if tb is not None:
                     raise RuntimeError(
@@ -1436,7 +1495,11 @@ def launch_elastic_job(
                     "this host)", rank, host, rc, count,
                 )
                 alive = procs.alive_ranks()
-                contributed = set(finished)
+                # Released ranks exited 0 but did not finish the job's
+                # work: counting them as contributors would let a crash
+                # of the last real worker "complete" the job on a
+                # released rank's summary, dropping in-flight requests.
+                contributed = set(finished) - released
                 if not alive and contributed:
                     # Every peer already exited 0: a replacement would
                     # have no survivor to sync state from and would
@@ -1557,7 +1620,83 @@ def launch_elastic_job(
                         hb_seen.pop(rank, None)
                         progress_policy.forget(rank)
                         procs.terminate_rank(rank, grace=dump_grace_secs)
-            if ingest_pump is not None and not finished \
+            if (scaler is not None
+                    and live_plane is not None
+                    and not (set(finished) - released)
+                    and time.monotonic() >= scale_next):
+                # Deliberate resize tick.  Never while a real drain is
+                # under way (a non-released rank finished), and only
+                # against a stable world (every member alive: a failure
+                # respawn in flight wins the epoch race).
+                scale_next = time.monotonic() + 0.25
+                if set(world) <= set(procs.alive_ranks()):
+                    decision = scaler.tick(
+                        time.monotonic(), live_plane.agg.merged(), world,
+                    )
+                else:
+                    decision = None
+                if decision is not None and decision.direction == "up":
+                    want = decision.target - len(world)
+                    standby = [r for r in range(capacity)
+                               if r not in world][:want]
+                    admitted = []
+                    skipped_blacklisted = False
+                    for r in standby:
+                        # a grow honours the host blacklist the respawn
+                        # path does
+                        if not blacklist.is_admissible(host_of[r]):
+                            trace.append(
+                                ("scale_skip_blacklisted", r, epoch))
+                            skipped_blacklisted = True
+                            continue
+                        # chaos point: a standby refusing admission
+                        # (action=scale_fail) arms the policy's backoff
+                        if maybe_fail("scale_admit",
+                                      rank=r) == "scale_fail":
+                            trace.append(("scale_fail", r, epoch))
+                            scaler.grow_failed(time.monotonic(), r)
+                            continue
+                        admitted.append(r)
+                    if not admitted and skipped_blacklisted:
+                        # every standby is cooling down: back off like a
+                        # refused admission
+                        scaler.grow_failed(time.monotonic(), standby[0])
+                    if admitted:
+                        epoch += 1
+                        for r in admitted:
+                            # a released rank re-admitted: its old clean
+                            # exit is not this incarnation's result
+                            finished.pop(r, None)
+                            released.discard(r)
+                            hb_seen.pop(r, None)
+                            progress_policy.forget(r)
+                        world = sorted(set(world) | set(admitted))
+                        mint_epoch(epoch, world)
+                        for r in admitted:
+                            spawn(r, host_of[r], epoch)
+                        trace.append(("scale_up", epoch, tuple(admitted)))
+                        LOG.warning("elastic: scale up to %d ranks at "
+                                    "epoch %d (%s)", len(world), epoch,
+                                    decision.reason)
+                        scaler.executed(decision, epoch, len(world))
+                elif decision is not None \
+                        and decision.direction == "down":
+                    drop = len(world) - decision.target
+                    victims = sorted(world)[-drop:]
+                    released.update(victims)
+                    epoch += 1
+                    world = [r for r in world if r not in victims]
+                    mint_epoch(epoch, world)
+                    # The victims see the epoch bump, find themselves
+                    # outside the new world and exit 0 (RankDroppedError,
+                    # a clean release); survivors replay in-flight work.
+                    trace.append(("scale_down", epoch, tuple(victims)))
+                    LOG.warning("elastic: scale down to %d ranks at "
+                                "epoch %d (%s)", len(world), epoch,
+                                decision.reason)
+                    scaler.executed(decision, epoch, len(world))
+            if ingest_pump is not None \
+                    and not (set(finished) - released) \
                     and set(world) <= set(procs.alive_ranks()):
                 # Frontend takeover -> epoch re-mint: a dead frontend's
                 # shards were adopted by a survivor; re-forming the
@@ -1631,7 +1770,6 @@ def _or(value, default):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    check_ported(args)
     if args.version:
         from .. import __version__  # noqa: PLC0415
 
@@ -1697,6 +1835,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         LOG.info("launching %d processes: %s", args.np, " ".join(command))
         if args.elastic or args.serve:
+            autoscale = None
+            if args.serve_autoscale:
+                autoscale = {
+                    "scale_up_queue": args.scale_up_queue,
+                    "scale_down_idle_secs": args.scale_down_idle_secs,
+                }
+                if args.scale_cooldown_secs is not None:
+                    autoscale["up_cooldown_secs"] = args.scale_cooldown_secs
+                    autoscale["down_cooldown_secs"] = \
+                        args.scale_cooldown_secs
             launch_elastic_job(
                 command,
                 args.np,
@@ -1705,6 +1853,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                 env=env,
                 ssh_port=args.ssh_port,
                 min_workers=args.min_workers,
+                max_workers=args.max_workers,
+                autoscale=autoscale,
                 max_retries=_or(args.max_elastic_retries, 3),
                 blacklist_cooldown=_or(args.blacklist_cooldown_secs, 10.0),
                 progress_timeout=_or(args.progress_timeout_secs, 300.0),

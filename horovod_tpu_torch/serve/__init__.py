@@ -48,8 +48,9 @@ python -m horovod_tpu_torch.serve --size small``, or from Python)::
 * :mod:`.longctx`: long-context serving over a sequence-sharded slot
   cache (Ulysses prefill, merged partial-softmax decode).
 
-Not ported yet: the reference's ``autoscale`` (ROADMAP A13b: its
-controller reads the live telemetry plane).
+* :mod:`.autoscale`: the launcher's load-driven grow/shrink of a fleet
+  (``ServeJob(max_workers=, autoscale=)``, ``hvdrun --serve-autoscale``),
+  reading the live telemetry plane's queue and TTFT gauges.
 """
 
 from .engine import SlotEngine, prompt_bucket  # noqa: F401

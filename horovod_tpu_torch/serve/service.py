@@ -33,9 +33,10 @@ growing with total requests ever served.
 ``serve.*`` instruments land in the per-rank registry (``obs``), which
 the live telemetry plane streams and the metrics dump keeps; sampled
 requests are traced (``obs/trace.py``), and ``--health`` arms the serving
-twin of the divergence sentinel (:func:`_serve_health_check`).  Left out:
-serving autoscale (ROADMAP A13b: its only caller of
-:class:`RankDroppedError` here).
+twin of the divergence sentinel (:func:`_serve_health_check`).  The
+launcher's autoscale controller (``serve/autoscale.py``) grows and
+shrinks the fleet through re-minted epochs; a rank it drops leaves
+through :class:`RankDroppedError` with a release summary.
 
 A width-sharded fleet (``spec["width"] > 1``) serves each group's
 requests with one Megatron-sharded engine spread over the group's ranks,
@@ -1427,8 +1428,7 @@ def serve_worker(spec: Optional[dict] = None):
                                 swap, slo_plane, tok_goodput)
         except RankDroppedError:
             # The launcher re-minted a world without us (a shrink past
-            # this rank; the reference's autoscale, A13b, also drops ranks
-            # deliberately).  That is a clean release, not a failure —
+            # this rank, or autoscale dropping it deliberately).  That is a clean release, not a failure —
             # exit 0 with a summary.  (RankDroppedError subclasses
             # HorovodShutdownError, so this arm must come first.)
             LOG.info("rank %d released from the serving world; exiting "
@@ -1488,24 +1488,22 @@ class ServeJob:
         ``live_stats_secs`` / ``live_history``: the live telemetry plane
         (per-rank snapshots into this job's store, the console digest,
         ``live_history.jsonl`` and ``GET /metrics`` on :attr:`port`).
-        ``max_workers`` and ``autoscale`` are the reference's serving
-        autoscale (ROADMAP A13b) and raise :class:`NotPortedError` when
-        set."""
-        from ..exceptions import NotPortedError  # noqa: PLC0415
+        ``autoscale``: a dict of :class:`~.autoscale.AutoscaleConfig`
+        overrides (``scale_up_queue``, ``scale_down_idle_secs``, ...)
+        turning on load-driven grow/shrink between ``min_workers`` and
+        ``max_workers`` (default np); it needs live stats, so a missing
+        ``live_stats_secs`` defaults to 0.5 when autoscale is on."""
         from ..run.rendezvous import KVStoreServer  # noqa: PLC0415
 
-        for name, value in (("max_workers", max_workers),
-                            ("autoscale", autoscale)):
-            if value is not None:
-                raise NotPortedError(
-                    f"ServeJob({name}=...) is not ported yet (ROADMAP A13b: "
-                    f"serving autoscale)")
         self.spec = dict(DEFAULT_SPEC)
         self.spec.update(spec or {})
         self.np = np
         self._env = dict(env or {})
+        if autoscale is not None and live_stats_secs is None:
+            live_stats_secs = 0.5
         self._launch_kw = dict(
             max_retries=max_retries, min_workers=min_workers,
+            max_workers=max_workers, autoscale=autoscale,
             heartbeat_timeout=heartbeat_timeout,
             progress_timeout=progress_timeout,
             blacklist_cooldown=blacklist_cooldown,

@@ -25,8 +25,12 @@ Grammar::
   round: the pump's frontend id is the rank, its beat counter the step),
   ``mem_alloc`` (``obs/memplane.alloc_guard`` on the serving prefill and
   decode paths), ``swap_commit`` (``serve/hotswap.py``, between a
-  successful prefetch and the version flip) and ``trace_flush``
-  (``obs/trace.py``, the span dump).  A spec naming another point
+  successful prefetch and the version flip), ``trace_flush``
+  (``obs/trace.py``, the span dump), ``scale_admit`` (the launcher's
+  autoscale grow path, once per standby rank it is about to admit, with
+  that rank) and ``campaign_point`` (``bench/campaign.py``, between one
+  point's journal commit and the next point's launch, with the 1-based
+  point index as the step).  A spec naming another point
   is refused at parse time: it would never fire.
 * ``rank`` — only fire on this rank (the ``rank=`` call argument, else
   ``HVDTPU_RANK``, else ``HVDTPU_ELASTIC_RANK``).  Absent means any rank.
@@ -53,7 +57,10 @@ Grammar::
   (``frontend_beat``: the pump dies without draining), ``trace_drop``
   (``trace_flush``: the next span dump is suppressed), ``oom``
   (``mem_alloc``: a RESOURCE_EXHAUSTED ``RuntimeError`` is raised) and
-  ``swap_abort`` (``swap_commit``: the rank exits with ``os._exit`` mid-swap).
+  ``swap_abort`` (``swap_commit``: the rank exits with ``os._exit`` mid-swap),
+  ``scale_fail`` (``scale_admit``: the standby refuses admission, and the
+  autoscale policy backs off) and ``degrade`` (``campaign_point``: the
+  point is journaled degraded without running).
   ``worker_exit`` / ``task_fn`` default to ``exit``.
 * ``code`` — exit code for ``action=exit`` (default 43).
 * ``name`` — only fire when the call site passes a matching ``name=``.
@@ -73,7 +80,7 @@ DEFAULT_EXIT_CODE = 43
 # the injection sites this package wires (see the module docstring)
 POINTS = ("enqueue", "worker_exit", "task_fn", "grad_ready", "shard_write",
           "replica_push", "ckpt_write", "frontend_beat", "mem_alloc",
-          "swap_commit", "trace_flush")
+          "swap_commit", "trace_flush", "scale_admit", "campaign_point")
 _EXIT_POINTS = ("worker_exit", "task_fn")
 # Advisory actions only take effect at call sites that consume
 # maybe_fail's return value; parse-time validation keeps a spec like
@@ -88,6 +95,8 @@ _ADVISORY_POINTS = {
     "frontend_exit": ("frontend_beat",),
     "flip_bits": ("grad_ready",),
     "nan_inject": ("grad_ready",),
+    "scale_fail": ("scale_admit",),
+    "degrade": ("campaign_point",),
 }
 
 

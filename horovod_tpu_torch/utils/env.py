@@ -144,6 +144,15 @@ SERVE_SLO_CLASS = "HVDTPU_SERVE_SLO_CLASS"
 SERVE_SLO_TTFT_MS = "HVDTPU_SERVE_SLO_TTFT_MS"
 SERVE_SLO_TPOT_MS = "HVDTPU_SERVE_SLO_TPOT_MS"
 SERVE_SLO_OBJECTIVE = "HVDTPU_SERVE_SLO_OBJECTIVE"
+# Autoscale (serve/autoscale.py): launcher-local knobs, carried as env so
+# config files can set them.  The envelope ceiling MAX_WORKERS also sizes
+# the launcher's slot allocation (standby ranks need a host the moment a
+# grow admits them).
+SERVE_AUTOSCALE = "HVDTPU_SERVE_AUTOSCALE"
+MAX_WORKERS = "HVDTPU_MAX_WORKERS"
+SCALE_UP_QUEUE = "HVDTPU_SCALE_UP_QUEUE"
+SCALE_DOWN_IDLE_SECS = "HVDTPU_SCALE_DOWN_IDLE_SECS"
+SCALE_COOLDOWN_SECS = "HVDTPU_SCALE_COOLDOWN_SECS"
 
 
 def env_int(name: str, default: int) -> int:

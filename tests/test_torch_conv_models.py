@@ -29,6 +29,13 @@ BatchNorm running statistics.  Tolerances, |port - jax| <= atol + rtol *
   1e-2 (measured 3.8e-3), gradients 0.15 of their norm (7.1%), running
   statistics 1e-3 (8.4e-5).
 
+* ResNet-50 in training mode at 64x64, batch 2, is held against the JAX
+  package run in float64 (x64 enabled only around that run), still at the
+  fp32 bound: the JAX package's own fp32 CPU gradients there are 1.66e-2
+  from its fp64 ones normwise (conv_init 2.6e-2), where the port's fp32
+  gradients are 1.3e-6 from them and its fp64 ones 2.0e-7.  That drift is
+  asserted too (``JAX_FP32_DRIFT``), so it stays visible.
+
 ``test_torch_defaults_fail`` shows that the two flax-vs-torch defaults
 these tests guard would fail them: torch's BatchNorm running update
 (unbiased variance) and an NCHW flatten in VGG.
@@ -55,6 +62,9 @@ from horovod_tpu_torch.models.resnet import space_to_depth
 FP32 = {"atol": 2e-5, "rtol": 1e-4}
 BF16 = {"logits": 5e-2, "stats": 1e-2, "grads_vs_jax_bf16": 1.5}
 INCEPTION_TRAIN = {"logits": 1e-2, "grad_norm": 0.15, "stats": 1e-3}
+# the JAX package's fp32 ResNet-50 training-mode gradients against its own
+# fp64 ones, all gradients as one vector: measured 1.66e-2, bound 5e-2
+JAX_FP32_DRIFT = 5e-2
 
 
 def _np(tree):
@@ -74,9 +84,11 @@ def _jax_init(model, x, has_train=True):
         jax.random.PRNGKey(0), x[:1])
 
 
-def _jax_run(model, variables, x, y, train=True, has_train=True):
+def _jax_run(model, variables, x, y, train=True, has_train=True,
+             out_dtype=jnp.float32):
     """One JAX forward/backward: logits, loss, grads and updated
-    batch_stats, by port name."""
+    batch_stats, by port name; the loss is taken on logits cast to
+    ``out_dtype``."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     kw = {"train": train} if has_train else {}
@@ -88,7 +100,7 @@ def _jax_run(model, variables, x, y, train=True, has_train=True):
             new = mut["batch_stats"]
         else:
             logits, new = model.apply(v, x, **kw), stats
-        logits = logits.astype(jnp.float32)
+        logits = logits.astype(out_dtype)
         loss = optax.softmax_cross_entropy_with_integer_labels(
             logits, y).mean()
         return loss, (logits, new)
@@ -232,7 +244,28 @@ def test_resnet_matches_flax(name, train):
     want = _jax_run(jm, variables, x, y, train)
     got = _port_run(tcls(compute_dtype=torch.float32, s2d_stem=s2d),
                     variables, x, y, train)
+    if (name, train) == ("resnet50", True):
+        # the JAX package's fp32 run drifts past the bound here (see the
+        # module docstring): hold the port against its fp64 run instead
+        want32, want = want, _jax_run_x64(jcls, variables, x, y)
+        drift = _global_rel(_grads_np(want32), _grads_np(want))
+        assert drift <= JAX_FP32_DRIFT, drift
     _assert_fp32(got, want, train)
+
+
+def _jax_run_x64(jcls, variables, x, y):
+    """``_jax_run`` in float64 (compute, variables, inputs and loss),
+    with x64 enabled only inside this call."""
+    with jax.enable_x64(True):
+        v64 = jax.tree_util.tree_map(
+            lambda a: jnp.asarray(np.asarray(a, np.float64)), variables)
+        return _jax_run(jcls(compute_dtype=jnp.float64), v64,
+                        x.astype(np.float64), y, True,
+                        out_dtype=jnp.float64)
+
+
+def _grads_np(run) -> dict:
+    return {k: np.asarray(v) for k, v in run["grads"].items()}
 
 
 def _global_rel(grads, ref) -> float:

@@ -112,10 +112,21 @@ def test_malformed_specs_raise_in_both(bad):
 
 def test_unwired_points_are_refused():
     """The port refuses a point it does not wire: a chaos run built on it
-    would never fire."""
-    for point in ("scale_admit", "campaign_point"):
-        with pytest.raises(ValueError, match="not wired"):
-            faults.parse_spec(f"{point}:action=raise")
+    would never fire.  Since A13b it wires every point of the reference:
+    ``scale_admit`` and ``campaign_point`` parse in both packages, their
+    advisory actions only there."""
+    with pytest.raises(ValueError, match="not wired"):
+        faults.parse_spec("no_such_point:action=raise")
+    for spec in ("scale_admit:action=scale_fail",
+                 "campaign_point:step=2:action=degrade",
+                 "campaign_point:action=abort"):
+        for mod in PKG_FAULTS:
+            assert mod.parse_spec(spec)[0].point == spec.split(":")[0]
+    for bad in ("swap_commit:action=scale_fail",
+                "scale_admit:action=degrade"):
+        for mod in PKG_FAULTS:
+            with pytest.raises(ValueError, match="only implemented at"):
+                mod.parse_spec(bad)
     # wired with the tracer (obs/trace.py) since A13a
     assert faults.parse_spec("trace_flush:action=trace_drop")[0].action \
         == "trace_drop"

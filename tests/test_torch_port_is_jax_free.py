@@ -8,7 +8,11 @@ site customisation that could preload JAX) with ``jax``, ``flax``,
 lack: only ``run/api.py`` imports cloudpickle, inside the functions that
 ship a callable and only where it is installed, and nothing may import it
 when a module is imported.  A static pass over the sources also catches imports inside
-functions.
+functions.  The TensorFlow frontends (``interop.tf``, ``interop.tf_keras``,
+``interop.keras``) import ``tensorflow``, which the card's machine lacks
+and which needs ``ml_dtypes``: the walk leaves them out and checks that no
+other module imports tensorflow; a second interpreter imports them with
+JAX and the reference still blocked.
 """
 
 from __future__ import annotations
@@ -25,6 +29,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu", "orbax",
              "ml_dtypes")
 # not on the card's machine, so never imported at a module's top level
 LAZY_ONLY = ("cloudpickle",)
+# the frontends that import tensorflow at module level
+TF_MODULES = ("horovod_tpu_torch.interop.tf",
+              "horovod_tpu_torch.interop.tf_keras",
+              "horovod_tpu_torch.interop.keras")
 
 _SCRIPT = textwrap.dedent("""
     import importlib, json, pkgutil, sys
@@ -35,7 +43,9 @@ _SCRIPT = textwrap.dedent("""
     mods = sorted(m.name for m in pkgutil.walk_packages(
         horovod_tpu_torch.__path__, "horovod_tpu_torch."))
     for m in mods:
-        importlib.import_module(m)
+        if m not in {tf_modules!r}:
+            importlib.import_module(m)
+    tf_imported = "tensorflow" in sys.modules
     import chip_smoke
     flops = chip_smoke.attention_work(8, 1024, 12, 12, 64, True, None, 2)
     leaked = sorted(m for m in sys.modules
@@ -47,6 +57,7 @@ _SCRIPT = textwrap.dedent("""
     except RuntimeError as e:
         init_error = str(e)
     print(json.dumps({{"modules": mods, "leaked": leaked,
+                      "tf_imported": tf_imported,
                       "init_error": init_error,
                       "smoke_rc": chip_smoke.main(),
                       "fwd_flops": flops["flash_fwd"][0]}}))
@@ -54,7 +65,8 @@ _SCRIPT = textwrap.dedent("""
 
 
 def _run_isolated():
-    code = _SCRIPT.format(repo=str(REPO), forbidden=FORBIDDEN + LAZY_ONLY)
+    code = _SCRIPT.format(repo=str(REPO), forbidden=FORBIDDEN + LAZY_ONLY,
+                          tf_modules=TF_MODULES)
     # -B: -I ignores PYTHONDONTWRITEBYTECODE, and the interpreter must not
     # write bytecode caches next to the installed packages
     out = subprocess.run([sys.executable, "-I", "-B", "-c", code],
@@ -88,11 +100,37 @@ def test_every_module_imports_without_jax():
                 "obs.trace", "obs.straggler", "obs.stream", "obs.trend",
                 "obs.live", "obs.summary", "obs.timeline_merge",
                 "obs.trace_merge", "obs.postmortem", "obs.health",
-                "obs.divergence"):
+                "obs.divergence", "obs.anatomy", "bench.campaign",
+                "bench.__main__", "estimator", "serve.autoscale",
+                "interop.mxnet", "interop._host") + tuple(
+                    m[len("horovod_tpu_torch."):] for m in TF_MODULES):
         assert f"horovod_tpu_torch.{mod}" in res["modules"], mod
     assert res["leaked"] == []
+    assert res["tf_imported"] is False
     # causal pairs of gpt-small's attention x 4 * head_dim
     assert res["fwd_flops"] == 4 * 64 * 96 * (1024 * 1025 // 2)
+
+
+def test_tf_frontends_import_without_jax():
+    """The TensorFlow frontends import with JAX and the reference blocked
+    (ml_dtypes allowed: tensorflow needs it)."""
+    blocked = tuple(n for n in FORBIDDEN if n != "ml_dtypes") + LAZY_ONLY
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.path.insert(0, {str(REPO)!r})
+        for name in {blocked!r}:
+            sys.modules[name] = None
+        for m in {TF_MODULES!r}:
+            importlib.import_module(m)
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in {blocked!r}
+                     and sys.modules[m] is not None))
+    """)
+    out = subprocess.run([sys.executable, "-I", "-B", "-c", code],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(REPO / "tests"))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_gpu_entry_points_refuse_to_run_without_a_gpu():

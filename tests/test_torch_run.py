@@ -25,7 +25,6 @@ import horovod_tpu.run.blacklist as j_black
 import horovod_tpu.run.config_parser as j_cfg
 import horovod_tpu.run.rendezvous as j_kv
 import horovod_tpu.run.runner as j_runner
-from horovod_tpu_torch.exceptions import NotPortedError
 from horovod_tpu_torch.run import allocate, blacklist, config_parser, \
     rendezvous, runner
 
@@ -176,11 +175,16 @@ def test_config_file_layering_matches_the_reference(tmp_path):
     (["--scale-cooldown-secs", "5"], "A13b"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
-    args = runner.parse_args(["-np", "1", *flags, "python", "x"])
-    with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
-        runner.check_ported(args)
-    with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
-        runner.main(["-np", "1", *flags, "python", "-c", "raise SystemExit(3)"])
+    """The serving-autoscale flags, which ROADMAP ``item`` ported: they
+    parse as the reference's do and land in the same env."""
+    argv = ["-np", "1", "--serve", *flags, "python", "x"]
+    port, ref = runner.parse_args(argv), j_runner.parse_args(argv)
+    attr = flags[0][2:].replace("-", "_")
+    assert getattr(port, attr) == getattr(ref, attr) is not None
+    env_port, env_ref = {}, {}
+    config_parser.set_env_from_args(env_port, port)
+    j_cfg.set_env_from_args(env_ref, ref)
+    assert env_port == env_ref and env_port
 
 
 # The observability planes' flags (ported with obs/): they parse as the
@@ -200,7 +204,6 @@ OBS_FLAGS = [
 def test_obs_flags_are_ported_like_the_reference(flags):
     argv = ["-np", "1", *flags, "python", "x"]
     port, ref = runner.parse_args(argv), j_runner.parse_args(argv)
-    runner.check_ported(port)
     attr = flags[0][2:].replace("-", "_")
     assert getattr(port, attr) == getattr(ref, attr)
     env_port, env_ref = {}, {}
@@ -210,10 +213,18 @@ def test_obs_flags_are_ported_like_the_reference(flags):
 
 
 def test_unported_config_keys_raise(tmp_path):
+    """The serving-autoscale config keys (ported with A13b) layer under
+    the command line as the reference's do."""
     cfg = tmp_path / "cfg.yaml"
-    cfg.write_text("serve:\n  autoscale: true\n")
-    with pytest.raises(NotPortedError, match="ROADMAP A13b"):
-        runner.parse_args(["-np", "1", "--config-file", str(cfg), "x"])
+    cfg.write_text("serve:\n  autoscale: true\n  max-workers: 3\n"
+                   "  scale-up-queue: 6\n")
+    argv = ["-np", "1", "--config-file", str(cfg), "--scale-up-queue", "2",
+            "x"]
+    port, ref = runner.parse_args(argv), j_runner.parse_args(argv)
+    for attr in ("serve_autoscale", "max_workers", "scale_up_queue"):
+        assert getattr(port, attr) == getattr(ref, attr), attr
+    assert (port.serve_autoscale, port.max_workers, port.scale_up_queue) \
+        == (True, 3, 2)
 
 
 def test_obs_config_keys_match_the_reference(tmp_path):
@@ -243,8 +254,12 @@ def test_obs_config_keys_match_the_reference(tmp_path):
     ({"autoscale": {}}, "A13b"), ({"max_workers": 4}, "A13b"),
 ])
 def test_unported_elastic_keywords_raise(kwarg, item):
-    with pytest.raises(NotPortedError, match=f"ROADMAP {item}"):
-        runner.launch_elastic_job(["true"], 1, **kwarg)
+    """The serving-autoscale keywords (ported with ROADMAP ``item``) run a
+    job: a world of one ``true``, with standby slots up to max_workers or
+    the controller armed (no serving gauges: it never decides)."""
+    result = runner.launch_elastic_job(["true"], 1, job_timeout=60, **kwarg)
+    assert result.exit_codes == {0: 0}
+    assert not [e for e in result.trace if e[0].startswith("scale_")]
 
 
 @pytest.mark.parametrize("kwarg", [

@@ -170,11 +170,15 @@ def test_the_serving_and_run_names_exist_under_the_references_names():
     (["--scale-up-queue", "4"], "A13b"),
 ])
 def test_hvdrun_serving_refusals_name_their_item(flags, item):
+    """The autoscale flags, refused until ROADMAP ``item`` ported them,
+    parse as the reference's do."""
+    from horovod_tpu.run import runner as j_runner
     from horovod_tpu_torch.run import runner
 
-    args = runner.parse_args(["-np", "2", "--serve", *flags, "python", "x"])
-    with pytest.raises(hvd.NotPortedError, match=f"ROADMAP {item}"):
-        runner.check_ported(args)
+    argv = ["-np", "2", "--serve", *flags, "python", "x"]
+    port, ref = runner.parse_args(argv), j_runner.parse_args(argv)
+    attr = flags[0][2:].replace("-", "_")
+    assert getattr(port, attr) == getattr(ref, attr) is not None
 
 
 def _parallel_names():
@@ -212,7 +216,6 @@ def test_no_port_error_names_a11():
     from pathlib import Path
 
     import horovod_tpu_torch
-    from horovod_tpu_torch.run.config_parser import NOT_PORTED_KNOBS
 
     root = Path(horovod_tpu_torch.__file__).parent
     for path in root.rglob("*.py"):
@@ -223,4 +226,11 @@ def test_no_port_error_names_a11():
                 if "NotPorted" in raised or "NotImplemented" in raised:
                     assert "A11" not in raised, (path, node.lineno)
     assert all(item != "A11" for item, _ in hvd.NOT_PORTED.values())
-    assert all(v[1] != "A11" for v in NOT_PORTED_KNOBS.values())
+
+
+def test_not_ported_holds_only_a14():
+    """After A13b the table keeps only A14's names (the JAX package's SPMD
+    objects), and the estimator frontend is the port's own."""
+    assert {item for item, _ in hvd.NOT_PORTED.values()} == {"A14"}
+    for name in ("Estimator", "Model"):
+        assert getattr(hvd, name).__module__ == "horovod_tpu_torch.estimator"
