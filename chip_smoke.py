@@ -138,6 +138,26 @@ through their launch helpers.  Phases, one JSON line each:
    written late on the caller's stream (the engine's stream waits on their
    ready events) and ``synchronize`` returning while the caller's stream
    is still busy (the result is ordered on the stream, not the host).
+   ``native``: the same optimizer on the native (C++) eager engine
+   (``HVDTPU_EAGER_ENGINE=native``), its library built from
+   ``horovod_tpu_torch/csrc/engine`` by ``runtime/native_build.py`` beside
+   the kernels' build in phase ``build`` (its seconds printed here).  (i) World 1, in this process: ``eager``'s 7 steps
+   from ``train``'s weights and tokens; exact launches, losses bit for bit
+   ``train``'s, 149 handles a step (each gradient crosses to the host and
+   back: the TCP wire carries host bytes; at one rank the C++ allreduce
+   returns at once), gradients on the card; the step ms beside
+   ``eager``'s, the engine's host payloads and bytes a step.  (ii) World
+   2 on the one card: ``python -m horovod_tpu_torch.run -np 2 python
+   chip_smoke.py --native-worker OUT``; each rank opens a gloo world (NCCL
+   puts no two ranks on one card), builds the same model on ``cuda:0``
+   and takes ``NATIVE_WARMUP`` + ``NATIVE_STEPS`` steps of the hook
+   optimizer on ``train``'s tokens, so every gradient crosses the engine's
+   TCP ring.  Gates: every loss of both ranks bit for bit ``train``'s (the
+   mean of two equal fp32 gradients is exact), the SHA-256 of the
+   parameters equal across the ranks, exactly 12 launches a step of each
+   of ``MAIN_PATH`` on each rank, 149 handles a step, gradients on the
+   card.  Printed: each step's ms, fused responses, cycles and wire bytes
+   (``hvdtpu_perf_bytes``), per rank.
 11. ``fp8``: gpt-small ``--dtype fp8`` (e4m3 storage of the attention
    context, the branch deltas and the GELU output; 12 launches of each
    flash kernel a step) from ``train``'s weights and tokens, and ResNet-50
@@ -157,8 +177,9 @@ through their launch helpers.  Phases, one JSON line each:
    ``elastic.run`` from an ``elastic.State`` of the model, AdamW, the step
    and the losses (step k's tokens from ``RandomState(k)``; a commit every
    4 steps, the replica pushed at each; a sharded save at step 4), run
-   three times through ``python -m horovod_tpu_torch.run --elastic -np 1
-   --ckpt-dir D --ckpt-replica python chip_smoke.py --elastic-worker``:
+   three times, side by side, through ``python -m horovod_tpu_torch.run
+   --elastic -np 1 --ckpt-dir D --ckpt-replica python chip_smoke.py
+   --elastic-worker``:
    clean; with rank 0 killed in step 6 (``worker_exit:step=6:rank=0``),
    where the respawned worker restores from its peer replica; and with
    that kill and every replica push dropped, where it restores from the
@@ -305,7 +326,8 @@ through their launch helpers.  Phases, one JSON line each:
    before and after the grow.
 
 Then the ``kernels`` summary, one record per kernel and route shape (its
-launches from that route's run: ``train`` at ``bf16_main``,
+launches from that route's run: ``train`` at ``bf16_main`` (with the
+``moe`` phase's and ``native`` (i)'s beside them),
 ``train_fp32`` at ``fp32_main``, ``train_nano`` at ``bf16_nano``; the
 scalar twins' from ``train_nano``, which must launch them 0 times), the
 card's name and power limit, and ``{"ok": true, ...}`` as the
@@ -315,6 +337,7 @@ nonzero; without a GPU it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import subprocess
@@ -2086,6 +2109,194 @@ def eager(hvd, fa, train_run) -> dict:
     return run
 
 
+# the native engine's two-rank run (phase ``native`` ii): steps a rank
+NATIVE_WARMUP, NATIVE_STEPS = 2, 3
+
+
+def hook_optimizer(model):
+    """``interop.torch.DistributedOptimizer`` around AdamW, every parameter
+    named: the ``horovod.torch`` script's optimizer."""
+    import horovod_tpu_torch.interop.torch as ht
+    from horovod_tpu_torch.train import make_adamw
+
+    return ht.DistributedOptimizer(make_adamw(model.parameters()),
+                                   named_parameters=model.named_parameters())
+
+
+def native_build_timed():
+    """The native engine's library, built from the checkout's
+    ``csrc/engine`` (``runtime/native_build.py``), and the seconds taken."""
+    from horovod_tpu_torch.runtime import native_build
+
+    t0 = time.perf_counter()
+    lib = native_build.build()
+    return lib, time.perf_counter() - t0
+
+
+def native(fa, train_run, eager_run, built) -> dict:
+    """Phase ``native`` (the module docstring's 10): the hook optimizer's
+    step through the C++ engine, (i) in this process at world 1, (ii) two
+    ranks on the one card through the engine's TCP ring.  ``built``: the
+    future of ``native_build_timed``, started beside the kernels' build
+    (its failure raises here)."""
+    import os
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch import _engine_registry
+    from horovod_tpu_torch.ops import kernels
+    from horovod_tpu_torch.runtime.native import NativeEngine
+    from horovod_tpu_torch.world_check import _engine_env
+
+    lib, build_s = built.result()
+    total = WARMUP + STEPS
+    with _engine_env(HVDTPU_EAGER_ENGINE="native"):
+        step, state = gpt_with(hook_optimizer)
+        eng = _engine_registry.get_engine()
+        if not isinstance(eng, NativeEngine):
+            raise AssertionError(f"native: the engine is {type(eng)}")
+        before = eng.stats
+        state, run = drive(fa, step, state)
+        after = eng.stats
+        grads_on_card = all(p.grad is None or p.grad.is_cuda
+                            for p in state[0].parameters())
+        n_params = len(list(state[0].parameters()))
+        del step, state
+    per_step = {k: (after[k] - before[k]) / total
+                for k in ("enqueued", "device_payloads",
+                          "device_payload_bytes", "cycles", "responses",
+                          "fused_responses", "wire_bytes")}
+    run.update(per_step=per_step, handles_per_step=per_step["enqueued"],
+               parameters=n_params, grads_on_card=grads_on_card,
+               bitwise_equal_to_train=run["losses"] == train_run["losses"],
+               eager_python_step_ms=eager_run["step_ms"])
+    release()
+    if not run["bitwise_equal_to_train"]:
+        raise AssertionError(f"native (i): losses {run['losses']} differ "
+                             f"from train's {train_run['losses']}")
+    if per_step["enqueued"] != n_params or \
+            per_step["device_payloads"] != n_params:
+        raise AssertionError(f"native (i): {per_step} a step, want "
+                             f"{n_params} handles and CUDA payloads")
+    if not grads_on_card:
+        raise AssertionError("native (i): a gradient left the card")
+
+    root = tempfile.mkdtemp(prefix="native_run_", dir=kernels.build_dir())
+    try:
+        out, wall = hvdrun("-np", "2", sys.executable,
+                           os.path.abspath(__file__), "--native-worker",
+                           os.path.join(root, "rank"),
+                           env={"HVDTPU_EAGER_ENGINE": "native"},
+                           timeout=300)
+        if out.returncode != 0:
+            raise AssertionError(f"native (ii) exited {out.returncode}:\n"
+                                 f"{out.stderr[-6000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(root, f"rank.{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n = NATIVE_WARMUP + NATIVE_STEPS
+    want = {k: 12 * n if k in MAIN_PATH else 0 for k in SOURCES}
+    two = {"wall_s": wall, "steps": n, "warmup": NATIVE_WARMUP,
+           "ranks": ranks,
+           "timed_step_ms": [sum(r["step_ms"][NATIVE_WARMUP:]) / NATIVE_STEPS
+                             for r in ranks]}
+    emit("native", model="gpt-small", dtype="bf16",
+         batch_per_gpu=GPT_STEP[2], seq=GPT_STEP[3], library=str(lib),
+         build_s=build_s, world1=run, world2=two, card=card_line())
+    for r, res in enumerate(ranks):
+        if res["losses"] != train_run["losses"][:n]:
+            raise AssertionError(
+                f"native (ii) rank {r}: losses {res['losses']} differ from "
+                f"train's {train_run['losses'][:n]}")
+        got = {k: res["launches"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"native (ii) rank {r}: launches {got} != "
+                                 f"{want}")
+        if res["handles"] != [n_params] * n or not res["grads_on_card"]:
+            raise AssertionError(
+                f"native (ii) rank {r}: handles a step {res['handles']} "
+                f"(want {n_params}), gradients on the card "
+                f"{res['grads_on_card']}")
+        if min(res["wire_bytes"]) <= 0 or res["world"] != 2:
+            raise AssertionError(f"native (ii) rank {r}: nothing crossed "
+                                 f"the ring: {res['wire_bytes']}")
+    if ranks[0]["sha256"] != ranks[1]["sha256"]:
+        raise AssertionError("native (ii): the ranks' parameters differ")
+    return {"world1": run, "world2": two}
+
+
+def native_worker(prefix: str) -> int:
+    """``python chip_smoke.py --native-worker PREFIX``, one of phase
+    ``native`` (ii)'s two ranks: a gloo world (``init(device="cpu")``; the
+    native engine starts there), gpt-small bf16 built as ``train`` builds
+    it but on ``cuda:0``, ``NATIVE_WARMUP`` + ``NATIVE_STEPS`` steps of the
+    hook optimizer on ``train``'s tokens; writes each step's loss, ms and
+    engine counters, the launches, and the parameters' SHA-256 to
+    ``PREFIX.<rank>.json``."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _engine_registry
+    from horovod_tpu_torch.models import gpt
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import lm_loss
+
+    _load_built_kernels("native worker")
+    topo = hvd.init(device="cpu")
+    eng = _engine_registry.get_engine()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    size, _, batch, seq = GPT_STEP
+    # build_gpt_step's model and tokens (rank 0's slice of a world of one)
+    model = gpt(size, device=dev, dtype=torch.bfloat16, max_len=seq,
+                attention_impl="flash", remat=False, flash_block_q=512,
+                flash_block_k=256, num_kv_heads=None,
+                pos_embedding="learned", moe_experts=0, act_store_dtype=None,
+                attention_window=None)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, model.cfg.vocab_size, size=(batch, seq + 1))).to(dev)
+    opt = hook_optimizer(model)
+    res = {"rank": topo.process_rank, "world": topo.process_count,
+           "engine": type(eng).__name__, "losses": [], "step_ms": [],
+           "handles": [], "fused_responses": [], "responses": [],
+           "cycles": [], "wire_bytes": [], "device_payload_bytes": []}
+    fa.reset_launch_counts()
+    for _ in range(NATIVE_WARMUP + NATIVE_STEPS):
+        before = eng.stats
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = lm_loss(model, toks)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        after = eng.stats
+        res["losses"].append(float(loss.detach()))
+        res["handles"].append(after["enqueued"] - before["enqueued"])
+        for k in ("fused_responses", "responses", "cycles", "wire_bytes",
+                  "device_payload_bytes"):
+            res[k].append(after[k] - before[k])
+    res["launches"] = dict(fa.LAUNCHES)
+    res["grads_on_card"] = all(p.grad is None or p.grad.is_cuda
+                               for p in model.parameters())
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    res["sha256"] = h.hexdigest()
+    with open(f"{prefix}.{topo.process_rank}.json", "w") as f:
+        json.dump(res, f)
+    hvd.shutdown()
+    return 0
+
+
 # ---------------------------------------------------------------------------
 # fp8 activation storage
 # ---------------------------------------------------------------------------
@@ -3533,12 +3744,14 @@ def elastic_events(stdout: str) -> list:
 
 
 def elastic_phase(train_step_ms: float) -> dict:
-    """``ELASTIC_RUNS``: the same elastic gpt-small job three times
-    through ``python -m horovod_tpu_torch.run --elastic -np 1 --ckpt-dir D
-    --ckpt-replica python chip_smoke.py --elastic-worker`` — clean, with
-    rank 0 killed in step 6 (the respawned worker restores from its peer
-    replica), and with that kill and every replica push dropped (it
-    restores from the sharded manifest on disk).  Gates: exit 0; the
+    """``ELASTIC_RUNS``: the same elastic gpt-small job three times, side
+    by side on the card and the host, through ``python -m
+    horovod_tpu_torch.run --elastic -np 1 --ckpt-dir D --ckpt-replica
+    python chip_smoke.py --elastic-worker`` — clean, with rank 0 killed in
+    step 6 (the respawned worker restores from its peer replica), and with
+    that kill and every replica push dropped (it restores from the sharded
+    manifest on disk).  Their times are taken while the other two run
+    (side by side, the phase fits the script's time limit).  Gates: exit 0; the
     faulted runs' 6 losses, parameters and AdamW state equal the clean
     run's bit for bit; every incarnation launched exactly ``MAIN_PATH``,
     each kernel once per layer and step; one respawn in each faulted run
@@ -3558,14 +3771,20 @@ def elastic_phase(train_step_ms: float) -> dict:
     release()
     root = tempfile.mkdtemp(prefix="elastic_", dir=kernels.build_dir())
     runs = {}
+
+    def launch(name, spec):
+        return hvdrun("--elastic", "-np", "1", "--ckpt-dir",
+                      os.path.join(root, name), "--ckpt-replica",
+                      sys.executable, os.path.abspath(__file__),
+                      "--elastic-worker", env={"HVDTPU_FAULT_SPEC": spec})
+
     try:
-        for name, spec, source in ELASTIC_RUNS:
+        with concurrent.futures.ThreadPoolExecutor(len(ELASTIC_RUNS)) as pool:
+            launched = [pool.submit(launch, name, spec)
+                        for name, spec, _ in ELASTIC_RUNS]
+        for (name, spec, source), done in zip(ELASTIC_RUNS, launched):
             ckpt_dir = os.path.join(root, name)
-            env = {"HVDTPU_FAULT_SPEC": spec}
-            out, wall = hvdrun(
-                "--elastic", "-np", "1", "--ckpt-dir", ckpt_dir,
-                "--ckpt-replica", sys.executable,
-                os.path.abspath(__file__), "--elastic-worker", env=env)
+            out, wall = done.result()
             if out.returncode != 0:
                 raise AssertionError(
                     f"elastic run {name!r} exited {out.returncode}:\n"
@@ -4504,6 +4723,8 @@ def main(argv=()) -> int:
         return obs_elastic_worker()
     if len(argv) == 2 and argv[0] == "--obs-worker":
         return obs_worker(argv[1])
+    if len(argv) == 2 and argv[0] == "--native-worker":
+        return native_worker(argv[1])
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}", file=sys.stderr)
         return 2
@@ -4513,9 +4734,12 @@ def main(argv=()) -> int:
     from horovod_tpu_torch.ops import kernels
 
     card = card_line()
-    t0 = time.perf_counter()
-    kernels.build_all()
-    build_s = time.perf_counter() - t0
+    # the native engine's library (phase native) builds beside the kernels
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_lib = pool.submit(native_build_timed)
+        t0 = time.perf_counter()
+        kernels.build_all()
+        build_s = time.perf_counter() - t0
     sass = {n: kernels.sass_counts(n) for n in SCALAR_TWIN}
     ptxas = {n: kernels.ptxas_report(n).splitlines()
              for n in kernels.SOURCES}
@@ -4562,7 +4786,9 @@ def main(argv=()) -> int:
     resnet_off = conv(fa)
     reductions(hvd, fa, run)
     release()
-    eager(hvd, fa, run)
+    eager_run = eager(hvd, fa, run)
+    release()
+    native_run = native(fa, run, eager_run, native_lib)
     release()
     fp8(fa, run, resnet_off)
     release()
@@ -4589,7 +4815,8 @@ def main(argv=()) -> int:
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
          "replaces": SOURCES[n][1], "shape": at,
          "launches": runs[at]["launches"][n],
-         **({"moe_launches": moe_run["launches"][n]}
+         **({"moe_launches": moe_run["launches"][n],
+             "native_launches": native_run["world1"]["launches"][n]}
             if at == "bf16_main" else {}),
          **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}

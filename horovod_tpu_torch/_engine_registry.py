@@ -19,9 +19,21 @@ def get_engine():
     """Start the eager engine on first use (reference: InitializeHorovodOnce
     spawning the background thread, horovod/common/operations.cc:604-650).
 
-    ``HVDTPU_EAGER_ENGINE``: ``auto`` (the default) and ``python`` give the
-    Python engine (``runtime/engine.py``); ``native``, the reference's C++
-    engine, is not ported yet and raises ``NotPortedError``.
+    ``HVDTPU_EAGER_ENGINE``:
+
+    * ``python`` — the Python engine (``runtime/engine.py``): negotiation
+      on a gloo group, CUDA payloads reduced on the card over NCCL
+      (``runtime/device_plane.py``).
+    * ``native`` — the C++ engine (``runtime/native.py`` on the port's copy
+      of its sources, ``csrc/engine/``), built at first use.  Its TCP wire
+      carries host bytes, so a CUDA payload crosses to the host and back.
+      A failed build or load raises; it never falls back.
+    * ``auto`` (the default) — the Python engine, at every world size.
+      The reference's ``auto`` takes the native engine for worlds of more
+      than one process whenever its library is built
+      (``horovod_tpu/_engine_registry.py:39-63``); the port does not: that
+      would add a device-to-host and host-to-device copy of every CUDA
+      gradient, and make the engine depend on what happens to be built.
     """
     global _engine
     with _lock:
@@ -33,12 +45,16 @@ def get_engine():
 
 def _make_engine(choice: str):
     if choice == "native":
-        from . import NotPortedError  # noqa: PLC0415
+        import atexit  # noqa: PLC0415
 
-        raise NotPortedError(
-            "HVDTPU_EAGER_ENGINE=native: the C++ eager engine "
-            "(runtime/native.py on cpp/hvdtpu) is not ported yet (ROADMAP "
-            "A15); use auto or python")
+        from .runtime.native import NativeEngine  # noqa: PLC0415
+
+        eng = NativeEngine()
+        # as the Python engine's start() does: a script that exits without
+        # shutdown() still runs the coordinated shutdown cycle instead of
+        # vanishing mid-negotiation under its peers
+        atexit.register(eng.shutdown)
+        return eng
     if choice not in ("auto", "python"):
         raise ValueError(f"HVDTPU_EAGER_ENGINE={choice!r}; choices: auto, "
                          "python, native")

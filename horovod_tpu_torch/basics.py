@@ -348,6 +348,16 @@ def init(comm=None, device=None) -> Topology:
             engine_groups=engine_groups,
         )
     _arm_obs(_topology)
+    # The native engine starts at init in worlds of more than one process
+    # (horovod_tpu/basics.py:356-369; the reference's InitializeHorovodOnce,
+    # operations.cc:604-650), so every rank's engine cycles for negotiation
+    # and stall inspection even before it enqueues anything.  The Python
+    # engine starts at its first eager op.
+    if w.size > 1 and os.environ.get(envmod.EAGER_ENGINE, "auto").lower() \
+            == "native":
+        from ._engine_registry import get_engine  # noqa: PLC0415
+
+        get_engine()
     return _topology
 
 
@@ -583,9 +593,12 @@ def xla_collectives_built() -> bool:
 
 
 def native_engine_built() -> bool:
-    """Whether the eager engine's native (C++) library is in the port: not
-    yet (ROADMAP A15); the port's engine is the Python one."""
-    return False
+    """Whether the native (C++) eager engine's library is built for the
+    port's current sources (``runtime/native_build.py``; the reference's
+    gloo_built).  ``HVDTPU_EAGER_ENGINE=native`` builds it at first use."""
+    from .runtime import native_build  # noqa: PLC0415
+
+    return native_build.built()
 
 
 def mpi_built() -> bool:

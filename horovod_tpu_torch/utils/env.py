@@ -109,9 +109,11 @@ DEFAULT_REPLICA_CHUNK_KB = 1024
 CKPT_COMMIT_TIMEOUT = "HVDTPU_CKPT_COMMIT_TIMEOUT_SECS"
 DEFAULT_CKPT_COMMIT_TIMEOUT = 120.0
 
-# Which eager engine (``_engine_registry``): auto / python; ``native``, the
-# C++ engine, is not ported yet.
+# Which eager engine (``_engine_registry``): auto / python / native (the C++
+# engine, runtime/native.py); MESH_ADDR overrides the address the native
+# engine's TCP mesh advertises for this host.
 EAGER_ENGINE = "HVDTPU_EAGER_ENGINE"
+MESH_ADDR = "HVDTPU_MESH_ADDR"
 
 # Backward-overlap plane (optim/overlap.py): the gradient bucket cap in MB
 # and the default overlap mode of the bench (horovod_tpu/utils/env.py:58-60).

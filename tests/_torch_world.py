@@ -841,7 +841,10 @@ def eager_worker(inputs):
     """Every eager op on this rank's ``inputs[case][rank]``, the engine's
     fused responses, the duplicate-name and dtype-mismatch errors, ``join``
     with rank 1 submitting three more ops, then rank 0's ``shutdown`` while
-    rank 1 holds a pending op.  Returns numpy results and the errors' text."""
+    rank 1 holds a pending op.  Returns numpy results and the errors' text.
+    On either engine: the Python one's executed responses are recorded
+    with their names and sizes; the native one's through its counters (a
+    count, and the largest fused allreduce since it started)."""
     import torch
     import torch.distributed as dist
 
@@ -855,15 +858,17 @@ def eager_worker(inputs):
             if k != "ragged"}
     eng = _engine_registry.get_engine()
     fused = []
-    perform = eng._perform_operation
+    native = not hasattr(eng, "_perform_operation")
+    if not native:
+        perform = eng._perform_operation
 
-    def record(resp):  # every response the engine executes, with its size
-        fused.append((list(resp.tensor_names),
-                      sum(int(torch.Size(s).numel()) * 4
-                          for s in getattr(resp, "_shapes", []))))
-        perform(resp)
+        def record(resp):  # every response the engine executes, and size
+            fused.append((list(resp.tensor_names),
+                          sum(int(torch.Size(s).numel()) * 4
+                              for s in getattr(resp, "_shapes", []))))
+            perform(resp)
 
-    eng._perform_operation = record
+        eng._perform_operation = record
     ops = {
         "sum": lambda: hvd.allreduce_async(mine["x"], hvd.Sum, name="sum"),
         "avg": lambda: hvd.allreduce_async(mine["x"], name="avg"),
@@ -906,10 +911,16 @@ def eager_worker(inputs):
 
     # N small named tensors in one burst: fewer responses than tensors
     fused.clear()
+    before = eng.stats["responses"] if native else 0
     burst = [hvd.allreduce_async(torch.full((4,), float(i)), hvd.Sum,
                                  name=f"fuse.{i}") for i in range(16)]
     out["burst"] = [float(hvd.synchronize(h)[0]) for h in burst]
-    out["burst_responses"] = [f for f in fused if f[0][0].startswith("fuse.")]
+    if native:
+        out["burst_responses"] = eng.stats["responses"] - before
+        out["largest_response"] = eng.stats["largest_response_bytes"]
+    else:
+        out["burst_responses"] = [f for f in fused
+                                  if f[0][0].startswith("fuse.")]
 
     # the duplicate-name error: a second in-flight op under one name
     first = hvd.allreduce_async(mine["x"], hvd.Sum, name="dup")
@@ -1268,3 +1279,166 @@ def health_worker(state_np, tokens, steps, bucket_mb, flip, overrides):
     del os.environ["HVDTPU_FAULT_SPEC"]
     faults.reset()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the native (C++) engine's worlds (HVDTPU_EAGER_ENGINE=native in the
+# parent's environment; tests/test_torch_native_engine.py)
+# ---------------------------------------------------------------------------
+
+
+def native_four_worker():
+    """``tests/test_native_engine.py``'s four-process case on the port: a
+    1000-element Sum (the ring chunks it over four ranks), Adasum over
+    four (the VHDD path), the dtype grid, bf16, pre- and postscale and a
+    barrier, through the eager ops."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _engine_registry
+    from horovod_tpu_torch.ops import eager
+
+    r = hvd.rank()
+    rng = np.random.RandomState(100 + r)
+    # init() started it (a world of more than one process)
+    out = {"started_at_init": _engine_registry._engine is not None,
+           "engine": type(_engine_registry.get_engine()).__name__}
+    big = torch.from_numpy(rng.randn(1000).astype(np.float32))
+    out["big_sum"] = eager.allreduce(big, hvd.Sum, name="big").numpy()
+    out["big_local"] = big.numpy()
+    ada = torch.from_numpy(rng.randn(64).astype(np.float32))
+    out["ada"] = eager.allreduce(ada, hvd.Adasum, name="ada").numpy()
+    out["ada_local"] = ada.numpy()
+    for dtype in ("float64", "int32", "int64", "uint8"):
+        x = torch.from_numpy((np.arange(6) % 5).astype(dtype) + r)
+        out[f"sum_{dtype}"] = eager.allreduce(x, hvd.Sum,
+                                              name=f"dt_{dtype}").numpy()
+    xb = torch.tensor([1.5, 2.5, -3.0], dtype=torch.bfloat16)
+    out["sum_bf16"] = _np(eager.allreduce(xb, hvd.Sum, name="dt_bf16"))
+    h = eager.allreduce_async(torch.full((3,), 2.0), hvd.Sum, name="scaled",
+                              prescale_factor=0.5, postscale_factor=10.0)
+    out["scaled"] = eager.synchronize(h).tolist()
+    eager.barrier()
+    out["barrier"] = True
+    return out
+
+
+def native_adasum_worker(n):
+    """Adasum of this rank's row: ``[1 + r, 2 (r + 1), -r]`` at ``n`` 0,
+    else ``n`` normals from ``RandomState(100 + r)`` (a non-power-of-two
+    world folds its extra ranks into their partners)."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import eager
+
+    r = hvd.rank()
+    if n == 0:
+        v = np.asarray([1.0 + r, 2.0 * (r + 1), -1.0 * r], np.float32)
+    else:
+        v = np.random.RandomState(100 + r).randn(n).astype(np.float32)
+    out = eager.allreduce(torch.from_numpy(v), hvd.Adasum, name="ada")
+    return {"v": v, "out": out.numpy()}
+
+
+def native_pair_worker():
+    """Two ranks: bf16 Adasum's wire bytes against fp32's (the engine's
+    bytes counter), 20 steps of the same 5 named averages (the response
+    cache's steady state), three named sums (the timeline), a result's
+    type, dtype and device, in place too, and a 32 MB Sum, whose ring
+    halves (16 MB each way at once) are past the sockets' buffers."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _engine_registry
+    from horovod_tpu_torch.ops import eager
+
+    r = hvd.rank()
+    eng = _engine_registry.get_engine()
+    out = {}
+    base = torch.from_numpy(
+        np.linspace(0.1, 1.0, 2048).astype(np.float32) * (r + 1))
+    b0 = eng.lib.hvdtpu_perf_bytes()
+    out32 = eager.allreduce(base, hvd.Adasum, name="a32")
+    b1 = eng.lib.hvdtpu_perf_bytes()
+    out16 = eager.allreduce(base.bfloat16(), hvd.Adasum, name="a16")
+    b2 = eng.lib.hvdtpu_perf_bytes()
+    out.update(f32_bytes=b1 - b0, bf16_bytes=b2 - b1,
+               out32=out32.double().numpy(), out16=out16.double().numpy())
+
+    totals = []
+    for step in range(20):
+        hs = [hvd.allreduce_async(torch.full((8,), float(step + r + k)),
+                                  hvd.Average, name=f"grad_{k}")
+              for k in range(5)]
+        totals.append(float(sum(hvd.synchronize(h).sum() for h in hs)))
+    out["totals"] = totals
+    out["stats"] = eng.stats
+
+    for i in range(3):
+        eager.allreduce(torch.ones(4), hvd.Sum, name=f"t{i}")
+
+    x = torch.full((4,), float(r + 1))
+    s = eager.allreduce(x, hvd.Sum)
+    y = torch.full((2, 2), float(r + 1), dtype=torch.float64)
+    y_out = eager.allreduce_(y, hvd.Sum)
+    out.update(is_tensor=isinstance(s, torch.Tensor), device=str(s.device),
+               dtype=str(s.dtype), sum=s.tolist(), inplace_is_arg=y_out is y,
+               inplace=y.tolist())
+    big = eager.allreduce(torch.full((1 << 23,), float(r + 1)), hvd.Sum,
+                          name="big")
+    out["big"] = (big.numel(), bool((big == 3.0).all()))
+    return out
+
+
+def native_autotune_worker():
+    """``tests/test_multiprocess.py``'s autotune case on the port: steady
+    traffic until rank 0's tuner moves the fusion threshold (30 s at
+    most); the moved parameters as each rank's engine sees them.  The
+    ranks leave the loop together, on a Max of "moved or out of time"
+    (one rank leaving alone would shut the engine down under the other's
+    next op)."""
+    import time
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import _engine_registry
+    from horovod_tpu_torch.ops import eager
+
+    eng = _engine_registry.get_engine()
+    initial = eng.lib.hvdtpu_get_fusion_bytes()
+    deadline = time.monotonic() + 30.0
+    i, done = 0, False
+    while not done:
+        eager.allreduce(torch.ones(4096), hvd.Sum, name=f"t{i % 4}")
+        i += 1
+        stop = eng.lib.hvdtpu_get_fusion_bytes() != initial \
+            or time.monotonic() > deadline
+        done = bool(eager.allreduce(torch.tensor([float(stop)]), hvd.Max,
+                                    name=f"stop.{i}")[0] > 0)
+    return {"initial": initial, "fusion": eng.lib.hvdtpu_get_fusion_bytes(),
+            "cycle_ms": eng.lib.hvdtpu_get_cycle_ms(),
+            "perf_bytes": eng.lib.hvdtpu_perf_bytes(), "iters": i}
+
+
+def native_np8_worker():
+    """Eight ranks, 20 rounds of a 256 KB Sum each: seven workers feed the
+    rank-0 coordinator through its poll-multiplexed gather."""
+    import time
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import eager
+
+    r = hvd.rank()
+    t0 = time.monotonic()
+    for i in range(20):
+        out = eager.allreduce(torch.full((65536,), float(r + 1)), hvd.Sum,
+                              name=f"big{i}")
+    return {"ok": bool((out == 36.0).all()),
+            "elapsed": time.monotonic() - t0}

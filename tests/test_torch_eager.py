@@ -7,8 +7,10 @@ caller's tensor comes back as itself, a bad broadcast root raises, join and
 barrier return; the Chrome-trace timeline writes the JAX timeline's events
 for the same calls, up to timestamps.
 
-A 2-rank gloo world (one spawn for the module, a 2 ms cycle and a 64-byte
-fusion threshold): every async op against numpy on inputs made from a
+A 2-rank gloo world on each engine, the Python one and the native (C++)
+one (``HVDTPU_EAGER_ENGINE``; one spawn for the module and engine, a 2 ms
+cycle and a 64-byte fusion threshold), as the reference's ``engine_env``
+crosses them: every async op against numpy on inputs made from a
 seed — allreduce Sum / Average / Min / Max / scaled / int Average
 (floor) / int64 / bf16 / fp64 / Adasum, in place, allgather even and
 ragged, broadcast, alltoall, reducescatter even and ragged — with the
@@ -18,7 +20,8 @@ name and a dtype mismatch raise; ``join`` with rank 1 submitting three
 more ops (rank 0 contributes zeros, Average divides by the world); last,
 ``shutdown`` on rank 0 with an op pending on rank 1 raises
 ``HorovodShutdownError`` there, and neither process hangs (the world's
-timeout).  Tolerances: exact for sums the dtype holds exactly; fp32 1e-6
+timeout).  ``native`` builds or raises, and ``auto`` stays the Python
+engine.  Tolerances: exact for sums the dtype holds exactly; fp32 1e-6
 relative for means and scales; bf16 2^-7 (the inputs and the sum each
 rounded to bf16's 8 bits); Adasum 1e-6 against ``_numpy_adasum_rows`` in
 fp64.
@@ -35,6 +38,7 @@ import torch
 import _torch_world
 from horovod_tpu.ops.adasum import _numpy_adasum_rows
 from horovod_tpu.runtime.timeline import Timeline as JaxTimeline
+from horovod_tpu_torch.runtime.messages import RequestType
 from horovod_tpu_torch.runtime.timeline import Timeline
 
 WORLD = 2
@@ -134,12 +138,30 @@ def test_timeline_disabled_is_noop(tmp_path):
     tl.shutdown()
 
 
-def test_native_engine_is_not_ported(hvd1, monkeypatch):
-    from horovod_tpu_torch import NotPortedError, _engine_registry
+def test_native_engine_starts_or_raises_and_auto_stays_python(hvd1):
+    """``native`` starts the port's C++ engine (building its library) and
+    runs an op through it, or raises with the build's message; it never
+    hands back the Python engine.  ``auto`` is the Python engine."""
+    from horovod_tpu_torch import _engine_registry
+    from horovod_tpu_torch.runtime import native_build
+    from horovod_tpu_torch.runtime.engine import EagerEngine
+    from horovod_tpu_torch.runtime.native import NativeEngine
 
-    monkeypatch.setenv("HVDTPU_EAGER_ENGINE", "native")
-    with pytest.raises(NotPortedError, match="A15"):
-        _engine_registry._make_engine("native")
+    assert isinstance(_engine_registry._make_engine("auto"), EagerEngine)
+    try:
+        eng = _engine_registry._make_engine("native")
+    except native_build.NativeBuildError as e:
+        assert "failed" in str(e)
+        return
+    try:
+        assert isinstance(eng, NativeEngine)
+        assert hvd1.native_engine_built()
+        x = torch.arange(6.0)
+        fut = eng.enqueue(RequestType.ALLREDUCE, "native.probe", x,
+                          reduce_op=int(hvd1.Sum), postscale=2.0)
+        assert torch.equal(fut.result(timeout=30), x * 2.0)
+    finally:
+        eng.shutdown()
 
 
 # ------------------------------------------------------- 2-rank gloo world
@@ -158,15 +180,16 @@ def _inputs():
     }
 
 
-@pytest.fixture(scope="module")
-def world():
+@pytest.fixture(scope="module", params=["python", "native"])
+def world(request):
     inputs = _inputs()
     with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("HVDTPU_EAGER_ENGINE", request.param)
         mp.setenv("HVDTPU_CYCLE_TIME", "2")
         mp.setenv("HVDTPU_FUSION_THRESHOLD", "64")
         results = _torch_world.run_world(_torch_world.eager_worker,
                                          (inputs,), world=WORLD, timeout=60)
-    return inputs, results
+    return inputs, results, request.param
 
 
 def _expected(inputs):
@@ -193,14 +216,14 @@ def _expected(inputs):
     ("broadcast", 0),
 ])
 def test_every_rank_gets_the_reduction(world, case, rtol):
-    inputs, results = world
+    inputs, results, _ = world
     want = _expected(inputs)[case]
     for out in results:
         np.testing.assert_allclose(out[case], want, rtol=rtol, atol=rtol)
 
 
 def test_results_keep_the_input_dtype(world):
-    _, results = world
+    _, results, _ = world
     for out in results:
         assert out["dtypes"]["int_avg"] == "torch.int32"
         assert out["dtypes"]["bf16_sum"] == "torch.bfloat16"
@@ -210,7 +233,7 @@ def test_results_keep_the_input_dtype(world):
 
 
 def test_alltoall_and_reducescatter(world):
-    inputs, results = world
+    inputs, results, _ = world
     rows, odd = inputs["rows"], inputs["odd"]
     total_odd = odd.sum(0) / WORLD
     for r, out in enumerate(results):
@@ -227,7 +250,7 @@ def test_alltoall_and_reducescatter(world):
 
 
 def test_inplace_allreduce_writes_its_argument(world):
-    inputs, results = world
+    inputs, results, _ = world
     for out in results:
         assert out["inplace_is_arg"]
         np.testing.assert_allclose(out["inplace"], inputs["x"].sum(0),
@@ -235,19 +258,26 @@ def test_inplace_allreduce_writes_its_argument(world):
 
 
 def test_small_named_tensors_fuse_within_the_threshold(world):
-    _, results = world
+    """Fewer responses than tensors, each within the 64-byte threshold
+    (the native engine: its count of responses over the burst, and the
+    largest fused allreduce since it started)."""
+    _, results, engine = world
     for out in results:
         assert out["burst"] == [2.0 * i for i in range(16)]
         responses = out["burst_responses"]
-        assert sorted(n for names, _ in responses for n in names) == \
-            sorted(f"fuse.{i}" for i in range(16))
-        assert len(responses) < 16
-        assert all(nbytes <= 64 for _, nbytes in responses)
+        if engine == "python":
+            assert sorted(n for names, _ in responses for n in names) == \
+                sorted(f"fuse.{i}" for i in range(16))
+            assert len(responses) < 16
+            assert all(nbytes <= 64 for _, nbytes in responses)
+        else:
+            assert 0 < responses < 16
+            assert 0 < out["largest_response"] <= 64
         assert out["stats"]["fused_responses"] >= 1
 
 
 def test_duplicate_name_and_dtype_mismatch_raise(world):
-    _, results = world
+    _, results, _ = world
     for out in results:
         assert "same name" in out["duplicate"]
         assert "Mismatched data types" in out["mismatch"]
@@ -256,7 +286,7 @@ def test_duplicate_name_and_dtype_mismatch_raise(world):
 def test_join_with_uneven_submissions(world):
     """Rank 0 joined: rank 1's three late averages see rank 0's zeros and
     divide by the world, as the reference's controller and engine do."""
-    inputs, results = world
+    inputs, results, _ = world
     for k, got in enumerate(results[1]["after_join"]):
         np.testing.assert_allclose(got, inputs["x"][1] * (k + 1) / WORLD,
                                    rtol=1e-6)
@@ -266,10 +296,16 @@ def test_join_with_uneven_submissions(world):
 def test_host_payloads_take_the_gloo_plane(world):
     """CPU payloads reduce on the engine's gloo group: the stageable dtypes
     in place (O(bytes)), the rest by the exact raw gather; nothing rides
-    the device plane on a CPU world."""
-    _, results = world
+    the device plane on a CPU world.  The native engine's wire is its own
+    TCP mesh: its collectives moved bytes over cycles, and no payload came
+    from a card."""
+    _, results, engine = world
     for out in results:
         stats = out["stats"]
+        if engine == "native":
+            assert stats["wire_bytes"] > 0 and stats["cycles"] > 0
+            assert stats["enqueued"] > 0 and stats["device_payloads"] == 0
+            continue
         assert stats["host_staged_ops"] > 0
         assert stats["host_data_ops"] > 0
         assert stats["device_data_ops"] == 0
@@ -280,6 +316,6 @@ def test_shutdown_with_a_pending_peer_op(world):
     """``hvd.shutdown()`` on rank 0 stops its engine first: the coordinated
     shutdown flag reaches rank 1's engine, whose pending op fails with
     HorovodShutdownError; both processes returned (no hang)."""
-    _, results = world
+    _, results, _ = world
     assert results[0]["shutdown_error"] is None
     assert results[1]["shutdown_error"] == "HorovodShutdownError"

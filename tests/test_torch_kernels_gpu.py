@@ -32,7 +32,9 @@ overlap mode.  Then fp8 storage's ``act_store`` card against CPU and the
 sparse embedding path's SGD steps on the card.  Last, the eager engine:
 every eager op keeps CUDA tensors on the card in their dtype, and the
 engine's data plane orders its NCCL reduce after the payloads' ready
-events and the caller's stream after the result.  And the serving path,
+events and the caller's stream after the result; the native (C++) engine
+keeps every eager op's result on the card too, and reads a payload only
+after the caller's stream wrote it.  And the serving path,
 which runs no kernel of this repo: the threefry sampler card against CPU,
 and a small engine's paged streams bit for bit its contiguous ones, its
 fp32 logits within ``chip_smoke.SERVE_LOGIT_RTOL`` of the CPU's.
@@ -433,6 +435,30 @@ def test_eager_data_plane_orders_the_streams(world):
         assert rec[dtype]["max_abs_err"] == 0.0
         assert rec[dtype]["on_card"]
         assert rec[dtype]["synchronize_left_stream_busy"]
+
+
+def test_native_engine_keeps_cuda_tensors_on_the_card(world):
+    """``HVDTPU_EAGER_ENGINE=native`` at a world of one: every eager op on
+    CUDA tensors crosses the C++ engine's host wire and comes back on the
+    card in the input's dtype, equal to the input (the scales applied);
+    and a payload written late on the caller's stream, behind a device
+    sleep, is copied to the host only after that write, its result ordered
+    back on the caller's stream."""
+    from horovod_tpu_torch.ops import eager
+    from horovod_tpu_torch.world_check import _engine_env
+
+    n = 1 << 20
+    want = torch.arange(n, device="cuda", dtype=torch.float32)
+    src = torch.zeros(n, device="cuda")
+    with _engine_env(HVDTPU_EAGER_ENGINE="native"):
+        ops = chip_smoke.eager_ops_check()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(chip_smoke.PLANE_SLEEP // 4)
+        src.copy_(want)
+        got = eager.allreduce(src, world.Sum, name="native.late").clone()
+        torch.cuda.synchronize()
+    assert all(dev.startswith("cuda") for dev, _ in ops.values())
+    assert torch.equal(got, want)
 
 
 def test_sampler_on_the_card_equals_the_cpu(cuda):

@@ -21,6 +21,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import pytest
@@ -81,14 +82,35 @@ def _help_free(text: str) -> str:
                              and ln.split()[2][len("hvdtpu_"):] in GPU_HELP))
 
 
+class _Clock:
+    """One monotonic clock that only the test advances, read by both
+    aggregators as they read ``time.monotonic`` (each view's ingest stamp
+    and the age lines of the Prometheus text); the rest of ``time`` is the
+    real module."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def monotonic(self) -> float:
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
 def test_aggregator_views_equal_the_reference(tmp_path, monkeypatch):
     # the perf-trend token reads benchmark records: none here, for both
     monkeypatch.setenv("HVDTPU_RECORD_DIR", str(tmp_path))
+    clock = _Clock()
+    monkeypatch.setattr(live, "time", clock)
+    monkeypatch.setattr(jlive, "time", clock)
     docs = _stream_docs(registry, stream)
     mine, ref = live.LiveAggregator(), jlive.LiveAggregator()
     for doc in docs:
         mine.ingest(json.loads(json.dumps(doc)))
         ref.ingest(json.loads(json.dumps(doc)))
+        clock.now += 0.25
+    clock.now += 1.5
     got, want = mine.merged(), ref.merged()
     assert sorted(got) == sorted(want) == [0, 1]
     for rank in got:

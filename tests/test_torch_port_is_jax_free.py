@@ -102,7 +102,8 @@ def test_every_module_imports_without_jax():
                 "obs.trace_merge", "obs.postmortem", "obs.health",
                 "obs.divergence", "obs.anatomy", "bench.campaign",
                 "bench.__main__", "estimator", "serve.autoscale",
-                "interop.mxnet", "interop._host") + tuple(
+                "interop.mxnet", "interop._host", "runtime.native",
+                "runtime.native_build") + tuple(
                     m[len("horovod_tpu_torch."):] for m in TF_MODULES):
         assert f"horovod_tpu_torch.{mod}" in res["modules"], mod
     assert res["leaked"] == []
@@ -164,3 +165,31 @@ def test_no_source_names_a_forbidden_import():
              for name in _imports(f, top_level_only=True)
              if name.split(".")[0] in LAZY_ONLY]
     assert eager == []
+
+
+# the reference's C++ tree, its build's library directory and the library
+REFERENCE_NATIVE = ("cpp/hvdtpu", "horovod_tpu/lib", "libhvdtpu.so")
+
+
+def test_native_engine_builds_from_the_ports_own_sources():
+    """No file of the port (nor chip_smoke.py) names the reference's C++
+    tree, its library directory or its library, and every source the
+    native build compiles, and the build's output, lie in the port."""
+    from horovod_tpu_torch.runtime import native_build
+
+    files = sorted(f for f in PKG.rglob("*") if f.is_file()
+                   and "_build" not in f.relative_to(PKG).parts
+                   and "__pycache__" not in f.relative_to(PKG).parts)
+    files.append(REPO / "chip_smoke.py")
+    bad = [(str(f.relative_to(REPO)), name) for f in files
+           for name in REFERENCE_NATIVE
+           if name in f.read_text(errors="replace")]
+    assert bad == []
+    srcs = native_build.sources()
+    assert {p.name for p in srcs} == {
+        "wire.cc", "tcp.cc", "dtype_math.cc", "ops.cc", "response_cache.cc",
+        "controller.cc", "timeline.cc", "engine.cc"}
+    for path in srcs + [native_build.SOURCE_DIR]:
+        assert path.resolve().is_relative_to(PKG), path
+    assert native_build.library_path().resolve().is_relative_to(
+        PKG / "_build")
