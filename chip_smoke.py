@@ -55,10 +55,8 @@ through their launch helpers.  Phases, one JSON line each:
    4 heads, emb 128: head_dim 32), the same 7 steps: exactly 3 launches a
    step of ``NANO_PATH`` and nothing else, losses within ``LOSS_RTOL`` of
    the same steps with reference attention, tokens/s/GPU, one profiled
-   step (the device's busy share); then ``python -m
-   horovod_tpu_torch.bench --model gpt-nano --seq-len 256 --batch-size
-   32`` once, whose record must name ``NANO_PATH`` as the kernels
-   launched.
+   step (the device's busy share); then phase ``launcher`` (12 below),
+   whose bench of gpt-nano is this step's bench record.
    ``train_fp32``: ``build_gpt_step("small", "fp32", 8, 1024)``, TF32
    off, the same 7 steps: exactly 12 launches a step of the 3xTF32
    forward, dK/dV and dQ and nothing else, losses within
@@ -167,12 +165,14 @@ through their launch helpers.  Phases, one JSON line each:
    memory beside bf16's.  Then ``act_store`` on the card against the CPU
    on ``act_store_grid``, values and gradients, NaN where NaN.
 
-12. ``launcher``: the port's launcher, ``python -m horovod_tpu_torch.run``:
+12. ``launcher`` (right after ``train_nano``, whose bench it runs):
+   the port's launcher, ``python -m horovod_tpu_torch.run``:
    ``--check-build`` (NCCL, gloo, the card and the built kernels must be
    reported), then ``-np 1 python -m horovod_tpu_torch.bench --model
    gpt-nano --seq-len 256 --batch-size 32``, whose record, read back
    through the launcher's ``[0]`` output tag, must show the launcher's
    rendezvous environment, ``cuda:0`` and exactly ``NANO_PATH``, 3 a step.
+   Phase ``lint`` (17) runs beside ``elastic``.
    ``elastic``: gpt-small bf16 as ``train`` builds it, 6 steps under
    ``elastic.run`` from an ``elastic.State`` of the model, AdamW, the step
    and the losses (step k's tokens from ``RandomState(k)``; a commit every
@@ -287,6 +287,23 @@ through their launch helpers.  Phases, one JSON line each:
    respawn, where the launcher exits non-zero and ``postmortem.json``
    blames rank 1 (the three launchers side by side).  Printed: step ms with and without the flags (host
    clock around a device synchronize), the phase's wall time, the card.
+   ``lint`` (side by side with ``elastic``, whose times are contended
+   already): the port's hvdtpu-lint and its schedule gate.  (i) ``python -m horovod_tpu_torch.analysis --jobs 0`` over the
+   port's surface (``horovod_tpu_torch/`` and this script) in a
+   subprocess on the card's host: exit 0 against
+   ``horovod_tpu_torch/analysis/baseline.json``.  (ii) Beside it,
+   ``GPT_STEP`` in ``bucket`` mode for ``LINT_STEPS`` steps through
+   ``python -m horovod_tpu_torch.run -np 1 python chip_smoke.py
+   --lint-worker`` with torch's flight recorder on (NCCL), the rank's
+   collective schedule dumped after the build and after each step
+   (``obs.collective_schedule``): every step's slice issues the same
+   sequence (``analysis.schedule.diff_schedules``), one ``all_reduce`` per
+   bucket of the plan (of the bucket's elements) and one of the loss, and
+   nothing else; exactly ``MAIN_PATH``, 12 a step; ``python -m
+   horovod_tpu_torch.analysis.schedule`` exits 1 on a copy of the last
+   dump with one bucket's entry dropped and 0 on two copies of it.
+   Printed: the rule count, the findings by status and rule, the lint's
+   seconds, each step's collectives, the phase's wall time, the card.
 
 18. ``anatomy`` (after ``serve_fleet``; runs nothing new): the
    ``anatomy`` block of every bench record above (gpt-nano bf16,
@@ -342,6 +359,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 H100_BF16_PEAK = 989e12     # FLOP/s, dense, H100 SXM data sheet
@@ -431,10 +449,16 @@ def act_store_grid(dtype):
 T0 = time.perf_counter()
 
 
+_EMIT = threading.Lock()
+
+
 def emit(phase: str, **fields) -> None:
-    """One phase's JSON line, with the seconds since the script started."""
-    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0,
-                      **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started
+    (whole, when two phases run side by side)."""
+    line = json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0,
+                       **fields})
+    with _EMIT:
+        print(line, flush=True)
 
 
 def card_line() -> str:
@@ -2110,7 +2134,7 @@ def eager(hvd, fa, train_run) -> dict:
 
 
 # the native engine's two-rank run (phase ``native`` ii): steps a rank
-NATIVE_WARMUP, NATIVE_STEPS = 2, 3
+NATIVE_WARMUP, NATIVE_STEPS = 1, 2
 
 
 def hook_optimizer(model):
@@ -3999,6 +4023,172 @@ def obs_elastic_worker() -> int:
     return 0
 
 
+LINT_STEPS = 3
+
+
+def lint_worker(out_dir: str) -> int:
+    """``python chip_smoke.py --lint-worker DIR``: ``GPT_STEP`` in
+    ``bucket`` mode for ``LINT_STEPS`` steps, with torch's flight recorder
+    on (the phase arms it); what the recorder holds after the build
+    (``DIR/step0.json``, empty at a world of one) and the collective
+    schedule dumped after each step (``DIR/step<k>.json``); each step's
+    launches, the losses and the plan's buckets' sizes to
+    ``DIR/result.json``."""
+    import os
+
+    from horovod_tpu_torch.obs.collective_schedule import (
+        dump_collective_schedule, read_recorder)
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.train import build_gpt_step
+
+    _load_built_kernels("lint worker")
+    step, (model, plan, toks), _ = build_gpt_step(*GPT_STEP,
+                                                  overlap_mode="bucket")
+    with open(os.path.join(out_dir, "step0.json"), "w") as f:
+        json.dump(read_recorder(allow_empty=True), f)
+    res = {"buckets": [b.padded_size for b in plan.layout.buckets],
+           "launches": [], "losses": [], "entries": []}
+    for k in range(1, LINT_STEPS + 1):
+        fa.reset_launch_counts()
+        out = step(model, plan, toks)
+        res["losses"].append(float(out[2]))      # waits for the device
+        res["launches"].append(dict(fa.LAUNCHES))
+        res["entries"].append(dump_collective_schedule(
+            os.path.join(out_dir, f"step{k}.json")))
+    with open(os.path.join(out_dir, "result.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def schedule_cli(*dumps) -> int:
+    """The schedule CLI over ``dumps``: its exit code.  Run as the module's
+    file, which imports nothing of the package (no torch to import)."""
+    from horovod_tpu_torch.analysis import schedule
+
+    return subprocess.run([sys.executable, schedule.__file__, *dumps],
+                          capture_output=True, text=True,
+                          timeout=120).returncode
+
+
+def lint_phase() -> dict:
+    """Phase ``lint`` (in the module docstring's 17)."""
+    import os
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    import horovod_tpu_torch
+    from horovod_tpu_torch.analysis import schedule
+    from horovod_tpu_torch.obs.collective_schedule import recorder_env
+    from horovod_tpu_torch.ops import kernels
+
+    release()
+    t_phase = time.perf_counter()
+    # the checkout's root: the analyzer's configuration and surface
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(
+        horovod_tpu_torch.__file__)))
+
+    def run_lint():
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.analysis", "--jobs",
+             "0", "--no-cache", "--format", "json"],
+            capture_output=True, text=True, timeout=600, cwd=repo)
+        return out, time.perf_counter() - t0
+
+    root = tempfile.mkdtemp(prefix="lint_", dir=kernels.build_dir())
+    try:
+        # (i) on the host's cores beside (ii) on the card
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            linted = pool.submit(run_lint)
+            out, wall = hvdrun("-np", "1", sys.executable,
+                               os.path.abspath(__file__), "--lint-worker",
+                               root, env=recorder_env(), timeout=600)
+            lint, lint_s = linted.result()
+        if lint.returncode != 0:
+            raise AssertionError(f"lint (i) exited {lint.returncode}:\n"
+                                 f"{lint.stdout[-6000:]}{lint.stderr[-3000:]}")
+        doc = json.loads(lint.stdout)
+        if not doc["summary"]["baselined"]:
+            # the port's baseline holds findings: a run that matched none
+            # linted nothing
+            raise AssertionError(f"lint (i) saw no finding: {doc['summary']}")
+        findings = Counter(f"{f['status']} {f['rule']}"
+                           for f in doc["findings"])
+        if out.returncode != 0:
+            raise AssertionError(f"lint (ii) exited {out.returncode}:\n"
+                                 f"{out.stderr[-6000:]}")
+        with open(os.path.join(root, "result.json")) as f:
+            res = json.load(f)
+        dumps = [os.path.join(root, f"step{k}.json")
+                 for k in range(LINT_STEPS + 1)]
+        scheds = []
+        for path in dumps:
+            with open(path) as f:
+                scheds.append(schedule.extract_schedule(f.read()))
+        steps = [scheds[k].since(scheds[k - 1], f"step{k}")
+                 for k in range(1, LINT_STEPS + 1)]
+        diverged = schedule.diff_schedules(steps)
+        if diverged:
+            raise AssertionError(f"lint (ii): the steps' schedules differ: "
+                                 f"{diverged}")
+        buckets = sorted(res["buckets"])
+        for s in steps:
+            kinds = Counter(i.kind for i in s.instrs)
+            sizes = sorted(i.elements for i in s.instrs
+                           if i.kind == "all_reduce")
+            # the buckets' all_reduces and the loss's (one element)
+            if set(kinds) != {"all_reduce"} or s.p2p or \
+                    sizes != sorted(buckets + [1]):
+                raise AssertionError(
+                    f"lint (ii) {s.label}: {dict(kinds)}, p2p {len(s.p2p)}, "
+                    f"all_reduce sizes {sizes} against the plan's "
+                    f"{len(buckets)} buckets {buckets} and the loss")
+        want = {n: 12 if n in MAIN_PATH else 0 for n in SOURCES}
+        for k, launches in enumerate(res["launches"], start=1):
+            got = {n: launches.get(n, 0) for n in want}
+            if got != want:
+                raise AssertionError(f"lint (ii) step {k}: launches {got} "
+                                     f"!= {want}")
+        with open(dumps[-1]) as f:
+            last = json.load(f)
+        first_bucket = next(
+            j for j, e in enumerate(last["entries"])
+            if e["profiling_name"].endswith("all_reduce")
+            and e["output_sizes"] and e["output_sizes"][0]
+            and e["output_sizes"][0][0] == res["buckets"][0])
+        dropped = dict(last, entries=last["entries"][:first_bucket]
+                       + last["entries"][first_bucket + 1:])
+        dropped_path = os.path.join(root, "dropped.json")
+        with open(dropped_path, "w") as f:
+            json.dump(dropped, f)
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            rc_dropped, rc_same = pool.map(
+                lambda args: schedule_cli(*args),
+                [(f"rank0={dumps[-1]}", f"dropped={dropped_path}"),
+                 (f"a={dumps[-1]}", f"b={dumps[-1]}")])
+        if (rc_dropped, rc_same) != (1, 0):
+            raise AssertionError(f"lint (ii): the schedule CLI exited "
+                                 f"{rc_dropped} on the dropped entry (want "
+                                 f"1) and {rc_same} on equal dumps (want 0)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"card": card_line(), "rules": len(doc["rules"]),
+           "findings": dict(findings), "lint_summary": doc["summary"],
+           "lint_s": lint_s, "model": "gpt-small", "dtype": "bf16",
+           "overlap": "bucket", "steps": LINT_STEPS,
+           "buckets": len(buckets),
+           "step_collectives": [len(s.instrs) for s in steps],
+           "step_all_reduce_bytes": [s.total_bytes for s in steps],
+           "entries": res["entries"], "dumpers": last.get("dumpers"),
+           "launches_per_step": res["launches"], "losses": res["losses"],
+           "dropped_entry": first_bucket, "cli_rc_dropped": rc_dropped,
+           "cli_rc_same": rc_same, "worker_wall_s": wall,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit("lint", **out)
+    return out
+
+
 def _leaf_at(plan, names, pos: int):
     """(bucket, leaf name) of element ``pos`` of the plan's buckets'
     gradients laid end to end."""
@@ -4725,6 +4915,8 @@ def main(argv=()) -> int:
         return obs_worker(argv[1])
     if len(argv) == 2 and argv[0] == "--native-worker":
         return native_worker(argv[1])
+    if len(argv) == 2 and argv[0] == "--lint-worker":
+        return lint_worker(argv[1])
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}", file=sys.stderr)
         return 2
@@ -4740,7 +4932,9 @@ def main(argv=()) -> int:
         t0 = time.perf_counter()
         kernels.build_all()
         build_s = time.perf_counter() - t0
-    sass = {n: kernels.sass_counts(n) for n in SCALAR_TWIN}
+    with concurrent.futures.ThreadPoolExecutor(len(SCALAR_TWIN)) as pool:
+        sass = dict(zip(SCALAR_TWIN,
+                        pool.map(kernels.sass_counts, SCALAR_TWIN)))
     ptxas = {n: kernels.ptxas_report(n).splitlines()
              for n in kernels.SOURCES}
     emit("build", seconds=build_s, card=card,
@@ -4769,8 +4963,8 @@ def main(argv=()) -> int:
     del state, step
     release()
     nano_run = train_nano(fa)
-    nano_bench = bench("--model", "gpt-nano", "--seq-len", str(NANO_STEP[3]),
-                       "--batch-size", str(NANO_STEP[2]), path=NANO_PATH)
+    # the launcher's bench of gpt-nano is the nano step's bench record
+    nano_bench = launcher_phase()
     fp32_run = train_fp32(fa)
     fp32_path = [n for n, k in fp32_run["launches_per_step"].items() if k]
     fp32_bench = bench("--model", "gpt-small", "--dtype", "fp32",
@@ -4792,8 +4986,12 @@ def main(argv=()) -> int:
     release()
     fp8(fa, run, resnet_off)
     release()
-    launcher_phase()
-    elastic_phase(run["step_ms"])
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # side by side: lint's runs are gates, elastic's times are taken
+        # contended already (its three runs go side by side)
+        linted = pool.submit(lint_phase)
+        elastic_phase(run["step_ms"])
+        linted.result()
     obs_phase(run["step_ms"])
     serve_check()
     serve_run = serve(fa)

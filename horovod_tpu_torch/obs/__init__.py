@@ -24,7 +24,11 @@ of ``horovod_tpu/obs``).
   divergence sentinel over bitwise digests of the parameters.
 * **memory plane** (:mod:`.memplane`) — owner-tagged census of device
   memory, per-program breakdowns and the OOM black box.
+* **collective schedule** (:mod:`.collective_schedule`) — this rank's
+  collectives as torch's flight recorder kept them, dumped for the
+  schedule gate (``analysis.schedule``).
 """
+
 
 from . import divergence  # noqa: F401
 from . import flightrec  # noqa: F401

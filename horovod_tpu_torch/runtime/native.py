@@ -369,7 +369,7 @@ class NativeEngine:
         the engine (reference parameter_manager.cc's Update / Tune
         cadence)."""
         last_bytes = 0
-        while not self._stop and not self.lib.hvdtpu_is_shutdown():
+        while not self._stopping() and not self.lib.hvdtpu_is_shutdown():
             time.sleep(max(self.lib.hvdtpu_get_cycle_ms() / 1000.0, 0.001))
             now_bytes = self.lib.hvdtpu_perf_bytes()
             self._pm.record_bytes(now_bytes - last_bytes)
@@ -381,6 +381,10 @@ class NativeEngine:
                     1 if proposal.cache_enabled else 0)
             if self._pm.converged:
                 return
+
+    def _stopping(self) -> bool:
+        with self._lock:
+            return self._stop
 
     def shutdown(self) -> None:
         """Coordinated shutdown (the C++ engine's flag rides the next
@@ -435,8 +439,9 @@ class NativeEngine:
             with self._lock:
                 items = list(self._outstanding.items())
                 idle = not items and not self._staged
+                stop = self._stop
             if idle:
-                if self._stop:
+                if stop:
                     return
                 self._pump_wake.wait(timeout=0.05)
                 self._pump_wake.clear()

@@ -68,7 +68,15 @@ inputs:
   straggler gauges rank 0's controller keeps blame rank 3 for every
   delayed collective.
 
-``--only a11`` / ``--only a13`` runs that section alone.  Prints three
+* the schedule gate (``a13b6``, ROADMAP A13b item 6; only with ``--only
+  a13b6``): every rank runs gpt-nano bf16 in ``bucket`` mode for two steps
+  with torch's flight recorder on and dumps its collective schedule
+  (``obs.collective_schedule``); rank 0 runs ``python -m
+  horovod_tpu_torch.analysis.schedule`` over every rank's dump, which must
+  exit 0.
+
+``--only a11`` / ``--only a13`` / ``--only a13b6`` runs that section
+alone.  Prints three
 JSON lines (every
 rank's checks, rank 0's training runs, the verdict) and exits nonzero if
 any check fails on any rank.  Times are the host clock around
@@ -84,19 +92,23 @@ import math
 import multiprocessing as mp
 import os
 import queue
+import shutil
 import socket
 import sys
+import tempfile
 import time
 import traceback
 
 __all__ = ["main", "a11_checks", "a11_failures", "a13_checks",
-           "a13_failures"]
+           "a13_failures", "a13b6_checks", "a13b6_failures"]
 
 # the a13 section's faults: one flipped bit in rank 2's bucket 1 in step 2,
 # and rank 3 late by 300 ms to its first A13_DELAYED collectives
 A13_FLIP = "grad_ready:rank=2:step=2:name=bucket1:action=flip_bits"
 A13_DELAYED = 4
 A13_DELAY = f"enqueue:rank=3:action=delay:300:count={A13_DELAYED}"
+
+A13B6_STEPS = 2
 
 LENGTH = 4099          # not a multiple of any local size
 TOL = 1e-5             # fp32 sums of a few terms in another order
@@ -921,9 +933,60 @@ def _a13_world_failures(per_rank: dict) -> list:
     return bad
 
 
+def a13b6_checks(hvd, torch, cpu: bool, out_dir: str) -> dict:
+    """Two ``bucket`` steps with the flight recorder on, this rank's schedule
+    dumped to ``out_dir``; rank 0 then runs the schedule CLI over every
+    rank's dump (the module docstring's ``a13b6``)."""
+    import subprocess
+
+    import torch.distributed as dist
+
+    from .obs.collective_schedule import dump_collective_schedule
+    from .train import build_gpt_step
+
+    step, (model, plan, toks), _ = build_gpt_step(
+        "nano", "bf16", 4, 128, overlap_mode="bucket", grad_bucket_mb=0.25,
+        device="cpu" if cpu else None)
+    for _ in range(A13B6_STEPS):
+        step(model, plan, toks)
+    if not cpu:
+        torch.cuda.synchronize()
+    entries = dump_collective_schedule(
+        os.path.join(out_dir, f"rank{hvd.rank()}.json"))
+    dist.barrier()  # every dump is on disk
+    out = {"entries": entries, "buckets": len(plan.layout.buckets)}
+    plan.close()
+    if hvd.rank() == 0:
+        pkg_parent = os.path.dirname(os.path.dirname(os.path.abspath(
+            __file__)))
+        cli = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.analysis.schedule",
+             "--expect-collectives", "1",
+             *(f"rank{r}={os.path.join(out_dir, f'rank{r}.json')}"
+               for r in range(hvd.size()))],
+            capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": pkg_parent + os.pathsep
+                 + os.environ.get("PYTHONPATH", "")})
+        out["cli_rc"] = cli.returncode
+        out["cli_out"] = (cli.stdout + cli.stderr)[-3000:]
+    return out
+
+
+def a13b6_failures(checks: dict) -> list:
+    bad = []
+    if checks["entries"] <= 0:
+        bad.append(f"a13b6: empty schedule {checks}")
+    if checks.get("cli_rc", 0) != 0:
+        bad.append(f"a13b6: the schedule CLI exited {checks['cli_rc']}:\n"
+                   f"{checks['cli_out']}")
+    return bad
+
+
 def _failures(checks: dict, train: dict) -> list:
     if "a13" in checks:  # --only a13
         return a13_failures(checks["a13"])
+    if "a13b6" in checks:  # --only a13b6
+        return a13b6_failures(checks["a13b6"])
     if "eager" not in checks:  # --only a11
         return a11_failures(checks["a11"])
     bad = a11_failures(checks["a11"])
@@ -985,7 +1048,7 @@ def _failures(checks: dict, train: dict) -> list:
     return bad
 
 
-def _worker(rank, world, local_size, port, cpu, out, only):
+def _worker(rank, world, local_size, port, cpu, out, only, out_dir):
     os.environ.update({
         "HVDTPU_RANK": str(rank), "HVDTPU_SIZE": str(world),
         "HVDTPU_LOCAL_RANK": str(rank % local_size),
@@ -994,6 +1057,11 @@ def _worker(rank, world, local_size, port, cpu, out, only):
         "HVDTPU_CROSS_SIZE": str(world // local_size),
         "HVDTPU_COORDINATOR": f"127.0.0.1:{port}",
     })
+    if only == "a13b6":
+        from .obs.collective_schedule import recorder_env
+
+        # before init: the recorder must see the process groups created
+        os.environ.update(recorder_env())
     import torch
 
     import horovod_tpu_torch as hvd
@@ -1006,8 +1074,9 @@ def _worker(rank, world, local_size, port, cpu, out, only):
         device = "cpu" if cpu else f"cuda:{rank % torch.cuda.device_count()}"
         hvd.init(device=device)
         checks, train = {}, {}
-        if only == "a13":
-            checks["a13"] = a13_checks(hvd, torch, cpu)
+        if only in ("a13", "a13b6"):
+            checks[only] = a13_checks(hvd, torch, cpu) if only == "a13" \
+                else a13b6_checks(hvd, torch, cpu, out_dir)
             out.put((rank, True, {"checks": checks, "train": train,
                                   "failures": _failures(checks, train)}))
             return
@@ -1038,9 +1107,10 @@ def main(argv=None) -> int:
                    help="a gloo world on the CPU (a rehearsal of the "
                    "paths; its times are no device's)")
     p.add_argument("--timeout", type=float, default=900.0)
-    p.add_argument("--only", choices=["a11", "a13"], default=None,
+    p.add_argument("--only", choices=["a11", "a13", "a13b6"], default=None,
                    help="run one section alone (a11: the parallel "
-                   "schedules; a13: the observability planes)")
+                   "schedules; a13: the observability planes; a13b6: the "
+                   "schedule gate)")
     args = p.parse_args(argv)
     import torch
 
@@ -1060,9 +1130,11 @@ def main(argv=None) -> int:
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
+    out_dir = tempfile.mkdtemp(prefix="hvdtpu_a13b6_") \
+        if args.only == "a13b6" else None
     procs = [ctx.Process(target=_worker, args=(r, world, args.local_size,
                                                 port, args.cpu, out,
-                                                args.only))
+                                                args.only, out_dir))
              for r in range(world)]
     for proc in procs:
         proc.start()
@@ -1081,6 +1153,8 @@ def main(argv=None) -> int:
             if proc.is_alive():
                 proc.kill()
                 proc.join(timeout=10)
+        if out_dir is not None:
+            shutil.rmtree(out_dir, ignore_errors=True)
     if errors:
         print("\n".join(errors), file=sys.stderr)
         return 1

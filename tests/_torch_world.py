@@ -1442,3 +1442,34 @@ def native_np8_worker():
                               name=f"big{i}")
     return {"ok": bool((out == 36.0).all()),
             "elapsed": time.monotonic() - t0}
+
+
+def schedule_worker(out_dir, steps, extra_on_rank):
+    """gpt-nano fp32 in ``bucket`` mode for ``steps`` steps with torch's
+    flight recorder on (the parent sets its environment before the world
+    starts); dumps this rank's schedule to ``out_dir/rank<r>.json`` and
+    returns the plan's bucket count and the entries written.  On rank
+    ``extra_on_rank`` one extra ``all_reduce`` runs first, on a group of
+    that rank alone: the rank-guarded collective of HVD001, made to
+    complete so that its schedule can be compared."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.obs.collective_schedule import (
+        dump_collective_schedule)
+    from horovod_tpu_torch.train import build_gpt_step
+
+    r = hvd.rank()
+    alone = dist.new_group([extra_on_rank]) if extra_on_rank is not None \
+        else None
+    step, state, _ = build_gpt_step("nano", "fp32", 2, 16, device="cpu",
+                                    overlap_mode="bucket", grad_bucket_mb=0.25)
+    if r == extra_on_rank:
+        dist.all_reduce(torch.zeros(1), group=alone)
+    for _ in range(steps):
+        state = step(*state)[:2] + (state[2],)
+    n = dump_collective_schedule(os.path.join(out_dir, f"rank{r}.json"))
+    return len(state[1].layout.buckets), n

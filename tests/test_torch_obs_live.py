@@ -101,6 +101,10 @@ class _Clock:
 def test_aggregator_views_equal_the_reference(tmp_path, monkeypatch):
     # the perf-trend token reads benchmark records: none here, for both
     monkeypatch.setenv("HVDTPU_RECORD_DIR", str(tmp_path))
+    # the digest's front-door token reads each process-global registry:
+    # fresh ones, not what an earlier test of this worker left there
+    monkeypatch.setattr(registry, "_registry", registry.MetricsRegistry())
+    monkeypatch.setattr(jregistry, "_registry", jregistry.MetricsRegistry())
     clock = _Clock()
     monkeypatch.setattr(live, "time", clock)
     monkeypatch.setattr(jlive, "time", clock)
