@@ -72,6 +72,19 @@ through their launch helpers.  Phases, one JSON line each:
    bucket collectives issued on the host before the step's last
    ``flash_bwd_dkdv_tc`` launch, held at the buckets that hold no
    gradient produced after block 0's attention backward or more.
+   ``spmd``: the same 7 steps written against the reference's SPMD
+   surface (``spmd_step``): ``hvd.distribute(local_step)``, whose step
+   takes the loss and gradients from ``hvd.sync_gradients`` and passes
+   them through ``hvd.DistributedGradientTransform()`` into AdamW 1e-4:
+   losses bit for bit ``train``'s (else within ``OVERLAP_LOSS_RTOL``; which
+   held is printed), exact launches, and ``overlap``'s issue-order rule on
+   the buckets ``sync_gradients`` reduces (at least one before the step's
+   last dK/dV launch).  Its two examples of the reference's, each in its
+   own process (``SPMD_EXAMPLES``: ``synthetic_benchmark --model resnet50
+   --batch-size 64`` and ``bert_style --smoke``, each exiting 0), run
+   later, beside ``lint`` and ``elastic``, and the phase's line is printed
+   after them.  Printed: step ms, tokens/s/GPU, the examples' figures, the
+   card.
 7. ``rope_remat``: ``pos_embedding="rope"``, ``remat=True``,
    ``"bucket+zero1"``: ``flash_fwd_tc`` launched twice per layer and step
    (the recompute), the backward kernels once; losses within 1% of the
@@ -344,7 +357,7 @@ through their launch helpers.  Phases, one JSON line each:
 
 Then the ``kernels`` summary, one record per kernel and route shape (its
 launches from that route's run: ``train`` at ``bf16_main`` (with the
-``moe`` phase's and ``native`` (i)'s beside them),
+``moe`` phase's, ``native`` (i)'s and ``spmd``'s beside them),
 ``train_fp32`` at ``fp32_main``, ``train_nano`` at ``bf16_nano``; the
 scalar twins' from ``train_nano``, which must launch them 0 times), the
 card's name and power limit, and ``{"ok": true, ...}`` as the
@@ -1472,6 +1485,126 @@ def overlap(fa, off_losses):
          batch_per_gpu=GPT_STEP[2], seq=GPT_STEP[3], world=1,
          off_losses=off_losses, loss_rtol=OVERLAP_LOSS_RTOL, modes=out)
     return out
+
+
+# the reference's examples the spmd phase runs, each in its own process
+SPMD_EXAMPLES = (
+    ("synthetic_benchmark", "--model", "resnet50", "--batch-size", "64",
+     "--num-warmup-batches", "2", "--num-batches-per-iter", "2",
+     "--num-iters", "3"),
+    ("bert_style", "--smoke"),
+)
+SPMD_EXAMPLE_TIMEOUT = 300
+
+
+def spmd_step(model):
+    """The ``train`` phase's step written against the reference's SPMD
+    surface: ``hvd.distribute(local_step)``, where ``local_step`` takes
+    the loss and the gradients from ``sync_gradients`` (one reduce per
+    bucket inside the backward), passes them through
+    ``DistributedGradientTransform()`` and steps AdamW 1e-4."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.train import lm_loss_fn, make_adamw
+
+    params = dict(model.named_parameters())
+    opt = make_adamw(params.values())
+    tx = hvd.DistributedGradientTransform()
+    tx_state = tx.init(params)
+    loss_fn = lm_loss_fn(model)
+
+    def local_step(model, opt, toks):
+        loss, grads = hvd.sync_gradients(loss_fn, params, toks)
+        grads, _ = tx.update(grads, tx_state)
+        for name, p in params.items():
+            p.grad = grads[name]
+        opt.step()
+        return model, opt, hvd.allreduce(loss)
+
+    return hvd.distribute(local_step), opt
+
+
+def run_example(name: str, *args) -> dict:
+    """``python -m horovod_tpu_torch.examples.<name> *args`` in its own
+    process: its closing JSON line; fails unless it exits 0."""
+    cmd = [sys.executable, "-m", f"horovod_tpu_torch.examples.{name}",
+           *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=SPMD_EXAMPLE_TIMEOUT)
+    if out.returncode != 0:
+        raise AssertionError(f"example {name} exited {out.returncode}:\n"
+                             f"{out.stderr[-4000:]}")
+    record = json.loads(out.stdout.strip().splitlines()[-1])
+    record["seconds"] = time.perf_counter() - t0
+    return record
+
+
+def spmd(fa, off_losses) -> dict:
+    """gpt-small bf16 at full width through ``hvd.distribute`` +
+    ``sync_gradients`` + ``DistributedGradientTransform`` in front of
+    AdamW, from ``train``'s weights and tokens: the losses against
+    ``train``'s (bit for bit, else within the ``bucket`` mode's
+    ``OVERLAP_LOSS_RTOL``), the launches exact, and bucket reduces issued
+    before the step's last dK/dV launch (``overlap``'s rule).  Returns
+    the phase's record; ``main`` prints it with :func:`spmd_examples`'
+    results."""
+    import torch
+
+    from horovod_tpu_torch.optim import overlap as ov
+    from horovod_tpu_torch.runtime.autotune import resolve_grad_bucket_bytes
+    from horovod_tpu_torch.train import build_gpt_step
+
+    # train's model and tokens (the same seeds); its optimizer is dropped
+    _, built, _ = build_gpt_step(*GPT_STEP)
+    model, toks = built[0], built[2]
+    del built
+    step, opt = spmd_step(model)
+    names = [n for n, _ in model.named_parameters()]
+    layout = ov.build_layout(list(model.parameters()),
+                             resolve_grad_bucket_bytes(None))
+    late = {i for i, n in enumerate(names) if n.startswith(LATE_PARAMS)}
+    expected = sum(1 for b in layout.buckets
+                   if not late & set(b.leaf_indices))
+    seen = []
+    ov.on_sync_issue = lambda index: seen.append(
+        (index, fa.LAUNCHES["flash_bwd_dkdv_tc"]))
+    try:
+        state, run = drive(fa, step, (model, opt, toks))
+    finally:
+        ov.on_sync_issue = None
+    early = early_issues(seen, len(layout.buckets), model.cfg.num_layers)
+    bitwise = run["losses"] == off_losses
+    rel = max_rel(run["losses"], off_losses)
+    del state, step, opt, model
+    release()
+    torch.cuda.synchronize()
+    if not bitwise and rel > OVERLAP_LOSS_RTOL:
+        raise AssertionError(
+            f"spmd losses {run['losses']} differ from off's {off_losses} "
+            f"by {rel:.2e} > {OVERLAP_LOSS_RTOL}")
+    if min(early) < max(expected, 1):
+        raise AssertionError(
+            f"spmd: {early} bucket reduces issued before the last dK/dV "
+            f"launch per step, fewer than the {max(expected, 1)} buckets "
+            "complete by then")
+    return dict(model="gpt-small", dtype="bf16", card=card_line(),
+                batch_per_gpu=GPT_STEP[2], seq=GPT_STEP[3], world=1,
+                off_losses=off_losses, bitwise_equal_to_off=bitwise,
+                max_rel_loss_diff_vs_off=rel,
+                held_to="bitwise" if bitwise
+                else f"rtol {OVERLAP_LOSS_RTOL}",
+                buckets=len(layout.buckets),
+                issued_before_last_dkdv=min(early),
+                issued_before_last_dkdv_per_step=early,
+                expected_before_last_dkdv=expected, **run)
+
+
+def spmd_examples() -> dict:
+    """The ``spmd`` phase's examples (``SPMD_EXAMPLES``), side by side, each
+    in its own process: ``run_example``'s record by name."""
+    with concurrent.futures.ThreadPoolExecutor(len(SPMD_EXAMPLES)) as pool:
+        return dict(zip((a[0] for a in SPMD_EXAMPLES),
+                        pool.map(lambda a: run_example(*a), SPMD_EXAMPLES)))
 
 
 def rope_remat(fa):
@@ -4972,6 +5105,7 @@ def main(argv=()) -> int:
     # each record's launches from the run of its shape's route
     runs = {"bf16_main": run, "fp32_main": fp32_run, "bf16_nano": nano_run}
     overlap_runs = overlap(fa, run["losses"])
+    spmd_run = spmd(fa, run["losses"])
     rope_remat(fa)
     moe_run = moe_phase(fa)
     release()
@@ -4986,12 +5120,14 @@ def main(argv=()) -> int:
     release()
     fp8(fa, run, resnet_off)
     release()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        # side by side: lint's runs are gates, elastic's times are taken
-        # contended already (its three runs go side by side)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        # side by side: lint's runs and spmd's examples are gates, elastic's
+        # times are taken contended already (its three runs go side by side)
         linted = pool.submit(lint_phase)
+        examples = pool.submit(spmd_examples)
         elastic_phase(run["step_ms"])
         linted.result()
+        emit("spmd", examples=examples.result(), **spmd_run)
     obs_phase(run["step_ms"])
     serve_check()
     serve_run = serve(fa)
@@ -5014,7 +5150,8 @@ def main(argv=()) -> int:
          "replaces": SOURCES[n][1], "shape": at,
          "launches": runs[at]["launches"][n],
          **({"moe_launches": moe_run["launches"][n],
-             "native_launches": native_run["world1"]["launches"][n]}
+             "native_launches": native_run["world1"]["launches"][n],
+             "spmd_launches": spmd_run["launches"][n]}
             if at == "bf16_main" else {}),
          **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}

@@ -39,11 +39,17 @@ the weight hot-swap), the function-shipping ``run.run(fn, np=...)`` and
 flight recorder and post-mortem, tracing, live telemetry, the memory
 plane, and the training-health and divergence planes) with the step
 anatomy and the bench's campaigns; the ``Estimator`` / ``Model``
-frontend; and the TensorFlow, Keras and MXNet frontends (``interop``).
+frontend; and the TensorFlow, Keras and MXNet frontends (``interop``);
+and the reference's SPMD training surface on process groups: ``mesh`` (a
+``DeviceMesh`` over the port's groups), ``distribute`` (each rank steps on
+its block of the batch), ``DistributedGradientTransform`` and
+``sync_gradients`` (the gradients reduced inside the backward, bucket by
+bucket), with the reference's examples as ``horovod_tpu_torch.examples``.
 
 The names of the reference's top level that the port does not carry yet
-are in :data:`NOT_PORTED`, each with its ROADMAP item: reading one raises
-:class:`NotPortedError` naming it.
+would be in :data:`NOT_PORTED`, each with its ROADMAP item: reading one
+raises :class:`NotPortedError` naming it.  It is empty: every name is
+ported.
 """
 
 from . import callbacks
@@ -67,6 +73,7 @@ from .basics import (
     is_initialized,
     local_rank,
     local_size,
+    mesh,
     mpi_built,
     mpi_enabled,
     mpi_threads_supported,
@@ -123,11 +130,14 @@ from .ops.eager import (
 from .ops.sparse import IndexedSlices, allreduce_sparse
 from .ops.sparse import to_dense as sparse_to_dense
 from .optim import (
+    DistributedGradientTransform,
     DistributedOptimizer,
     broadcast_object,
     broadcast_optimizer_state,
     broadcast_parameters,
+    distribute,
     overlap,
+    sync_gradients,
 )
 from .optim.overlap import OverlapPlan
 from .parallel.sync_batch_norm import SyncBatchNorm
@@ -158,20 +168,14 @@ __all__ = [
     "overlap", "SyncBatchNorm", "NOT_PORTED", "NotPortedError",
     "Store", "LocalStore", "save_checkpoint", "save_checkpoint_async",
     "restore_checkpoint", "latest_checkpoint_step", "callbacks", "obs",
-    "Estimator", "Model",
+    "Estimator", "Model", "mesh", "distribute",
+    "DistributedGradientTransform", "sync_gradients",
 ]
 
 
 # Names of the reference's top level (horovod_tpu/__init__.py) still to
-# port: name -> (ROADMAP item, what it is).  Keep in step with ROADMAP's
-# table of the same names.
-NOT_PORTED = {
-    **{name: ("A14", "a JAX SPMD object: the port runs one process per GPU "
-              "and reduces through DistributedOptimizer / OverlapPlan over "
-              "process groups (basics.group_of_axis)")
-       for name in ("mesh", "distribute", "DistributedGradientTransform",
-                    "sync_gradients")},
-}
+# port: name -> (ROADMAP item, what it is).  Keep in step with ROADMAP.
+NOT_PORTED: dict = {}
 
 
 def __getattr__(name):

@@ -33,6 +33,7 @@ from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -63,6 +64,8 @@ __all__ = [
     "cross_group",
     "group_of_axis",
     "init_axes",
+    "slice_grid",
+    "mesh",
     "xla_collectives_built",
     "native_engine_built",
     "mpi_built",
@@ -150,6 +153,9 @@ _state_lock = threading.Lock()
 _topology: Optional[Topology] = None
 # the named axes of init_axes: name -> this rank's process group
 _axes: dict = {}
+# mesh(): shape -> DeviceMesh, and the groups of mesh("slice")'s axes
+_mesh_cache: dict = {}
+_slice_axes: dict = {}
 
 
 def _world_from_env(environ) -> _World:
@@ -396,6 +402,8 @@ def shutdown() -> None:
             dist.destroy_process_group()
         _topology = None
         _axes.clear()
+        _mesh_cache.clear()
+        _slice_axes.clear()
 
 
 def is_initialized() -> bool:
@@ -573,12 +581,127 @@ def group_of_axis(axis):
     if axis == DP_AXIS:  # the default group, however it was formed
         return dist.group.WORLD
     global_topology()
+    if axis == SLICE_AXIS:
+        if axis not in _slice_axes:
+            raise ValueError(f"no {SLICE_AXIS!r} group: build mesh('slice') "
+                             f"first")
+        return _slice_axes[axis]
     if axis not in _axes:
         raise ValueError(
             f"unknown axis {axis!r}; the named axes are {list(_axes)} "
             f"(init_axes), and {DP_AXIS!r}, {LOCAL_AXIS!r}, "
             f"{CROSS_AXIS!r}")
     return _axes[axis]
+
+
+def slice_grid(ranks, num_slices: int, hosts: int) -> np.ndarray:
+    """Reshape a flat rank list into the 3-level (slice, host, rank) view:
+    contiguous blocks per slice, contiguous per host within it.  ``hosts``
+    is the number of hosts WITHIN one slice (1 when the host level
+    degenerates, e.g. a one-host world forced into slices).  The
+    reference's pure function (horovod_tpu/basics.py:569-588)."""
+    ranks = np.asarray(ranks, dtype=object)
+    total = ranks.size
+    if num_slices < 1 or total % num_slices:
+        raise ValueError(
+            f"cannot partition {total} devices into {num_slices} slices")
+    per_slice = total // num_slices
+    if hosts < 1 or per_slice % hosts:
+        raise ValueError(
+            f"cannot split a {per_slice}-device slice over {hosts} hosts")
+    return ranks.reshape(num_slices, hosts, per_slice // hosts)
+
+
+def mesh(shape: str = "flat"):
+    """The named mesh of the world's ranks (reference ``hvd.mesh``), a
+    ``torch.distributed.device_mesh.DeviceMesh`` built once per shape
+    (cached until :func:`shutdown`):
+
+    * ``flat``: one dimension, ``DP_AXIS``, over every rank;
+    * ``hierarchical``: ``(CROSS_AXIS, LOCAL_AXIS)``, hosts x ranks per host;
+    * ``slice``: ``(SLICE_AXIS, CROSS_AXIS, LOCAL_AXIS)``, laid out by
+      :func:`slice_grid` (needs a forced slice partition,
+      ``HVDTPU_NUM_SLICES`` / ``HVDTPU_SLICE_SIZE``).
+
+    Ranks sit where the reference puts its devices.  A dimension's group is
+    the port's own group of that axis, the one :func:`group_of_axis`
+    returns (``DeviceMesh.from_group``: no second communicator).  The slice
+    mesh's ``SLICE_AXIS`` groups are made here, on every rank in one order,
+    and :func:`group_of_axis` resolves them from then on; its
+    ``CROSS_AXIS`` dimension is the hosts of one slice, which is the
+    two-level cross group only when the job is one slice, so where the two
+    differ that dimension gets a group of its own
+    (``mesh("slice").get_group(CROSS_AXIS)``).  Every rank calls it with the
+    same shape."""
+    from torch.distributed.device_mesh import DeviceMesh  # noqa: PLC0415
+
+    topo = global_topology()
+    if shape in _mesh_cache:
+        return _mesh_cache[shape]
+    ranks = np.arange(topo.process_count)
+    if shape == "flat":
+        grid, names = ranks, (DP_AXIS,)
+        groups = [group_of_axis(DP_AXIS)]
+    elif shape == "hierarchical":
+        hosts = topo.cross_size if topo.process_count > 1 else 1
+        if len(ranks) % max(hosts, 1):
+            raise ValueError(
+                f"cannot build hierarchical mesh: {len(ranks)} devices over "
+                f"{hosts} hosts is uneven")
+        grid = ranks.reshape(hosts, len(ranks) // max(hosts, 1))
+        names = (CROSS_AXIS, LOCAL_AXIS)
+        groups = [group_of_axis(CROSS_AXIS), group_of_axis(LOCAL_AXIS)]
+    elif shape == "slice":
+        if topo.num_slices < 2:
+            raise ValueError(
+                "mesh('slice') needs a multi-slice topology; force one "
+                "with HVDTPU_NUM_SLICES / HVDTPU_SLICE_SIZE on dev worlds")
+        n = topo.num_slices
+        hosts = (topo.cross_size // n
+                 if topo.cross_size > 1 and topo.cross_size % n == 0 else 1)
+        grid = slice_grid(ranks, n, hosts).astype(np.int64)
+        names = (SLICE_AXIS, CROSS_AXIS, LOCAL_AXIS)
+        groups = _slice_groups(grid, topo)
+    else:
+        raise ValueError(f"unknown mesh shape {shape!r}")
+    device_type = topo.device.type
+    m = DeviceMesh.from_group(groups if len(groups) > 1 else groups[0],
+                              device_type, mesh=torch.as_tensor(grid),
+                              mesh_dim_names=names)
+    _mesh_cache[shape] = m
+    return m
+
+
+def _slice_groups(grid: np.ndarray, topo: Topology) -> list:
+    """This rank's group along each dimension of the slice mesh's
+    ``grid``: the two-level local / cross group where a line is exactly
+    the ranks of one, else a group made here.  Whether a line is reused is
+    decided from the topology alone, so every rank makes the same groups in
+    one order, as ``new_group`` requires."""
+    me, local_n, cross_n = (topo.process_rank, topo.local_size,
+                            topo.cross_size)
+    two_level = {}
+    if topo.local_group is not None:
+        for c in range(cross_n):
+            two_level[tuple(c * local_n + l for l in range(local_n))] = \
+                topo.local_group
+        for l in range(local_n):
+            two_level[tuple(c * local_n + l for c in range(cross_n))] = \
+                topo.cross_group
+    mine = []
+    for d in range(grid.ndim):
+        lines = np.moveaxis(grid, d, -1).reshape(-1, grid.shape[d])
+        own = None
+        for line in lines.tolist():
+            group = two_level.get(tuple(line))
+            if group is None:
+                group = dist.new_group(line)
+            if me in line:
+                own = group
+        mine.append(own)
+    with _state_lock:
+        _slice_axes[SLICE_AXIS] = mine[0]
+    return mine
 
 
 # -- feature probes (the reference's horovod_{mpi,gloo,nccl,...}_built,

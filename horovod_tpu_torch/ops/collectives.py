@@ -62,7 +62,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from ..basics import rank as _rank, size as _size
+from ..basics import DP_AXIS, rank as _rank, size as _size
 from ..utils import env as envmod
 
 __all__ = [
@@ -88,6 +88,8 @@ __all__ = [
     "pmean",
     "pvary",
     "pmax",
+    "axis_rank",
+    "axis_size",
 ]
 
 
@@ -210,9 +212,11 @@ def allreduce_(tensor: torch.Tensor, op: ReduceOp = Average,
     return tensor
 
 
-def _allreduce(tensor, op, prescale_factor, postscale_factor, fresh):
-    """:func:`allreduce`; ``fresh`` says ``tensor`` is a contiguous buffer
-    the caller built for this reduce, which may be reduced in place."""
+def _allreduce(tensor, op, prescale_factor, postscale_factor, fresh,
+               group=None):
+    """:func:`allreduce` (over ``group``, the world by default); ``fresh``
+    says ``tensor`` is a contiguous buffer the caller built for this
+    reduce, which may be reduced in place."""
     if op not in (Average, Sum, Min, Max, Adasum):
         raise ValueError(f"unsupported reduce op {op!r}")
     if prescale_factor != 1.0:
@@ -220,11 +224,13 @@ def _allreduce(tensor, op, prescale_factor, postscale_factor, fresh):
     if op == Adasum:
         from .adasum import adasum_allreduce  # noqa: PLC0415
 
-        y = adasum_allreduce(tensor)
+        y = adasum_allreduce(tensor, group=group)
     elif op in (Min, Max):
+        if group is not None:
+            raise ValueError("Min/Max reduce over the world only")
         y = _AllreduceExtreme.apply(tensor, op)
     else:
-        y = _AllreduceSum.apply(tensor, op == Average, fresh)
+        y = _AllreduceSum.apply(tensor, op == Average, fresh, group)
     return y * postscale_factor if postscale_factor != 1.0 else y
 
 
@@ -235,8 +241,10 @@ def grouped_allreduce(
     prescale_factor: float = 1.0,
     postscale_factor: float = 1.0,
     fusion_threshold_bytes: Optional[int] = None,
+    group=None,
 ) -> list:
-    """Fused allreduce of a list of tensors through flat buffers.
+    """Fused allreduce of a list of tensors through flat buffers, over
+    ``group`` (the world by default).
 
     Like the reference's tensor fusion, tensors are fused only with others
     of their dtype, into bins of at most ``fusion_threshold_bytes``
@@ -261,16 +269,17 @@ def grouped_allreduce(
     def reduce_bin(idxs):
         if len(idxs) == 1:
             out[idxs[0]] = _allreduce(tensors[idxs[0]], op, *scales,
-                                      fresh=False)
+                                      fresh=False, group=group)
             return
         flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
-        reduced = _allreduce(flat, op, *scales, fresh=True)
+        reduced = _allreduce(flat, op, *scales, fresh=True, group=group)
         parts = reduced.split([tensors[i].numel() for i in idxs])
         for i, part in zip(idxs, parts):
             out[i] = part.view(tensors[i].shape)
 
     if op == Adasum:
-        return [_allreduce(t, op, *scales, fresh=False) for t in tensors]
+        return [_allreduce(t, op, *scales, fresh=False, group=group)
+                for t in tensors]
     for dtype, idxs in by_dtype.items():
         itemsize = torch.empty((), dtype=dtype).element_size()
         bin_idxs: list = []
@@ -500,6 +509,18 @@ def _axis(axis):
 
     group = basics.group_of_axis(axis)
     return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def axis_rank(axis_name: str = DP_AXIS) -> int:
+    """This rank's index along ``axis_name``: its rank in the axis's
+    process group (reference ``lax.axis_index``)."""
+    return _axis(axis_name)[2]
+
+
+def axis_size(axis_name: str = DP_AXIS) -> int:
+    """The width of ``axis_name``: its process group's size (reference
+    ``lax.axis_size``)."""
+    return _axis(axis_name)[1]
 
 
 def _shift(x: torch.Tensor, group, n: int, me: int,

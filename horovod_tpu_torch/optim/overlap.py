@@ -22,7 +22,10 @@ module brings the overlap back the way PyTorch DDP does it:
   the bucket's reduce-scatter into the shard's gradient; ``step()``
   updates the shards and all-gathers every bucket back into its buffer;
 * mode ``"off"`` is :class:`~horovod_tpu_torch.optim.DistributedOptimizer`
-  itself.
+  itself;
+* :func:`sync_gradients` is the reference's bucketed ``value_and_grad``: a
+  ``bucket`` plan over detached copies of the parameters, whose hooks
+  issue each bucket's reduce inside the backward, and no optimizer.
 
 The modes compute the same update: a sum is elementwise, so regrouping the
 gradients into buckets regroups independent reductions, and a
@@ -76,9 +79,10 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+import torch.utils._pytree as pytree
 from torch import nn
 
-from ..basics import global_topology
+from ..basics import DP_AXIS, global_topology, group_of_axis
 from ..parallel.hierarchical import (
     _resolve_compressor,
     hierarchical_all_gather,
@@ -101,6 +105,7 @@ __all__ = [
     "BucketLayout",
     "build_layout",
     "OverlapPlan",
+    "sync_gradients",
 ]
 
 MODES = ("off", "bucket", "bucket+zero1")
@@ -271,8 +276,12 @@ class OverlapPlan:
     copied into its bucket by the hook.  One backward per ``step()``.
     ``on_issue``, when set, is called on the host with each bucket's index
     right after its collective is issued (measurement only).
-    ``hierarchical_axes`` / ``dcn_compression``: the two-level schedule
-    (module docstring).
+    ``axis_name`` names the ranks the gradients are reduced over (the
+    world by default).  ``hierarchical_axes`` / ``dcn_compression``: the
+    two-level schedule (module docstring).  ``layout``: a prebuilt
+    :func:`build_layout` of ``params`` in place of one from ``bucket_mb``.
+    ``make_optimizer=None`` (mode ``bucket`` only) builds no optimizer:
+    :meth:`reduce` then ends the step.
     """
 
     def __init__(
@@ -282,15 +291,19 @@ class OverlapPlan:
         *,
         mode: str = "bucket",
         op: ReduceOp = Average,
+        axis_name: str = DP_AXIS,
         bucket_mb: Optional[float] = None,
         hierarchical_axes=None,
         dcn_compression=None,
         health: bool = False,
+        layout: Optional["BucketLayout"] = None,
     ):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         if op not in (Average, Sum):
             raise ValueError(f"OverlapPlan supports Average/Sum, got {op!r}")
+        if make_optimizer is None and mode != "bucket":
+            raise ValueError(f"mode {mode!r} needs make_optimizer")
         if hierarchical_axes is not None and len(hierarchical_axes) != 2:
             raise ValueError(
                 "hierarchical_axes must be (local_axis, cross_axis), got "
@@ -306,13 +319,18 @@ class OverlapPlan:
         _resolve_compressor(dcn_compression)  # an unknown name fails here
         self.params: List[nn.Parameter] = list(params)
         topo = global_topology()
-        self.world, self.rank = topo.process_count, topo.process_rank
+        group = group_of_axis(axis_name)
+        # the reduce's process group (None: the default one)
+        self.group = None if group is dist.group.WORLD else group
+        self.world, self.rank = dist.get_world_size(group), topo.process_rank
         # the shard of every bucket this rank owns under ZeRO-1
-        self.shard_index = self.rank if self.hierarchical_axes is None else \
-            hierarchical_shard_index(topo.local_rank, topo.cross_rank,
-                                     topo.cross_size)
+        self.shard_index = (dist.get_rank(group)
+                            if self.hierarchical_axes is None else
+                            hierarchical_shard_index(topo.local_rank,
+                                                     topo.cross_rank,
+                                                     topo.cross_size))
         zero1 = mode == "bucket+zero1"
-        self.layout = build_layout(
+        self.layout = layout if layout is not None else build_layout(
             self.params, resolve_grad_bucket_bytes(bucket_mb),
             shard_ways=self.world if zero1 else 1)
         self.on_issue: Optional[Callable[[int], None]] = None
@@ -323,7 +341,7 @@ class OverlapPlan:
             from . import DistributedOptimizer  # noqa: PLC0415
 
             self.optimizer = DistributedOptimizer(
-                make_optimizer(self.params), op=op,
+                make_optimizer(self.params), op=op, axis_name=axis_name,
                 hierarchical_axes=self.hierarchical_axes,
                 dcn_compression=dcn_compression)
             if self.health:
@@ -368,7 +386,9 @@ class OverlapPlan:
         cuda = next(iter(devices)).type == "cuda"
         self._side = (torch.cuda.Stream() if cuda and self.hierarchical_axes
                       else None)
-        self.optimizer = make_optimizer(self.shards if zero1 else self.params)
+        self.optimizer = (None if make_optimizer is None else
+                          make_optimizer(self.shards if zero1 else
+                                         self.params))
 
     def _annotate_layout(self) -> None:
         """The bucket layout on the trace plane (``HVDTPU_TRACE``): one
@@ -450,9 +470,9 @@ class OverlapPlan:
             work = self._issue_two_level(grad, out)
         elif zero1:
             work = _reduce_scatter_single(self.shards[index].grad, grad,
-                                          async_op=True)
+                                          group=self.group, async_op=True)
         else:
-            work = dist.all_reduce(grad, async_op=True)
+            work = dist.all_reduce(grad, group=self.group, async_op=True)
         self._work[index] = work
         if self.on_issue is not None:
             self.on_issue(index)
@@ -487,7 +507,7 @@ class OverlapPlan:
     def _gather_shard(self, shard: torch.Tensor, out: torch.Tensor) -> None:
         """Every rank's shard of a bucket, in shard order, into ``out``."""
         if self.hierarchical_axes is None:
-            _all_gather_single(out, shard.contiguous())
+            _all_gather_single(out, shard.contiguous(), group=self.group)
             return
         local_ax, cross_ax = self.hierarchical_axes
         out.copy_(hierarchical_all_gather(shard.detach(), local_axis=local_ax,
@@ -508,21 +528,7 @@ class OverlapPlan:
             out = self.optimizer.step(closure)
             self._leaf_bundle(out if loss is None else loss)
             return out
-        # buckets a parameter without a gradient kept from firing
-        for index, work in enumerate(self._work):
-            if work is None:
-                self._issue(index)
-        # what each bucket's collective wrote: the shard's gradient under
-        # ZeRO-1, the bucket's buffer otherwise
-        reduced = ([s.grad for s in self.shards]
-                   if self.mode == "bucket+zero1" else self._grads)
-        for index, work in enumerate(self._work):
-            work.wait()
-            if self.op == Average and self.world > 1:
-                reduced[index].div_(self.world)
-        self._work = [None] * len(self._work)
-        self._pending = [len(b.leaf_indices) for b in self.layout.buckets]
-        self._grad_ready_fault(reduced)
+        reduced = self.reduce()
         if self.health:
             stepped = self.shards if self.mode == "bucket+zero1" \
                 else self.params
@@ -534,11 +540,34 @@ class OverlapPlan:
             for flat, shard in zip(self._flat, self.shards):
                 self._gather_shard(shard, flat)
         elif self.mode == "bucket+zero1":
-            works = [_all_gather_single(flat, shard.detach(), async_op=True)
+            works = [_all_gather_single(flat, shard.detach(),
+                                        group=self.group, async_op=True)
                      for flat, shard in zip(self._flat, self.shards)]
             for work in works:
                 work.wait()
         return out
+
+    @torch.no_grad()
+    def reduce(self) -> List[torch.Tensor]:
+        """The backward's end (modes ``bucket`` / ``bucket+zero1``): issue
+        the buckets a parameter without a gradient kept from firing, wait
+        for every bucket's collective and average.  Returns what each
+        bucket's collective wrote: the shard's gradient under ZeRO-1, the
+        bucket's buffer otherwise (the parameters' ``.grad`` are views of
+        it).  :meth:`step` calls it before the optimizer steps."""
+        for index, work in enumerate(self._work):
+            if work is None:
+                self._issue(index)
+        reduced = ([s.grad for s in self.shards]
+                   if self.mode == "bucket+zero1" else self._grads)
+        for index, work in enumerate(self._work):
+            work.wait()
+            if self.op == Average and self.world > 1:
+                reduced[index].div_(self.world)
+        self._work = [None] * len(self._work)
+        self._pending = [len(b.leaf_indices) for b in self.layout.buckets]
+        self._grad_ready_fault(reduced)
+        return reduced
 
     # -------------------------------------------------------------- health
 
@@ -593,8 +622,8 @@ class OverlapPlan:
         sums = torch.cat([norms * norms,
                           nonfinite.to(torch.float32).reshape(1)])
         if self.mode == "bucket+zero1" and self.world > 1:
-            dist.all_reduce(sums)
-            dist.all_reduce(ratio, op=dist.ReduceOp.MAX)
+            dist.all_reduce(sums, group=self.group)
+            dist.all_reduce(ratio, op=dist.ReduceOp.MAX, group=self.group)
         self.bundle = self._assemble(loss, sums[:-1], sums[-1], ratio)
 
     def _update_ratio(self, stepped: List[torch.Tensor]) -> torch.Tensor:
@@ -687,6 +716,65 @@ class OverlapPlan:
             first = new_plan.shard_index * chunk
             out.append(flat[first:first + chunk].clone())
         return out
+
+
+# Measurement only: when set, called on the host with each bucket's index
+# as sync_gradients issues its reduce (OverlapPlan.on_issue of its plan).
+on_sync_issue: Optional[Callable[[int], None]] = None
+
+
+def sync_gradients(
+    loss_fn: Callable,
+    params,
+    *args,
+    op: ReduceOp = Average,
+    axis_name: str = DP_AXIS,
+    bucket_mb: Optional[float] = None,
+    layout: Optional[BucketLayout] = None,
+    has_aux: bool = False,
+    hierarchical_axes=None,
+    dcn_compression=None,
+):
+    """``value_and_grad(loss_fn)(params, *args)`` with the gradients
+    reduced across ``axis_name`` inside the backward (reference
+    ``hvd.sync_gradients``, horovod_tpu/optim/overlap.py:338-377).
+
+    ``params`` is a pytree (dicts, lists, tuples) of float tensors that
+    ``loss_fn(params, *args)`` computes its loss from (a module's through
+    ``torch.func.functional_call``).  Returns ``(loss, grads)``, or
+    ``((loss, aux), grads)`` with ``has_aux``: ``grads`` has the structure of
+    ``params`` and is already reduced, with one fused reduce per bucket of
+    ``build_layout(leaves, bucket_mb)`` (``--grad-bucket-mb``,
+    ``HVDTPU_GRAD_BUCKET_MB``, 16 MB) — or of a prebuilt ``layout`` —
+    issued from the bucket's last gradient hook while the rest of the
+    backward still runs.  It is a ``bucket`` :class:`OverlapPlan` over
+    detached copies of the leaves, whose ``.grad`` its hooks fill (a
+    post-accumulate hook fires under ``backward()``, not under
+    ``torch.autograd.grad``).  ``op`` is Average or Sum;
+    ``hierarchical_axes`` / ``dcn_compression`` run the two-level schedule.
+    """
+    if op not in (Average, Sum):
+        raise ValueError(f"sync_gradients supports Average/Sum, got {op!r}")
+    leaves, spec = pytree.tree_flatten(params)
+    work = [p.detach().requires_grad_() for p in leaves]
+    plan = OverlapPlan(work, None, mode="bucket", op=op, axis_name=axis_name,
+                       bucket_mb=bucket_mb, layout=layout,
+                       hierarchical_axes=hierarchical_axes,
+                       dcn_compression=dcn_compression)
+    plan.on_issue = on_sync_issue
+    try:
+        out = loss_fn(pytree.tree_unflatten(work, spec), *args)
+        loss = out[0] if has_aux else out
+        loss.backward()
+        plan.reduce()
+    finally:
+        plan.close()
+    grads = pytree.tree_unflatten([w.grad for w in work], spec)
+    if has_aux:
+        aux = pytree.tree_map(
+            lambda x: x.detach() if torch.is_tensor(x) else x, out[1])
+        return (loss.detach(), aux), grads
+    return loss.detach(), grads
 
 
 class _Done:

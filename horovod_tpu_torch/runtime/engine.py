@@ -207,6 +207,9 @@ class EagerEngine:
         self._controller = ControllerState(world_size=self.world)
         self._thread: Optional[threading.Thread] = None
         self._barrier_seq = 0
+        # results of the response being executed, resolved only after its
+        # "complete" event is on the flight recorder's ring (_release)
+        self._delivered: list = []
 
         # Response cache + steady-state fast path (reference
         # response_cache.cc / CacheCoordinator).
@@ -888,6 +891,7 @@ class EagerEngine:
             finally:
                 self._replay_flag_lane = None
         except BaseException:
+            self._delivered = []
             with self._lock:
                 for e in entries1:
                     if e is not None:
@@ -915,6 +919,7 @@ class EagerEngine:
             "replay", name=",".join(first.tensor_names),
             cycle=self.stats["cycles"], detail=first.response_type.name,
         )
+        self._release()
         done = len(first.tensor_names)
         self.stats["cached_responses"] += done
         self._m_completed.inc(done)
@@ -1079,21 +1084,31 @@ class EagerEngine:
             elif resp.response_type == ResponseType.BARRIER:
                 e = entries[0]
                 if e is not None:
-                    e.future.set_result(None)
+                    self._delivered.append((e.future, None))
             self.timeline.end(names, resp.response_type.name)
             obs_flightrec.record(
                 "complete", name=names,
                 cycle=self._controller.cycle_index,
                 detail=resp.response_type.name,
             )
+            self._release()
             done = len(resp.tensor_names)
             self._m_completed.inc(done)
             self._m_fusion_bytes.observe(_response_bytes(resp))
             obs_progress.tick(done)
         except Exception as exc:
+            self._release()
             for e in entries:
                 if e is not None and not e.future.done():
                     e.future.set_exception(exc)
+
+    def _release(self) -> None:
+        """Resolve the futures :meth:`_deliver` held.  A caller woken by
+        its result may go on to die at once (an injected abort, a crash):
+        its black box must already hold the collective's ``complete``."""
+        held, self._delivered = self._delivered, []
+        for fut, out in held:
+            fut.set_result(out)
 
     # A joined rank has no entry for a tensor its peers are reducing: it
     # participates with zeros of the negotiated shape (reference
@@ -1161,17 +1176,17 @@ class EagerEngine:
         return buf
 
     def _deliver(self, e: TensorTableEntry, out: torch.Tensor) -> None:
-        """Resolve ``e``'s future with a fresh copy of ``out`` on the
-        payload's device and in its dtype.  A CUDA result carries the event
-        recorded after its copy, which ``synchronize`` makes the caller's
-        stream wait on."""
+        """Hold a fresh copy of ``out`` on the payload's device and in its
+        dtype as ``e``'s result, which :meth:`_release` resolves.  A CUDA
+        result carries the event recorded after its copy, which
+        ``synchronize`` makes the caller's stream wait on."""
         out = out.to(device=e.tensor.device, dtype=e.tensor.dtype,
                      copy=True)
         if out.is_cuda:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(out.device))
             e.future._hvd_done = done
-        e.future.set_result(out)
+        self._delivered.append((e.future, out))
 
     def _scatter_results(self, entries, shapes, total) -> None:
         """Slice the reduced fused buffer back to per-entry futures

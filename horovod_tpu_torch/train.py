@@ -35,7 +35,7 @@ from .optim import DistributedOptimizer, broadcast_parameters
 from .optim.overlap import MODES, OverlapPlan
 from .ops.collectives import allreduce
 
-__all__ = ["build_gpt_step", "build_step", "conv_model", "lm_loss",
+__all__ = ["build_gpt_step", "build_step", "conv_model", "lm_loss", "lm_loss_fn",
            "make_adamw", "make_sgd", "CONV_MODELS"]
 
 # the compute dtype of each --dtype, and the activation storage dtype of
@@ -68,6 +68,20 @@ def lm_loss(model, toks: torch.Tensor) -> torch.Tensor:
     if losses:
         loss = loss + MOE_AUX_WEIGHT * torch.stack(losses).sum()
     return loss
+
+
+def lm_loss_fn(model):
+    """:func:`lm_loss` as a function of the parameters: ``loss_fn(params,
+    toks)``, ``params`` a dict of ``model``'s named parameters that the
+    forward runs on (``torch.func.functional_call``) — the form
+    ``sync_gradients`` differentiates."""
+    from torch.func import functional_call  # noqa: PLC0415
+
+    def loss_fn(params, toks):
+        return lm_loss(
+            lambda x, **kw: functional_call(model, params, (x,), kw), toks)
+
+    return loss_fn
 
 
 def make_adamw(params) -> torch.optim.AdamW:

@@ -75,8 +75,19 @@ inputs:
   horovod_tpu_torch.analysis.schedule`` over every rank's dump, which must
   exit 0.
 
-``--only a11`` / ``--only a13`` / ``--only a13b6`` runs that section
-alone.  Prints three
+* the SPMD surface (``a14``, ROADMAP A14; only with ``--only a14``):
+  ``mesh("hierarchical")``'s dimensions are the port's cross and local
+  groups (``group_of_axis``'s, not copies) over the hosts x ranks grid;
+  from the same weights and global batch, the gradients of one step
+  through ``hvd.distribute`` + ``sync_gradients`` (each rank on the block
+  ``P(DP_AXIS)`` gives it: rows ``rank x batch`` on) equal ``off``'s
+  (``DistributedOptimizer.synchronize``) within ``TOL``; then the GPT step
+  of the training runs written that way (``sync_gradients`` →
+  ``DistributedGradientTransform`` → AdamW, through ``distribute``) against
+  ``off``: losses within 1e-3, step times.
+
+``--only a11`` / ``--only a13`` / ``--only a13b6`` / ``--only a14`` runs
+that section alone.  Prints three
 JSON lines (every
 rank's checks, rank 0's training runs, the verdict) and exits nonzero if
 any check fails on any rank.  Times are the host clock around
@@ -100,7 +111,8 @@ import time
 import traceback
 
 __all__ = ["main", "a11_checks", "a11_failures", "a13_checks",
-           "a13_failures", "a13b6_checks", "a13b6_failures"]
+           "a13_failures", "a13b6_checks", "a13b6_failures", "a14_checks",
+           "a14_failures"]
 
 # the a13 section's faults: one flipped bit in rank 2's bucket 1 in step 2,
 # and rank 3 late by 300 ms to its first A13_DELAYED collectives
@@ -414,8 +426,7 @@ def _training(hvd, torch, cpu: bool) -> dict:
     from .optim.overlap import OverlapPlan
     from .train import build_gpt_step, make_adamw
 
-    step_args = (("nano", "fp32", 2, 32) if cpu
-                 else ("small", "bf16", 8, 1024))
+    step_args = _gpt_step_args(cpu)
     axes = (hvd.LOCAL_AXIS, hvd.CROSS_AXIS)
 
     def hook(m):
@@ -982,7 +993,126 @@ def a13b6_failures(checks: dict) -> list:
     return bad
 
 
+def _gpt_step_args(cpu: bool) -> tuple:
+    return ("nano", "fp32", 2, 32) if cpu else ("small", "bf16", 8, 1024)
+
+
+def a14_checks(hvd, torch, cpu: bool) -> dict:
+    """The module docstring's ``a14``: the hierarchical mesh's groups, one
+    step's gradients through ``distribute`` + ``sync_gradients`` against
+    ``off``'s, and the two training runs."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from . import basics
+    from .optim import P
+    from .train import build_gpt_step, lm_loss, lm_loss_fn, make_adamw
+
+    r, world = hvd.rank(), hvd.size()
+    local_n, cross_n = hvd.local_size(), hvd.cross_size()
+    m = hvd.mesh("hierarchical")
+    names = m.mesh_dim_names
+    out = {"mesh": {
+        "names": list(names), "shape": list(m.shape),
+        "grid": m.mesh.tolist(),
+        "ranks": [dist.get_process_group_ranks(m.get_group(a))
+                  for a in names],
+        "own": [m.get_group(a) is basics.group_of_axis(a) for a in names],
+        "want_grid": [[c * local_n + l for l in range(local_n)]
+                      for c in range(cross_n)],
+        "want_ranks": [
+            [c * local_n + hvd.local_rank() for c in range(cross_n)],
+            [hvd.cross_rank() * local_n + l for l in range(local_n)]]}}
+
+    args = _gpt_step_args(cpu)
+    device = "cpu" if cpu else None
+    sync = (lambda: None) if cpu else torch.cuda.synchronize
+    # build_gpt_step's global batch: every rank holds all of it, and
+    # distribute hands each its block
+    _, (model, opt, local), _ = build_gpt_step(*args, device=device)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, model.cfg.vocab_size, size=(args[2] * world, args[3] + 1))).to(
+            local.device)
+    opt.zero_grad()
+    lm_loss(model, local).backward()
+    opt.synchronize()
+    want = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    params = dict(model.named_parameters())
+    blocks = []
+
+    def grads_of(toks):
+        blocks.append(toks)
+        return hvd.sync_gradients(lm_loss_fn(model), params, toks)[1]
+
+    grads = hvd.distribute(grads_of, out_specs=P())(tokens)
+    out["grads_rel_err"] = max(_rel(grads[n], w) for n, w in want.items())
+    out["block_ok"] = bool(torch.equal(blocks[0], local)) and bool(
+        torch.equal(blocks[0], tokens[r * args[2]:(r + 1) * args[2]]))
+    del model, opt, params, grads, want, blocks
+
+    runs = {}
+    for name in ("off", "spmd"):
+        step, (model, opt, local), _ = build_gpt_step(*args, device=device)
+        toks = local
+        if name == "spmd":
+            params = dict(model.named_parameters())
+            opt = make_adamw(params.values())
+            tx = hvd.DistributedGradientTransform()
+            loss_fn = lm_loss_fn(model)
+
+            def local_step(model, opt, toks, params=params, tx=tx,
+                           loss_fn=loss_fn):
+                loss, g = hvd.sync_gradients(loss_fn, params, toks)
+                g, _ = tx.update(g, tx.init(params))
+                for n, p in params.items():
+                    p.grad = g[n]
+                opt.step()
+                return model, opt, hvd.allreduce(loss)
+
+            step, toks = hvd.distribute(local_step), tokens
+        losses = []
+        for k in range(WARMUP + STEPS):
+            if k == WARMUP:
+                sync()
+                t0 = time.perf_counter()
+            model, opt, loss = step(model, opt, toks)
+            losses.append(loss)
+        sync()
+        runs[name] = {"losses": [float(x) for x in losses],
+                      "step_ms": (time.perf_counter() - t0) / STEPS * 1e3}
+        del step, model, opt
+    off = runs["off"]["losses"]
+    runs["spmd"]["max_rel_loss_diff_vs_off"] = max(
+        abs(a - b) / abs(b) for a, b in zip(runs["spmd"]["losses"], off))
+    out["train"] = runs
+    out["model"] = "gpt-%s %s seq %d batch %d per rank" % (
+        args[0], args[1], args[3], args[2])
+    return out
+
+
+def a14_failures(checks: dict) -> list:
+    bad = []
+    m = checks["mesh"]
+    if m["grid"] != m["want_grid"] or m["ranks"] != m["want_ranks"] \
+            or m["own"] != [True, True]:
+        bad.append(f"a14: mesh('hierarchical') {m}")
+    if checks["grads_rel_err"] > TOL:
+        bad.append(f"a14: gradients off by {checks['grads_rel_err']:.2e}")
+    if not checks["block_ok"]:
+        bad.append("a14: a rank's block is not the one P(DP_AXIS) gives")
+    spmd = checks["train"]["spmd"]
+    if not all(math.isfinite(x) for x in spmd["losses"]
+               + checks["train"]["off"]["losses"]):
+        bad.append("a14: non-finite loss")
+    if spmd["max_rel_loss_diff_vs_off"] > LOSS_RTOL["mean"]:
+        bad.append(f"a14: losses off by "
+                   f"{spmd['max_rel_loss_diff_vs_off']:.2e}")
+    return bad
+
+
 def _failures(checks: dict, train: dict) -> list:
+    if "a14" in checks:  # --only a14
+        return a14_failures(checks["a14"])
     if "a13" in checks:  # --only a13
         return a13_failures(checks["a13"])
     if "a13b6" in checks:  # --only a13b6
@@ -1074,9 +1204,11 @@ def _worker(rank, world, local_size, port, cpu, out, only, out_dir):
         device = "cpu" if cpu else f"cuda:{rank % torch.cuda.device_count()}"
         hvd.init(device=device)
         checks, train = {}, {}
-        if only in ("a13", "a13b6"):
-            checks[only] = a13_checks(hvd, torch, cpu) if only == "a13" \
-                else a13b6_checks(hvd, torch, cpu, out_dir)
+        if only in ("a13", "a13b6", "a14"):
+            checks[only] = (
+                a13_checks(hvd, torch, cpu) if only == "a13" else
+                a14_checks(hvd, torch, cpu) if only == "a14" else
+                a13b6_checks(hvd, torch, cpu, out_dir))
             out.put((rank, True, {"checks": checks, "train": train,
                                   "failures": _failures(checks, train)}))
             return
@@ -1107,10 +1239,11 @@ def main(argv=None) -> int:
                    help="a gloo world on the CPU (a rehearsal of the "
                    "paths; its times are no device's)")
     p.add_argument("--timeout", type=float, default=900.0)
-    p.add_argument("--only", choices=["a11", "a13", "a13b6"], default=None,
+    p.add_argument("--only", choices=["a11", "a13", "a13b6", "a14"],
+                   default=None,
                    help="run one section alone (a11: the parallel "
                    "schedules; a13: the observability planes; a13b6: the "
-                   "schedule gate)")
+                   "schedule gate; a14: the SPMD surface)")
     args = p.parse_args(argv)
     import torch
 

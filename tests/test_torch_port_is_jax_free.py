@@ -25,6 +25,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "horovod_tpu_torch"
+# the reference's examples, ported as horovod_tpu_torch.examples.<name>
+EXAMPLES = ("adasum_small_model", "bert_style", "checkpoint_resume",
+            "cluster_run", "elastic_train", "estimator_train",
+            "keras_mnist", "long_context_zigzag", "mnist", "pipeline_train",
+            "synthetic_benchmark", "tf2_mnist", "torch_mnist")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu", "orbax",
              "ml_dtypes")
 # not on the card's machine, so never imported at a module's top level
@@ -103,7 +108,9 @@ def test_every_module_imports_without_jax():
                 "obs.divergence", "obs.anatomy", "bench.campaign",
                 "bench.__main__", "estimator", "serve.autoscale",
                 "interop.mxnet", "interop._host", "runtime.native",
-                "runtime.native_build") + tuple(
+                "runtime.native_build", "optim", "basics",
+                "ops.collectives", "examples", "examples._common") + tuple(
+                    f"examples.{name}" for name in EXAMPLES) + tuple(
                     m[len("horovod_tpu_torch."):] for m in TF_MODULES):
         assert f"horovod_tpu_torch.{mod}" in res["modules"], mod
     assert res["leaked"] == []

@@ -232,8 +232,18 @@ def test_no_port_error_names_a11():
 
 
 def test_not_ported_holds_only_a14():
-    """After A13b the table keeps only A14's names (the JAX package's SPMD
-    objects), and the estimator frontend is the port's own."""
-    assert {item for item, _ in hvd.NOT_PORTED.values()} == {"A14"}
+    """After A14 the table is empty: the reference's SPMD names (``mesh``,
+    ``distribute``, ``DistributedGradientTransform``, ``sync_gradients``)
+    resolve to the port's own, and the estimator frontend is the port's
+    own too."""
+    assert hvd.NOT_PORTED == {}
+    from horovod_tpu_torch import basics, optim
+    from horovod_tpu_torch.optim import overlap
+
+    assert hvd.mesh is basics.mesh
+    assert hvd.distribute is optim.distribute
+    assert hvd.DistributedGradientTransform is \
+        optim.DistributedGradientTransform
+    assert hvd.sync_gradients is overlap.sync_gradients
     for name in ("Estimator", "Model"):
         assert getattr(hvd, name).__module__ == "horovod_tpu_torch.estimator"
