@@ -55,15 +55,16 @@ through their launch helpers.  Phases, one JSON line each:
    4 heads, emb 128: head_dim 32), the same 7 steps: exactly 3 launches a
    step of ``NANO_PATH`` and nothing else, losses within ``LOSS_RTOL`` of
    the same steps with reference attention, tokens/s/GPU, one profiled
-   step (the device's busy share); then phase ``launcher`` (12 below),
-   whose bench of gpt-nano is this step's bench record.
+   step (the device's busy share); phase ``launcher`` (12 below) runs
+   the bench of gpt-nano that is this step's bench record.
    ``train_fp32``: ``build_gpt_step("small", "fp32", 8, 1024)``, TF32
    off, the same 7 steps: exactly 12 launches a step of the 3xTF32
    forward, dK/dV and dQ and nothing else, losses within
    ``FP32_LOSS_RTOL`` of the same steps with reference attention, step
    time, tokens/s/GPU, MFU at 67 TFLOP/s, peak memory, one profiled step
    (the flash kernels' share of device time).  ``bench``: ``python -m
-   horovod_tpu_torch.bench --model gpt-small --dtype fp32`` once.
+   horovod_tpu_torch.bench --model gpt-small --dtype fp32`` once (beside
+   ``obs``, see 17).
 6. ``overlap``: the same 7 steps from the same weights and tokens through
    the backward-overlap plane, ``overlap_mode="bucket"`` and
    ``"bucket+zero1"`` (16 MB buckets): losses against ``train``'s within
@@ -168,7 +169,13 @@ through their launch helpers.  Phases, one JSON line each:
    parameters equal across the ranks, exactly 12 launches a step of each
    of ``MAIN_PATH`` on each rank, 149 handles a step, gradients on the
    card.  Printed: each step's ms, fused responses, cycles and wire bytes
-   (``hvdtpu_perf_bytes``), per rank.
+   (``hvdtpu_perf_bytes``), per rank.  Then, in the same two-rank world,
+   the collective microbench's CUDA payload leg on the native engine
+   (``bench.collective.measure``: ``NATIVE_BENCH_ITERS`` allreduces of
+   each of ``NATIVE_BENCH_KB`` on ``cuda:0``, each a host round trip
+   around the TCP ring): every result on both ranks exactly 2 x the input;
+   printed: each rank's goodput and engine counters by size, and the
+   reference's goodput table (rank 0).
 11. ``fp8``: gpt-small ``--dtype fp8`` (e4m3 storage of the attention
    context, the branch deltas and the GELU output; 12 launches of each
    flash kernel a step) from ``train``'s weights and tokens, and ResNet-50
@@ -178,7 +185,7 @@ through their launch helpers.  Phases, one JSON line each:
    memory beside bf16's.  Then ``act_store`` on the card against the CPU
    on ``act_store_grid``, values and gradients, NaN where NaN.
 
-12. ``launcher`` (right after ``train_nano``, whose bench it runs):
+12. ``launcher`` (beside ``obs``, see 17; it runs ``train_nano``'s bench):
    the port's launcher, ``python -m horovod_tpu_torch.run``:
    ``--check-build`` (NCCL, gloo, the card and the built kernels must be
    reported), then ``-np 1 python -m horovod_tpu_torch.bench --model
@@ -298,8 +305,14 @@ through their launch helpers.  Phases, one JSON line each:
    leaf the flipped element lies in), and each rank's ring dump holds the
    divergence; with ``worker_exit:rank=1:step=3:action=abort`` and no
    respawn, where the launcher exits non-zero and ``postmortem.json``
-   blames rank 1 (the three launchers side by side).  Printed: step ms with and without the flags (host
-   clock around a device synchronize), the phase's wall time, the card.
+   blames rank 1 (the three launchers side by side, and beside (i)).
+   Printed: step ms with and without the flags (host clock around a
+   device synchronize, contended), the phase's wall time, the card.
+   Beside ``obs``, each in a thread of its own: ``launcher``, the
+   gpt-small fp32 ``bench`` (5), ``campaign`` and ``estimator`` (18): all
+   gates around processes that start on the card, so their step times
+   are taken contended; the serving phases after them time their traffic
+   and run alone.
    ``lint`` (side by side with ``elastic``, whose times are contended
    already): the port's hvdtpu-lint and its schedule gate.  (i) ``python -m horovod_tpu_torch.analysis --jobs 0`` over the
    port's surface (``horovod_tpu_torch/`` and this script) in a
@@ -317,6 +330,17 @@ through their launch helpers.  Phases, one JSON line each:
    dump with one bucket's entry dropped and 0 on two copies of it.
    Printed: the rule count, the findings by status and rule, the lint's
    seconds, each step's collectives, the phase's wall time, the card.
+   ``bench_supervisor`` (beside ``lint`` and ``elastic``): ``python -m
+   horovod_tpu_torch.bench --model gpt-small --warmup 100000
+   --total-budget-secs 0`` with ``HVDTPU_BENCH_RECORD_DIR`` and
+   ``HVDTPU_BENCH_SIDECAR`` in a temporary directory: the watchdog's
+   daemon thread, at its first tick, must give up while the main thread
+   works on the card: exit 86, no re-exec, a sidecar naming the phase
+   (``init``, ``build`` or ``warmup``: the budget does not cap
+   ``measure``, which the long warm-up keeps the run from reaching) with
+   ``outcome: gave_up``, one degraded ``BENCH_r01.json`` with that
+   ``failure_phase``, rc 86 and provenance ``gpu`` (or none, never the
+   CPU), and no file written into the checkout.
 
 18. ``anatomy`` (after ``serve_fleet``; runs nothing new): the
    ``anatomy`` block of every bench record above (gpt-nano bf16,
@@ -329,8 +353,12 @@ through their launch helpers.  Phases, one JSON line each:
    --campaign`` on gpt-small bf16 (``GPT_STEP``, full width and depth)
    over ``overlap`` in {off, bucket} at 16 MB buckets, two points, each a
    bench process on the card: both ``done``, each record with
-   ``attention == "kernels"``, ``MAIN_PATH``'s launches for its steps and
-   an ``anatomy`` block; then the same spec again, which runs no point
+   ``attention == "kernels"``, ``MAIN_PATH``'s launches for its steps, an
+   ``anatomy`` block and the regression sentinel's ``regression`` and
+   ``baseline_record`` (each point gets its budget as
+   ``--total-budget-secs`` and the journal's directory as its record
+   dir, which holds no degraded record after the clean campaign); then
+   the same spec again, which runs no point
    and leaves the journal (``spec_sha`` included) as it was.  Printed:
    each point's tokens/s/GPU beside this call's ``train`` and ``overlap``
    numbers.  ``estimator``: (i) the reference estimator test's MLP on its
@@ -354,6 +382,12 @@ through their launch helpers.  Phases, one JSON line each:
    autoscale section.  Printed: the time from the grow decision to the
    grown world's first step, and tokens/s, TTFT p50/p99 and TPOT p50
    before and after the grow.
+
+``processes``: the script is the subreaper of every process it starts
+(an orphan is re-parented to it, not to init), and at its end, whether
+the phases passed or not, it stops every process still below it (SIGTERM,
+then SIGKILL after 5 s) and reaps it.  Printed: those still running, with
+their command lines.
 
 Then the ``kernels`` summary, one record per kernel and route shape (its
 launches from that route's run: ``train`` at ``bf16_main`` (with the
@@ -472,6 +506,86 @@ def emit(phase: str, **fields) -> None:
                        **fields})
     with _EMIT:
         print(line, flush=True)
+
+
+def adopt_descendants() -> None:
+    """Make this process the subreaper of every process it starts: one
+    orphaned by its parent's exit (a bench that gave up with ``os._exit``,
+    a launcher killed at its timeout) is re-parented here rather than to
+    init, so :func:`stop_descendants` finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:  # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _descendants() -> dict:
+    """pid -> (state, command line) of every live or zombie process below
+    this one, read from /proc."""
+    import os
+
+    parent, info = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        parent[int(d)] = int(fields[1])
+        info[int(d)] = (fields[0], cmd.strip()[:200])
+    below, frontier = {}, [os.getpid()]
+    while frontier:
+        kids = [p for p, pp in parent.items() if pp in frontier]
+        below.update({p: info[p] for p in kids})
+        frontier = kids
+    return below
+
+
+def stop_descendants(grace: float = 5.0, failed: bool = False) -> list:
+    """Stop every process still running below this one: SIGTERM, then
+    SIGKILL after ``grace`` seconds, reaping each; the ones that were
+    running, as {pid, state, cmd}, on the ``processes`` line (on stderr
+    when the script ``failed``: it prints no result then)."""
+    import os
+    import signal
+
+    left = [{"pid": p, "state": s, "cmd": c}
+            for p, (s, c) in sorted(_descendants().items()) if s != "Z"]
+    deadline = time.monotonic() + grace
+    sig = signal.SIGTERM
+    while True:
+        live = [p for p, (s, _) in _descendants().items() if s != "Z"]
+        for p in live:
+            try:
+                os.kill(p, sig)
+            except ProcessLookupError:
+                pass
+        while True:  # reap this process's children, adopted ones included
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
+        if not live and not _descendants():
+            break
+        if time.monotonic() > deadline + 10:
+            raise RuntimeError(f"processes that outlive SIGKILL: "
+                               f"{_descendants()}")
+        if time.monotonic() > deadline:
+            sig = signal.SIGKILL
+        time.sleep(0.1)
+    if failed:
+        print(json.dumps({"phase": "processes", "left_running": left}),
+              file=sys.stderr, flush=True)
+    else:
+        emit("processes", left_running=left)
+    return left
 
 
 def card_line() -> str:
@@ -2268,6 +2382,9 @@ def eager(hvd, fa, train_run) -> dict:
 
 # the native engine's two-rank run (phase ``native`` ii): steps a rank
 NATIVE_WARMUP, NATIVE_STEPS = 1, 2
+# native (ii)'s microbench leg: payload sizes (KB) and timed allreduces
+NATIVE_BENCH_KB = (4, 1024, 16384)
+NATIVE_BENCH_ITERS = 10
 
 
 def hook_optimizer(model):
@@ -2382,7 +2499,40 @@ def native(fa, train_run, eager_run, built) -> dict:
                                  f"the ring: {res['wire_bytes']}")
     if ranks[0]["sha256"] != ranks[1]["sha256"]:
         raise AssertionError("native (ii): the ranks' parameters differ")
-    return {"world1": run, "world2": two}
+    micro = native_microbench(ranks)
+    return {"world1": run, "world2": two, "microbench": micro}
+
+
+def native_microbench(ranks) -> dict:
+    """native (ii)'s microbench leg, read from both ranks' results: each
+    rank's goodput and engine counters by size on an earlier line, then
+    the reference's goodput table (rank 0's); every result must have been
+    exactly world x input on both ranks."""
+    from horovod_tpu_torch.bench import collective
+
+    per_rank = [{"rank": r["rank"], "cells": [
+        {k: c[k] for k in ("bytes", "iters", "seconds", "goodput",
+                           "ops_per_sec", "exact", "device", "engine",
+                           "stats")}
+        for c in r["microbench"]]} for r in ranks]
+    card = card_line()
+    emit("native_microbench", world=2, engine="native",
+         sizes_kb=list(NATIVE_BENCH_KB), iters=NATIVE_BENCH_ITERS,
+         ranks=per_rank, card=card)
+    bad = [(r["rank"], c["bytes"]) for r in ranks for c in r["microbench"]
+           if not c["exact"] or c["world"] != 2]
+    if bad or any(len(r["microbench"]) != len(NATIVE_BENCH_KB)
+                  for r in ranks):
+        raise AssertionError(f"native (ii) microbench: results not 2 x the "
+                             f"input at (rank, bytes) {bad}")
+    goodput = {(kb, 2): c["goodput"]
+               for kb, c in zip(NATIVE_BENCH_KB, ranks[0]["microbench"])}
+    print(collective.goodput_table("native", NATIVE_BENCH_ITERS, [2],
+                                   NATIVE_BENCH_KB, goodput), flush=True)
+    print(f"(native (ii), payloads on cuda:0, world 2 on one card; {card})",
+          flush=True)
+    return {"goodput": {str(kb): g for (kb, _), g in goodput.items()},
+            "ranks": per_rank}
 
 
 def native_worker(prefix: str) -> int:
@@ -2400,6 +2550,7 @@ def native_worker(prefix: str) -> int:
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import _engine_registry
+    from horovod_tpu_torch.bench import collective
     from horovod_tpu_torch.models import gpt
     from horovod_tpu_torch.ops import flash_attention as fa
     from horovod_tpu_torch.train import lm_loss
@@ -2448,6 +2599,13 @@ def native_worker(prefix: str) -> int:
         h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy()
                  .tobytes())
     res["sha256"] = h.hexdigest()
+    del model, opt
+    torch.cuda.empty_cache()
+    # the collective microbench's CUDA payload leg on this world's engine
+    res["microbench"] = [
+        collective.measure(kb * 1024, NATIVE_BENCH_ITERS, dev,
+                           name=f"bench.{kb}")
+        for kb in NATIVE_BENCH_KB]
     with open(f"{prefix}.{topo.process_rank}.json", "w") as f:
         json.dump(res, f)
     hvd.shutdown()
@@ -4360,6 +4518,9 @@ def obs_phase(train_step_ms: float) -> dict:
                  "--live-stats-secs", "0.5", "--live-history-file", history,
                  "--health", "on", "--health-check-steps", "2",
                  "--divergence-action", "halt")
+        # the elastic trio (part ii) runs beside the two single-rank runs
+        side = concurrent.futures.ThreadPoolExecutor(1)
+        elastic = side.submit(obs_elastic_runs, root)
         runs = {}
         for name, extra in (("off", ()), ("on", flags)):
             res_path = os.path.join(root, f"{name}.json")
@@ -4417,8 +4578,9 @@ def obs_phase(train_step_ms: float) -> dict:
             raise AssertionError("no live history round")
         if os.path.exists(os.path.join(d["flightrec"], "postmortem.json")):
             raise AssertionError("a clean run wrote a post-mortem")
-        elastic_runs = obs_elastic_runs(root)
+        elastic_runs = elastic.result()
     finally:
+        side.shutdown(wait=True)
         shutil.rmtree(root, ignore_errors=True)
     import statistics
 
@@ -4627,7 +4789,10 @@ def campaign_phase(fa, train_run: dict, overlap_runs: dict) -> dict:
                                  f"\n{out.stderr[-4000:]}")
         first = {"wall_s": time.perf_counter() - t0,
                  "summary": json.loads(out.stdout.strip().splitlines()[-1]),
-                 "journal": campaign.load_journal(root)}
+                 "journal": campaign.load_journal(root),
+                 "stray_records": sorted(
+                     f for f in os.listdir(root)
+                     if f.startswith("BENCH_") or f.startswith("bench_"))}
         # the same spec again, through the driver's own entry in this
         # process: every point is done, so it must launch none
         log = []
@@ -4643,12 +4808,17 @@ def campaign_phase(fa, train_run: dict, overlap_runs: dict) -> dict:
     journal = first["journal"]
     want = {n: train_run["launches_per_step"][n] * (STEPS + WARMUP)
             for n in MAIN_PATH}
+    if first["stray_records"]:
+        raise AssertionError(f"the clean campaign left degraded records "
+                             f"{first['stray_records']}")
     points = {}
     for pid, entry in journal["points"].items():
         rec = entry.get("record") or {}
         ok = (entry["status"] == "done"
               and rec.get("attention") == ("kernels" if want else "plain")
-              and rec.get("flash_launches") == want and "anatomy" in rec)
+              and rec.get("flash_launches") == want and "anatomy" in rec
+              # the sentinel's verdict (None: the dir holds no trajectory)
+              and "regression" in rec and "baseline_record" in rec)
         if not ok:
             raise AssertionError(f"campaign point {pid}: {entry}")
         points[pid] = {"tokens_per_s_per_gpu": rec["value"],
@@ -4664,7 +4834,10 @@ def campaign_phase(fa, train_run: dict, overlap_runs: dict) -> dict:
                              f"or ran a point:\n{second['log']}")
     emit("campaign", card=card, spec=spec, points=points,
          first_wall_s=first["wall_s"], second_wall_s=second["wall_s"],
-         spec_sha=journal["spec_sha"], summary=first["summary"])
+         spec_sha=journal["spec_sha"], summary=first["summary"],
+         regression={pid: {k: (e.get("record") or {}).get(k)
+                           for k in ("regression", "baseline_record")}
+                     for pid, e in journal["points"].items()})
     same = {"off": train_run["tokens_per_s_per_gpu"],
             "bucket": overlap_runs["bucket"]["tokens_per_s_per_gpu"]}
     for pid, p in points.items():
@@ -4674,6 +4847,99 @@ def campaign_phase(fa, train_run: dict, overlap_runs: dict) -> dict:
               f"{'train' if mode == 'off' else 'overlap bucket'} phase: "
               f"{same[mode]:.1f}); {card}", flush=True)
     return points
+
+
+# phase bench_supervisor: a bench whose budget is spent before it starts
+# and whose warm-up outlasts the watchdog's first tick (15 s in), so the
+# tick finds a budgeted phase; and the longest it may take
+SUPERVISOR_ARGS = ("--model", "gpt-small", "--warmup", "100000",
+                   "--total-budget-secs", "0")
+SUPERVISOR_PHASES = ("init", "build", "warmup")
+SUPERVISOR_TIMEOUT = 180
+
+
+def _checkout_records(repo: str) -> dict:
+    """The checkout's record and sidecar files with their mtimes (the
+    phase writes none of them)."""
+    import glob
+    import os
+
+    return {p: os.stat(p).st_mtime_ns for p in
+            glob.glob(os.path.join(repo, "**", "BENCH_*.json"),
+                      recursive=True)
+            + glob.glob(os.path.join(repo, "**", "bench_last_failure.json"),
+                        recursive=True)}
+
+
+def bench_supervisor_phase() -> dict:
+    """Phase ``bench_supervisor``: ``python -m horovod_tpu_torch.bench``
+    with no budget (``SUPERVISOR_ARGS``) and its record dir and sidecar in
+    a temporary directory; the watchdog's daemon thread must give up at
+    its first tick (exit 86, no re-exec) while the main thread works on
+    the card, leaving a ``gave_up`` sidecar naming the phase and one
+    degraded record of it, and nothing in the checkout."""
+    import os
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch.bench import supervisor
+    from horovod_tpu_torch.ops import kernels
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    before = _checkout_records(repo)
+    os.makedirs(kernels.build_dir(), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="bench_supervisor_",
+                            dir=kernels.build_dir())
+    try:
+        sidecar = os.path.join(root, "sidecar.json")
+        env = dict(os.environ, HVDTPU_BENCH_RECORD_DIR=root,
+                   HVDTPU_BENCH_SIDECAR=sidecar)
+        env.pop("HVDTPU_RECORD_DIR", None)
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.bench",
+               *SUPERVISOR_ARGS]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             timeout=SUPERVISOR_TIMEOUT, cwd=repo)
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(root))
+        side = json.load(open(sidecar)) if os.path.exists(sidecar) else None
+        rec_path = os.path.join(root, "BENCH_r01.json")
+        record = (json.load(open(rec_path)) if os.path.exists(rec_path)
+                  else None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    after = _checkout_records(repo)
+    tick = supervisor.WATCHDOG_TICK
+    emit("bench_supervisor", command=" ".join(cmd[1:]), rc=out.returncode,
+         wall_s=wall, files=files, sidecar=side, record=record,
+         stderr_tail=out.stderr[-600:], card=card_line())
+    problems = []
+    if out.returncode != 86:
+        problems.append(f"exit {out.returncode}, not 86")
+    if "re-exec" in out.stderr:
+        problems.append("it re-execed")
+    if files != ["BENCH_r01.json", "sidecar.json"]:
+        problems.append(f"the record dir holds {files}")
+    if not side or side.get("outcome") != "gave_up" or side.get(
+            "phase") not in SUPERVISOR_PHASES \
+            or side.get("attempt") != 1 \
+            or not -2 * tick < side.get("budget_left_secs", 0) <= 0:
+        problems.append(f"sidecar {side} (want gave_up at the first tick "
+                        f"of {tick} s, attempt 1)")
+    if not record or not (record.get("degraded") is True
+                          and record.get("rc") == 86
+                          and record.get("failure_phase")
+                          == (side or {}).get("phase")
+                          and record["provenance"]["platform"]
+                          in ("gpu", None)):
+        problems.append(f"degraded record {record}")
+    if after != before:
+        problems.append("a record or sidecar was written into the checkout")
+    if problems:
+        raise AssertionError("bench_supervisor: " + "; ".join(problems)
+                             + f"\n{out.stderr[-3000:]}")
+    return {"wall_s": wall, "phase": side["phase"],
+            "budget_left_secs": side["budget_left_secs"]}
 
 
 # the reference estimator test's MLP and blobs (tests/test_estimator.py)
@@ -5053,6 +5319,32 @@ def main(argv=()) -> int:
     if argv:
         print(f"chip_smoke: unknown arguments {list(argv)}", file=sys.stderr)
         return 2
+    import signal
+
+    adopt_descendants()
+    # a SIGTERM (a caller's time limit) unwinds through the sweep below
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        summary, card, world = smoke()
+    except BaseException:
+        # whether the phases passed or not, nothing they started outlives
+        # the script
+        stop_descendants(failed=True)
+        raise
+    stop_descendants()
+    print(json.dumps({"kernels": summary}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": world}}), flush=True)
+    return 0
+
+
+def smoke() -> tuple:
+    """Every phase, in order; the ``kernels`` summary, the card's line
+    and the world size."""
+    import torch
+
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import models as hvd_models
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -5096,12 +5388,8 @@ def main(argv=()) -> int:
     del state, step
     release()
     nano_run = train_nano(fa)
-    # the launcher's bench of gpt-nano is the nano step's bench record
-    nano_bench = launcher_phase()
     fp32_run = train_fp32(fa)
     fp32_path = [n for n, k in fp32_run["launches_per_step"].items() if k]
-    fp32_bench = bench("--model", "gpt-small", "--dtype", "fp32",
-                       path=fp32_path)
     # each record's launches from the run of its shape's route
     runs = {"bf16_main": run, "fp32_main": fp32_run, "bf16_nano": nano_run}
     overlap_runs = overlap(fa, run["losses"])
@@ -5120,15 +5408,32 @@ def main(argv=()) -> int:
     release()
     fp8(fa, run, resnet_off)
     release()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        # side by side: lint's runs and spmd's examples are gates, elastic's
-        # times are taken contended already (its three runs go side by side)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        # side by side: lint's runs, spmd's examples and the supervisor's
+        # give-up are gates, elastic's times are taken contended already
+        # (its three runs go side by side)
         linted = pool.submit(lint_phase)
         examples = pool.submit(spmd_examples)
+        supervised = pool.submit(bench_supervisor_phase)
         elastic_phase(run["step_ms"])
         linted.result()
+        supervised.result()
         emit("spmd", examples=examples.result(), **spmd_run)
-    obs_phase(run["step_ms"])
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        # side by side: each of these is gates around processes that start
+        # on the card (their step times are taken contended); the serving
+        # phases after them time traffic and run alone.  The launcher's
+        # bench of gpt-nano is the nano step's bench record.
+        nano_bench = pool.submit(launcher_phase)
+        fp32_bench = pool.submit(bench, "--model", "gpt-small", "--dtype",
+                                 "fp32", path=fp32_path)
+        campaigned = pool.submit(campaign_phase, fa, run, overlap_runs)
+        estimated = pool.submit(estimator_phase, fa,
+                                run["launches_per_step"])
+        obs_phase(run["step_ms"])
+        nano_bench, fp32_bench = nano_bench.result(), fp32_bench.result()
+        campaigned.result()
+        estimated.result()
     serve_check()
     serve_run = serve(fa)
     sampler_check()
@@ -5141,8 +5446,6 @@ def main(argv=()) -> int:
         "gpt-small MoE-8": (moe_run["bench"], MAIN_PATH,
                             moe_run["launches_per_step"][MAIN_PATH[0]]),
         "bench --serve gpt-small": (fleet_runs["bench"]["record"], (), 0)})
-    campaign_phase(fa, run, overlap_runs)
-    estimator_phase(fa, run["launches_per_step"])
     autoscale_phase()
 
     summary = [
@@ -5158,12 +5461,7 @@ def main(argv=()) -> int:
         for n in SOURCES for (name, at), r in records.items() if name == n
     ]
     hvd.shutdown()
-    print(json.dumps({"kernels": summary}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": world}}), flush=True)
-    return 0
+    return summary, card, world
 
 
 if __name__ == "__main__":

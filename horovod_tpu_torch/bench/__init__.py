@@ -41,6 +41,21 @@ into compute (MFU x step), the eager engine's collective wait and the
 host gap, the roofline verdict, and (training records) the flash kernels
 one step launches.  ``--campaign SPEC`` runs a resumable sweep of bench
 points instead of one measurement (:mod:`.campaign`).
+
+The run is supervised (:mod:`.supervisor`, the root ``bench.py``'s
+machinery): one wall-clock budget ``--total-budget-secs`` across every
+attempt, a retry in a fresh process (``--attempts``) for a transient
+device or rendezvous failure, a watchdog over the phases ``init``,
+``build`` (window ``--watchdog-secs``), ``warmup`` and ``measure`` that
+re-execs or exits 86, a failure sidecar naming the phase, and a degraded
+``BENCH_rNN.json`` when no measurement comes.  Records and sidecars land
+only in a directory the environment names (``HVDTPU_BENCH_RECORD_DIR``,
+``HVDTPU_RECORD_DIR``, ``HVDTPU_BENCH_SIDECAR``), never in the checkout.
+Every record carries the regression sentinel's verdict against that
+directory's trajectory (:func:`attach_regression`) and its backend stamp
+(``provenance``); ``--num-slices N`` forces a partition of N slices
+before the world starts, and the record then carries ``num_slices``.
+``--cpu`` never arms the watchdog.
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -57,10 +73,11 @@ from ..obs.anatomy import attach_anatomy
 from ..obs.profile import PEAK_FLOPS, peak_flops
 from ..optim.overlap import MODES
 from ..utils import env as envmod
+from . import supervisor
 
 __all__ = ["PEAK_FLOPS", "BASELINE_IMAGES_PER_SEC", "conv_flops_per_image",
            "model_flops_per_step", "peak_flops", "serve_spec", "serve_trace",
-           "serve_main", "main"]
+           "serve_main", "attach_regression", "main"]
 
 # Horovod's published per-GPU figure the reference's ``vs_baseline`` divides
 # by: tf_cnn_benchmarks ResNet-101, 1656.82 images/s over 16 Pascal GPUs
@@ -205,6 +222,22 @@ def _parser() -> argparse.ArgumentParser:
                    "sweep-spec JSON instead of one measurement (each point "
                    "its own bench process; see horovod_tpu_torch.bench."
                    "campaign)")
+    p.add_argument("--num-slices", type=int, default=0,
+                   help="force a partition of the world into N slices "
+                   "(HVDTPU_NUM_SLICES) before it starts; 0 = one slice")
+    p.add_argument("--attempts", type=int, default=4,
+                   help="retries (a fresh process each) on a transient "
+                   "device or rendezvous failure")
+    p.add_argument("--watchdog-secs", type=int, default=780,
+                   help="the build phase's hang deadline (0 disables the "
+                   "watchdog); init and warm-up use 300 s")
+    p.add_argument("--total-budget-secs", type=int, default=1440,
+                   help="hard wall-clock budget across all attempts, "
+                   "backoff included")
+    p.add_argument("--retry-attempt", type=int, default=0,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--deadline-epoch", type=float, default=0.0,
+                   help=argparse.SUPPRESS)
     return p
 
 
@@ -226,14 +259,23 @@ def _check_args(args) -> None:
 
 
 def run(args) -> dict:
-    """Build, warm up and time the step; the record."""
+    """Start the world, build, warm up and time the step, marking each
+    phase for the watchdog; the record."""
     from .. import basics
     from ..obs.health import HealthConfig, StepHealth
     from ..ops import flash_attention as fa
+    from ..ops import kernels
     from ..train import build_gpt_step, build_step
 
+    touch = supervisor._touch_progress
     gpt = args.model.startswith("gpt-")
     device = "cpu" if args.cpu else None
+    touch(phase="init")
+    basics.init(device=device)
+    # the model and the kernels' first-use build: the compile window
+    touch(args.watchdog_secs, phase="build")
+    if basics.device().type == "cuda":
+        kernels.build_all()
     # --health (HVDTPU_HEALTH) arms the GPT step's health bundle, the
     # anomaly judge and the divergence sentinel
     health = gpt and HealthConfig.from_env().enabled
@@ -267,18 +309,22 @@ def run(args) -> dict:
             done[0] += 1
             if monitor is not None:
                 monitor.after_step(done[0], out[carry + 1])
+            touch()  # at dispatch; the sync ends each loop
         return state, loss
 
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    touch(phase="warmup")
     state, _ = steps(args.warmup, state)
     sync()
+    touch(phase="measure")
     t0 = time.perf_counter()
     state, loss = steps(args.iters, state)
     final_loss = float(loss)  # waits for the device
     sync()
     step_s = (time.perf_counter() - t0) / args.iters
+    supervisor._watchdog_disarm.set()
     if monitor is not None:
         monitor.drain()
     if final_loss != final_loss or abs(final_loss) == float("inf"):
@@ -329,7 +375,10 @@ def run(args) -> dict:
         "flash_launches": launched,
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                          if cuda else None),
+        "provenance": supervisor.backend_provenance(probe=True),
     }
+    if basics.num_slices() > 1:
+        record["num_slices"] = basics.num_slices()
     layout = getattr(state[carry - 1], "layout", None)
     if layout is not None:
         record["buckets"] = len(layout.buckets)
@@ -685,14 +734,116 @@ def serve_main(args) -> dict:
     return out
 
 
+def attach_regression(out: dict, record_dir: Optional[str] = None,
+                      threshold_pct: float = 5.0) -> dict:
+    """The trend-aware regression sentinel over the ``BENCH_*.json``
+    trajectory in ``record_dir`` (default: the supervisor's record dir;
+    with none, nothing is comparable), a copy of the root
+    ``bench.py:1060-1161`` on the port's ``obs/trend.py``.
+
+    The baseline is the EWMA over the last non-degraded records of this
+    run's metric and device; ``baseline_record`` names the newest such
+    record and the records the EWMA folded, with the newer records it
+    skipped (no comparable measurement) and the degraded ones it refused;
+    ``deltas`` holds ``value`` and ``mfu`` against the EWMA (and the peak
+    memory's, informational); ``regression`` flags a value drop past
+    ``threshold_pct`` %, None when nothing is comparable.  ``trend`` is
+    the trajectory's stamp (its degraded streak).  Best-effort: a failure
+    here never sinks the measurement."""
+    try:
+        from ..obs import trend as _trend  # noqa: PLC0415
+
+        d = record_dir or supervisor.bench_record_dir()
+        records = _trend.load_bench_records(d) if d else []
+        stamp = _trend.trend_stamp(d) if d else None
+        if stamp is not None:
+            out["trend"] = stamp
+        key = (out.get("metric"), out.get("device"))
+        newest = None  # the newest real matching record: (fname, parsed)
+        skipped = 0
+        degraded_skipped = 0
+        for _, fname, doc in reversed(records):
+            parsed = _trend.parsed_payload(doc)
+            # a failed round must not reset the bar a real measurement is
+            # judged against
+            if _trend.classify(doc) == "degraded":
+                degraded_skipped += 1
+                continue
+            if (isinstance(parsed, dict)
+                    and _trend.scenario_key(parsed) == key):
+                newest = (fname, parsed)
+                break
+            skipped += 1
+        ewma = _trend.ewma_baseline(records, *key)
+        if newest is None or ewma is None:
+            out["baseline_record"] = {
+                "file": None,
+                "stale_records_skipped": skipped,
+                "degraded_records_skipped": degraded_skipped,
+            }
+            out["regression"] = None  # nothing comparable to regress from
+            return out
+        fname, parsed = newest
+        deltas = {}
+        for key_name in ("value", "mfu"):
+            old, new = ewma.get(key_name), out.get(key_name)
+            if (isinstance(old, (int, float))
+                    and isinstance(new, (int, float)) and old):
+                deltas[key_name] = {
+                    "baseline": old,
+                    "pct": round((new - old) / old * 100.0, 2),
+                }
+
+        # the peak memory's delta is informational: more bytes is not a
+        # worse measurement
+        def _peak(doc):
+            census = (doc.get("memory") or {}).get("census") or {}
+            return (census.get("device") or {}).get("peak_bytes") or \
+                census.get("total_bytes")
+
+        old_peak, new_peak = _peak(parsed), _peak(out)
+        if (isinstance(old_peak, (int, float)) and old_peak
+                and isinstance(new_peak, (int, float))):
+            deltas["peak_bytes"] = {
+                "baseline": old_peak,
+                "pct": round((new_peak - old_peak) / old_peak * 100.0, 2),
+                "informational": True,
+            }
+        out["baseline_record"] = {
+            "file": fname,
+            "baseline_records": ewma["records"],
+            "ewma": {"k": ewma["k"], "alpha": ewma["alpha"],
+                     "count": ewma["count"]},
+            "stale_records_skipped": skipped,
+            "degraded_records_skipped": degraded_skipped,
+            "stale": skipped > 0,
+        }
+        out["deltas"] = deltas
+        out["regression"] = bool(
+            deltas.get("value", {}).get("pct", 0.0) < -threshold_pct)
+    except Exception:
+        out.setdefault("regression", None)
+    return out
+
+
+def _fail_record(exc: BaseException, phase: str) -> None:
+    supervisor._auto_record(f"{type(exc).__name__}: {exc}"[:2000], rc=1,
+                            phase=phase)
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.campaign:
         # this process becomes the sweep's driver: each point runs as a
-        # bench process of its own
+        # bench process of its own, so no supervisor runs here
         from .campaign import main as campaign_main
 
         return campaign_main(["--spec", args.campaign])
+    if not args.deadline_epoch:
+        args.deadline_epoch = time.time() + args.total_budget_secs
+    if args.num_slices > 0:
+        # before the world starts: the slice partition is resolved there
+        os.environ[envmod.NUM_SLICES] = str(args.num_slices)
     if args.overlap is None:
         args.overlap = os.environ.get(envmod.OVERLAP, "off")
         if args.overlap not in MODES:
@@ -704,19 +855,40 @@ def main(argv=None) -> int:
     if args.serve:
         if not args.model.startswith("gpt-"):
             raise SystemExit("--serve serves a GPT model (--model gpt-*)")
-        if not args.cpu and not torch.cuda.is_available():
-            raise SystemExit("--serve: no CUDA device is visible; pass "
-                             "--cpu to serve on the CPU")
-        print(json.dumps(serve_main(args)), flush=True)
+        supervisor._arm_watchdog(args)
+        supervisor._touch_progress(max(args.watchdog_secs, 300),
+                                   phase="serve")
+        try:
+            if not args.cpu and not torch.cuda.is_available():
+                raise RuntimeError("--serve: no CUDA device is visible; "
+                                   "pass --cpu to serve on the CPU")
+            out = serve_main(args)
+        except Exception as exc:
+            # the round still lands a record
+            _fail_record(exc, "serve")
+            raise
+        attach_regression(out)
+        supervisor._watchdog_disarm.set()
+        print(json.dumps(out), flush=True)
         return 0
     from .. import basics
 
+    supervisor._arm_watchdog(args)
     try:
         record = run(args)
         root = basics.rank() == 0
+    except Exception as exc:
+        if (not args.cpu and supervisor._is_unavailable(exc)
+                and args.retry_attempt < args.attempts):
+            supervisor._retry_exec(args, exc)  # never returns
+        # out of retries, or not transient: the round still lands a record
+        _fail_record(exc, supervisor._phase_name)
+        raise
     finally:
         basics.shutdown()
     if root:  # one record for the job, whatever its world
+        # the sentinel before the print: the record carries its verdict
+        attach_regression(record)
         print(json.dumps(record), flush=True)
     return 0
 

@@ -34,12 +34,11 @@ constraints, in order:
 Axes map to the port's bench: ``overlap`` to ``--overlap``,
 ``grad_bucket_mb`` to ``--grad-bucket-mb``, ``hierarchical`` and
 ``replay`` to ``HVDTPU_HIERARCHICAL_ALLREDUCE`` and
-``HVDTPU_SCHEDULE_REPLAY`` in the point's environment.  The reference's
-runner also hands each point ``--total-budget-secs`` and
-``HVDTPU_BENCH_RECORD_DIR``; the port's bench has neither (it retries
-nothing and writes no record file: its record is its last stdout line),
-so the runner passes neither, and the point's budget is enforced by the
-outer timeout alone.  The records live in the journal.
+``HVDTPU_SCHEDULE_REPLAY`` in the point's environment.  As the
+reference's runner does, each point gets ``--total-budget-secs`` (its
+budget, inside the outer kill window) and ``HVDTPU_BENCH_RECORD_DIR`` (the
+journal's directory), so a point that gives up lands its degraded record
+beside the journal.  The points' records live in the journal.
 
 The journal lands in ``--record-dir``, else ``HVDTPU_RECORD_DIR``, else
 the current directory.  No torch import: the driver must outlive a point
@@ -323,13 +322,20 @@ def _parse_result_line(stdout: str) -> Optional[dict]:
 def subprocess_runner(point: dict, spec: dict, *, bench_cmd: List[str],
                       record_dir: str) -> dict:
     """Run one point as a child process, killed after its budget plus
-    :data:`OUTER_TIMEOUT_GRACE_SECS`; returns {rc, parsed, tail}.
-    ``record_dir`` is the journal's (the port's bench writes no record
-    file of its own)."""
+    :data:`OUTER_TIMEOUT_GRACE_SECS`; returns {rc, parsed, tail}.  The
+    child inherits the campaign's record dir, so its degraded record (the
+    bench's always-land-a-record rule) files next to the journal."""
     budget = int(point.get("budget_secs") or spec["point_budget_secs"])
     cmd = list(bench_cmd) + list(point["argv"])
+    # Size the child's own wall-clock budget inside the outer kill window,
+    # but only for the real bench (a test stub has no flag).
+    if ("--total-budget-secs" not in point["argv"] and bench_cmd
+            and (bench_cmd[-1] == "horovod_tpu_torch.bench"
+                 or os.path.basename(bench_cmd[-1]).startswith("bench"))):
+        cmd += ["--total-budget-secs", str(budget)]
     env = dict(os.environ)
     env.update(point["env"])
+    env["HVDTPU_BENCH_RECORD_DIR"] = record_dir
     # The campaign owns chaos at its own seam; a fault spec aimed at
     # campaign_point must not leak into the child and fire nowhere.
     env.pop("HVDTPU_FAULT_SPEC", None)

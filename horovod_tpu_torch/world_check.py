@@ -86,8 +86,16 @@ inputs:
   ``DistributedGradientTransform`` → AdamW, through ``distribute``) against
   ``off``: losses within 1e-3, step times.
 
-``--only a11`` / ``--only a13`` / ``--only a13b6`` / ``--only a14`` runs
-that section alone.  Prints three
+* the collective microbench (``a17``, ROADMAP A17; only with ``--only
+  a17``): ``bench.collective.measure`` at this world for each engine, on
+  the payload's card: the Python engine over NCCL (its device plane; on
+  the card no op may take a host path) and the native engine around its
+  TCP ring with a host round trip of each payload, ``A17_ITERS``
+  allreduces of each of ``A17_KB``; every result exactly world x input.
+  Rank 0's goodput is printed as the reference's table, one per engine.
+
+``--only a11`` / ``--only a13`` / ``--only a13b6`` / ``--only a14`` /
+``--only a17`` runs that section alone.  Prints three
 JSON lines (every
 rank's checks, rank 0's training runs, the verdict) and exits nonzero if
 any check fails on any rank.  Times are the host clock around
@@ -112,7 +120,7 @@ import traceback
 
 __all__ = ["main", "a11_checks", "a11_failures", "a13_checks",
            "a13_failures", "a13b6_checks", "a13b6_failures", "a14_checks",
-           "a14_failures"]
+           "a14_failures", "a17_checks", "a17_failures"]
 
 # the a13 section's faults: one flipped bit in rank 2's bucket 1 in step 2,
 # and rank 3 late by 300 ms to its first A13_DELAYED collectives
@@ -121,6 +129,11 @@ A13_DELAYED = 4
 A13_DELAY = f"enqueue:rank=3:action=delay:300:count={A13_DELAYED}"
 
 A13B6_STEPS = 2
+
+# the a17 section: payload sizes (KB, scripts/collective_bench.py's) and
+# timed allreduces of each
+A17_KB = (4, 1024, 16384)
+A17_ITERS = 20
 
 LENGTH = 4099          # not a multiple of any local size
 TOL = 1e-5             # fp32 sums of a few terms in another order
@@ -1110,7 +1123,44 @@ def a14_failures(checks: dict) -> list:
     return bad
 
 
+def a17_checks(hvd, torch, cpu: bool) -> dict:
+    """Each engine's microbench cells at this world (the a17 section)."""
+    from .bench import collective
+
+    dev = str(hvd.device())
+    out = {}
+    for engine in ("python", "native"):
+        with _engine_env(HVDTPU_EAGER_ENGINE=engine,
+                         HVDTPU_CYCLE_TIME=collective.CYCLE_MS):
+            out[engine] = [collective.measure(kb * 1024, A17_ITERS, dev,
+                                              name=f"bench.{kb}")
+                           for kb in A17_KB]
+    return out
+
+
+def a17_failures(checks: dict) -> list:
+    bad = []
+    for engine, cells in checks.items():
+        for c in cells:
+            if not c["exact"]:
+                bad.append(f"a17 {engine} {c['bytes']} B: not world x input")
+            s = c["stats"]
+            if not c["device"].startswith("cuda"):
+                continue
+            if engine == "python" and (s["host_data_ops"]
+                                       or s["host_staged_ops"]
+                                       or not s["device_data_ops"]):
+                bad.append(f"a17 python {c['bytes']} B: a CUDA payload "
+                           f"took a host path {s}")
+            if engine == "native" and s["device_payloads"] < c["iters"]:
+                bad.append(f"a17 native {c['bytes']} B: {s['device_payloads']}"
+                           f" CUDA payloads for {c['iters']} ops")
+    return bad
+
+
 def _failures(checks: dict, train: dict) -> list:
+    if "a17" in checks:  # --only a17
+        return a17_failures(checks["a17"])
     if "a14" in checks:  # --only a14
         return a14_failures(checks["a14"])
     if "a13" in checks:  # --only a13
@@ -1204,10 +1254,11 @@ def _worker(rank, world, local_size, port, cpu, out, only, out_dir):
         device = "cpu" if cpu else f"cuda:{rank % torch.cuda.device_count()}"
         hvd.init(device=device)
         checks, train = {}, {}
-        if only in ("a13", "a13b6", "a14"):
+        if only in ("a13", "a13b6", "a14", "a17"):
             checks[only] = (
                 a13_checks(hvd, torch, cpu) if only == "a13" else
                 a14_checks(hvd, torch, cpu) if only == "a14" else
+                a17_checks(hvd, torch, cpu) if only == "a17" else
                 a13b6_checks(hvd, torch, cpu, out_dir))
             out.put((rank, True, {"checks": checks, "train": train,
                                   "failures": _failures(checks, train)}))
@@ -1239,11 +1290,12 @@ def main(argv=None) -> int:
                    help="a gloo world on the CPU (a rehearsal of the "
                    "paths; its times are no device's)")
     p.add_argument("--timeout", type=float, default=900.0)
-    p.add_argument("--only", choices=["a11", "a13", "a13b6", "a14"],
+    p.add_argument("--only", choices=["a11", "a13", "a13b6", "a14", "a17"],
                    default=None,
                    help="run one section alone (a11: the parallel "
                    "schedules; a13: the observability planes; a13b6: the "
-                   "schedule gate; a14: the SPMD surface)")
+                   "schedule gate; a14: the SPMD surface; a17: the "
+                   "collective microbench)")
     args = p.parse_args(argv)
     import torch
 
@@ -1254,6 +1306,10 @@ def main(argv=None) -> int:
         from .ops import kernels
 
         kernels.build_all()  # once, before the ranks load the libraries
+    if args.only == "a17":
+        from .runtime import native_build
+
+        native_build.build()  # once, before the ranks load it
     world = args.world or (4 if args.cpu else torch.cuda.device_count())
     if world % args.local_size or world < 2:
         raise SystemExit(f"--world {world} must be >= 2 and a multiple of "
@@ -1296,6 +1352,13 @@ def main(argv=None) -> int:
     if args.only == "a13":
         failures += _a13_world_failures(
             {r: results[r]["checks"]["a13"] for r in results})
+    if args.only == "a17":
+        from .bench.collective import goodput_table
+
+        for engine, cells in results[0]["checks"]["a17"].items():
+            print(goodput_table(engine, A17_ITERS, [world], A17_KB, {
+                (kb, world): c["goodput"]
+                for kb, c in zip(A17_KB, cells)}), flush=True)
     print(json.dumps({"world": world, "local_size": args.local_size,
                       "device": "cpu" if args.cpu
                       else torch.cuda.get_device_name(0),

@@ -49,6 +49,15 @@ def _entry(fn, rank, world, port, args, out, local_size):
         hvd.shutdown()
 
 
+def bench_env() -> dict:
+    """The environment of a bench CLI child: this process's, with two
+    intra-op threads.  With a thread per core, a child started beside the
+    suite's other workers spends most of its time in OpenMP's spin-waits
+    (a CPU gpt-nano bench: 56 s against 15 s with two threads, beside six
+    busy processes on an 8-core host)."""
+    return dict(os.environ, OMP_NUM_THREADS="2")
+
+
 def run_world(fn, args=(), world: int = 2, timeout: float = 60.0,
               local_size=None) -> list:
     """Run ``fn(*args)`` on every rank of a fresh gloo world (one host of

@@ -346,3 +346,57 @@ def test_real_point_runs_the_ports_bench(tmp_path, monkeypatch):
     assert sum(anat["components_ms"].values()) == pytest.approx(
         anat["step_ms"], rel=1e-3)
     assert "top_ops" not in anat  # the CPU runs no flash kernel
+
+
+@PKGS
+def test_runner_hands_each_point_its_budget_and_record_dir(tmp_path, mod):
+    """A bench child (a stub named as a bench) receives the point's budget
+    as ``--total-budget-secs`` and the journal's directory as
+    ``HVDTPU_BENCH_RECORD_DIR``, as the reference's runner hands them;
+    the campaign's fault spec stays out of its environment."""
+    stub = tmp_path / "bench_stub.py"
+    seen = tmp_path / "seen.json"
+    stub.write_text(
+        "import json, os, sys\n"
+        f"with open({str(seen)!r}, 'w') as f:\n"
+        "    json.dump({'argv': sys.argv[1:], 'env': {k: os.environ.get(k)\n"
+        "               for k in ('HVDTPU_BENCH_RECORD_DIR', 'POINT_ENV',\n"
+        "                         'HVDTPU_FAULT_SPEC')}}, f)\n"
+        "print(json.dumps({'metric': 'stub', 'value': 1.0}))\n")
+    point = {"id": "p", "argv": ["--iters", "2"],
+             "env": {"POINT_ENV": "x"}, "budget_secs": 77}
+    d = tmp_path / "records"
+    os.environ["HVDTPU_FAULT_SPEC"] = "campaign_point:step=9:action=abort"
+    try:
+        res = mod.subprocess_runner(point, {"point_budget_secs": 60},
+                                    bench_cmd=[sys.executable, str(stub)],
+                                    record_dir=str(d))
+    finally:
+        os.environ.pop("HVDTPU_FAULT_SPEC")
+    assert res["rc"] == 0 and res["parsed"] == {"metric": "stub",
+                                                "value": 1.0}
+    got = json.loads(seen.read_text())
+    assert got["argv"] == ["--iters", "2", "--total-budget-secs", "77"]
+    assert got["env"] == {"HVDTPU_BENCH_RECORD_DIR": str(d),
+                          "POINT_ENV": "x", "HVDTPU_FAULT_SPEC": None}
+
+
+def test_runner_budgets_the_ports_bench_module(tmp_path, monkeypatch):
+    """The port's default command, ``python -m horovod_tpu_torch.bench``,
+    is the real bench: it gets the budget flag too (unless the point set
+    one)."""
+    calls = []
+
+    def fake_run(cmd, env, **kw):
+        calls.append((cmd, env["HVDTPU_BENCH_RECORD_DIR"]))
+        return subprocess.CompletedProcess(cmd, 0, '{"value": 1.0}\n', "")
+
+    monkeypatch.setattr(campaign.subprocess, "run", fake_run)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.bench"]
+    for argv in (["--cpu"], ["--cpu", "--total-budget-secs", "5"]):
+        campaign.subprocess_runner(
+            {"id": "p", "argv": argv, "env": {}}, {"point_budget_secs": 60},
+            bench_cmd=cmd, record_dir=str(tmp_path))
+    assert calls == [
+        (cmd + ["--cpu", "--total-budget-secs", "60"], str(tmp_path)),
+        (cmd + ["--cpu", "--total-budget-secs", "5"], str(tmp_path))]

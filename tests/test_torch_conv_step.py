@@ -267,7 +267,8 @@ def test_bench_cli_prints_an_images_record():
         [sys.executable, "-m", "horovod_tpu_torch.bench", "--cpu",
          "--model", "resnet18", "--image-size", "32", "--batch-size", "2",
          "--iters", "1", "--warmup", "1"],
-        capture_output=True, text=True, timeout=120, cwd=str(REPO))
+        capture_output=True, text=True, timeout=120, cwd=str(REPO),
+        env=_torch_world.bench_env())
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1

@@ -46,8 +46,9 @@ def _fell(losses) -> bool:
 
 @pytest.fixture(scope="module", autouse=True)
 def launched():
-    """The world-2 runs, started before the in-process ones."""
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    """The world-2 runs, started before the in-process ones (two intra-op
+    threads a rank, as ``_torch_world.bench_env`` says why)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.run", "-np", "2",
          sys.executable, "-m", f"horovod_tpu_torch.examples.{name}",

@@ -240,7 +240,8 @@ def test_bench_cli_runs_fp8(model, args):
          "--model", model, "--dtype", "fp8", "--iters", "1", "--warmup",
          "1", *args],
         capture_output=True, text=True, timeout=120,
-        cwd=str(Path(__file__).resolve().parent.parent))
+        cwd=str(Path(__file__).resolve().parent.parent),
+        env=_torch_world.bench_env())
     assert out.returncode == 0, out.stderr
     (line,) = out.stdout.strip().splitlines()
     rec = json.loads(line)

@@ -351,7 +351,8 @@ def test_bench_cli_prints_its_record(mode):
          "--model", "gpt-nano", "--overlap", mode, "--iters", "2",
          "--warmup", "1", "--seq-len", "32", "--batch-size", "2",
          "--pos-embedding", "rope", "--remat"],
-        capture_output=True, text=True, timeout=120, cwd=str(REPO))
+        capture_output=True, text=True, timeout=120, cwd=str(REPO),
+        env=_torch_world.bench_env())
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 1

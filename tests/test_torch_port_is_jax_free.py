@@ -106,7 +106,8 @@ def test_every_module_imports_without_jax():
                 "obs.live", "obs.summary", "obs.timeline_merge",
                 "obs.trace_merge", "obs.postmortem", "obs.health",
                 "obs.divergence", "obs.anatomy", "bench.campaign",
-                "bench.__main__", "estimator", "serve.autoscale",
+                "bench.__main__", "bench.supervisor", "bench.collective",
+                "estimator", "serve.autoscale",
                 "interop.mxnet", "interop._host", "runtime.native",
                 "runtime.native_build", "optim", "basics",
                 "ops.collectives", "examples", "examples._common") + tuple(
