@@ -361,10 +361,24 @@ through their launch helpers.  Phases, one JSON line each:
    the same spec again, which runs no point
    and leaves the journal (``spec_sha`` included) as it was.  Printed:
    each point's tokens/s/GPU beside this call's ``train`` and ``overlap``
-   numbers.  ``estimator``: (i) the reference estimator test's MLP on its
-   blobs, ``backend="local"`` on the card (fp32, TF32 off): every epoch's
-   loss within ``EST_LOSS_TOL`` of the same fit on the CPU (a launcher
-   worker with the GPUs hidden), and ``Model.load`` from the
+   numbers.  Then its gate leg (``perf_gate_leg``), host work over those
+   records: the two points land as harness records ``BENCH_r01`` /
+   ``r02`` (``{"n", "rc": 0, "parsed"}``, in the journal's order) and the
+   supervisor's writer adds a degraded ``BENCH_r03``; ``bench.gate``'s
+   audit must exit 0 with the partition 2 / 1 / 0, one baseline on the
+   card's name at the larger point's value and a degraded streak of 1
+   after ``BENCH_r02``; three candidates: the ``off`` point's record
+   (its ``pct`` against the EWMA of the two, exit 1 exactly on a
+   ``regression``; ``attach_regression`` must give the same EWMA, folded
+   records and flag), the same at half its value (exit 1) and stamped
+   degraded (exit 0); ``bench.report`` lists both points ``done`` with
+   their values, the partition, and writes its section into a file with
+   the markers, then finds it current; one ``python -m
+   horovod_tpu_torch.bench.gate`` process exits 0.  Printed: the
+   ``perf_gate`` line.  ``estimator``: (i) the reference estimator test's
+   MLP on its blobs, ``backend="local"`` on the card (fp32, TF32 off):
+   every epoch's loss within ``EST_LOSS_TOL`` of the same fit on the CPU
+   (a launcher worker with the GPUs hidden), and ``Model.load`` from the
    ``LocalStore`` predicting bit for bit what the fitted Model does; (ii)
    gpt-small bf16 (seq 1024, batch 8, 32 sequences of ``RandomState(0)``
    tokens, 1 epoch of 4 steps, next-token loss) with
@@ -4749,6 +4763,189 @@ CAMPAIGN_TIMEOUT = 600
 CAMPAIGN_ARGS = ()
 
 
+class _ThreadOutput:
+    """``sys.stdout`` / ``sys.stderr`` while a phase calls a command line's
+    ``main`` in this process: what the calling thread writes lands in its
+    buffer, what every other thread writes (phases run side by side and
+    print their lines) in the stream as before."""
+
+    def __init__(self, stream):
+        self.stream = stream
+        self.local = threading.local()
+
+    def _target(self):
+        return getattr(self.local, "buf", None) or self.stream
+
+    def write(self, text):
+        return self._target().write(text)
+
+    def flush(self):
+        self._target().flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
+
+
+_CLI_LOCK = threading.Lock()
+
+
+def run_cli(main, argv) -> tuple:
+    """``main(argv)`` in this process: its exit code and what it wrote to
+    stdout and stderr from this thread."""
+    import io
+
+    bufs = (io.StringIO(), io.StringIO())
+    with _CLI_LOCK:
+        for name in ("stdout", "stderr"):
+            if not isinstance(getattr(sys, name), _ThreadOutput):
+                setattr(sys, name, _ThreadOutput(getattr(sys, name)))
+    sys.stdout.local.buf, sys.stderr.local.buf = bufs
+    try:
+        rc = main(argv)
+    finally:
+        sys.stdout.local.buf = sys.stderr.local.buf = None
+    return rc, bufs[0].getvalue(), bufs[1].getvalue()
+
+
+def _gate_verdict(out: str) -> dict:
+    return json.loads(out[out.index("\n{") + 1:])
+
+
+def perf_gate_leg(root: str, journal: dict, card: str) -> dict:
+    """The ``campaign`` phase's gate leg over its record dir ``root``:
+    the points' records as the harness's ``BENCH_r01`` / ``r02``, one
+    degraded ``BENCH_r03``, then ``bench.gate``'s audit and three
+    candidates, the bench's sentinel on the ``off`` one, ``bench.report``
+    and one ``python -m horovod_tpu_torch.bench.gate``.  Returns the
+    ``perf_gate`` line's fields; raises on any miss."""
+    import os
+
+    from horovod_tpu_torch.bench import (attach_regression, gate, report,
+                                         supervisor)
+    from horovod_tpu_torch.obs import trend
+
+    t0 = time.perf_counter()
+    order = journal["order"]
+    recs = {pid: journal["points"][pid]["record"] for pid in order}
+    for k, pid in enumerate(order, start=1):
+        with open(os.path.join(root, f"BENCH_r{k:02d}.json"), "w") as f:
+            json.dump({"n": k, "rc": 0, "parsed": recs[pid]}, f)
+    planted = supervisor.write_degraded_record(
+        "planted by the smoke's gate leg", rc=86, phase="build",
+        record_dir=root)
+    problems = []
+    if os.path.basename(planted or "") != "BENCH_r03.json":
+        problems.append(f"the degraded record landed at {planted}")
+    metric, device = recs[order[0]]["metric"], recs[order[0]]["device"]
+    values = [recs[pid]["value"] for pid in order]
+    best = max(values)
+    # the EWMA of the two, folded oldest first at trend's alpha
+    ewma = round(trend.EWMA_ALPHA * values[1]
+                 + (1 - trend.EWMA_ALPHA) * values[0], 4)
+
+    rc, out, err = run_cli(gate.main, ["--records-dir", root, "--json"])
+    audit = _gate_verdict(out) if rc == 0 else {}
+    partition = [len(audit.get(b, ())) for b in ("real", "degraded",
+                                                  "failed")]
+    base_line = (f"  {metric} on {device}: {best} "
+                 f"(BENCH_r{values.index(best) + 1:02d}.json)")
+    if rc != 0 or partition != [2, 1, 0]:
+        problems.append(f"audit exit {rc}, partition {partition}: {err}")
+    if (f"# baselines (1 scenario, real records only):\n{base_line}\n"
+            not in out or device not in card):
+        problems.append(f"baselines: want {base_line!r} on {card}:\n{out}")
+    if audit.get("degraded_streak") != 1 or \
+            audit.get("last_real_record") != "BENCH_r02.json":
+        problems.append(f"degraded streak {audit.get('degraded_streak')} "
+                        f"after {audit.get('last_real_record')}")
+
+    verdicts = {}
+    off = next(pid for pid in order if "bucket" not in pid)
+    cands = {"off": dict(recs[off]),
+             "half": {**recs[off], "value": recs[off]["value"] / 2},
+             "degraded": {**recs[off], "degraded": True}}
+    for name, cand in cands.items():
+        path = os.path.join(root, f"candidate_{name}.json")
+        with open(path, "w") as f:
+            json.dump(cand, f)
+        rc, out, err = run_cli(gate.main, ["--records-dir", root,
+                                           "--candidate", path, "--json"])
+        doc = _gate_verdict(out) if rc in (0, 1) else {}
+        judged = doc.get("candidate", {})
+        verdicts[name] = {"rc": rc, "verdict": judged.get("verdict"),
+                          "pct": judged.get("pct"),
+                          "baseline": judged.get("baseline"),
+                          "degraded": judged.get("degraded", False)}
+        if name == "degraded":
+            if rc != 0 or "# candidate is DEGRADED" not in out:
+                problems.append(f"degraded candidate: exit {rc}\n{out}")
+            continue
+        want_pct = round((cand["value"] - ewma) / ewma * 100.0, 2)
+        if judged.get("baseline") != ewma or judged.get("pct") != want_pct \
+                or (rc == 1) != (judged.get("verdict") == "regression") \
+                or judged.get("baseline_records") != ["BENCH_r01.json",
+                                                      "BENCH_r02.json"]:
+            problems.append(f"candidate {name}: exit {rc} {judged} (want "
+                            f"EWMA {ewma}, pct {want_pct}): {err}")
+        if name == "half" and (rc != 1 or "-> REGRESSION" not in out):
+            problems.append(f"half-value candidate: exit {rc}\n{out}")
+        if name == "off":
+            sentinel = attach_regression(dict(cand), root)
+            verdicts[name]["sentinel"] = {
+                "regression": sentinel.get("regression"),
+                "ewma": (sentinel.get("deltas") or {}).get(
+                    "value", {}).get("baseline"),
+                "records": (sentinel.get("baseline_record") or {}).get(
+                    "baseline_records")}
+            if (verdicts[name]["sentinel"]["ewma"] != ewma
+                    or bool(sentinel.get("regression"))
+                    != doc.get("regression")
+                    or verdicts[name]["sentinel"]["records"]
+                    != judged.get("baseline_records")):
+                problems.append(f"the sentinel {verdicts[name]['sentinel']} "
+                                f"disagrees with the gate {judged}")
+
+    docs = os.path.join(root, "notes.md")
+    with open(docs, "w") as f:
+        f.write(f"# gate leg\n\n{report.DOCS_BEGIN}\n{report.DOCS_END}\n")
+    argv = ["--records-dir", root, "--write-docs", docs, "--json"]
+    rc, out, err = run_cli(report.main, argv)
+    lines = out.splitlines()
+    rows = [line for line in lines if line.startswith("  done      ")]
+    listed = all(any(line.startswith(f"  done      {pid}: attempts=1 ")
+                     and line.endswith(f" value={recs[pid]['value']}")
+                     for line in rows) for pid in order)
+    if rc != 0 or not listed or len(rows) != 2 \
+            or "# partition: 2 real, 1 degraded, 0 failed" not in lines \
+            or f"# docs: {docs} updated" not in lines:
+        problems.append(f"report: exit {rc}\n{out}\n{err}")
+    with open(docs) as f:
+        section = f.read()
+    if "| 3 | BENCH_r03.json | degraded |" not in section:
+        problems.append(f"the written section:\n{section}")
+    rc2, out2, _ = run_cli(report.main, argv)
+    if rc2 != 0 or f"# docs: {docs} already current" not in out2:
+        problems.append(f"report's second call: exit {rc2}\n{out2}")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sub = subprocess.run([sys.executable, "-m", "horovod_tpu_torch.bench.gate",
+                          "--records-dir", root], capture_output=True,
+                         text=True, timeout=120, cwd=repo)
+    if sub.returncode != 0 or "(2 real, 1 degraded, 0 failed)" \
+            not in sub.stdout:
+        problems.append(f"python -m horovod_tpu_torch.bench.gate exited "
+                        f"{sub.returncode}:\n{sub.stdout}\n{sub.stderr}")
+    if problems:
+        raise AssertionError("perf_gate: " + "; ".join(problems))
+    return {"partition": dict(zip(("real", "degraded", "failed"),
+                                  partition)),
+            "baseline": {"metric": metric, "device": device, "value": best,
+                         "ewma": ewma},
+            "verdicts": verdicts, "report_rows": rows,
+            "module_rc": sub.returncode,
+            "wall_s": time.perf_counter() - t0}
+
+
 def campaign_phase(fa, train_run: dict, overlap_runs: dict) -> dict:
     """Phase ``campaign``: ``bench --campaign`` on gpt-small bf16 at full
     width and depth over ``overlap`` in {off, bucket} (16 MB buckets): two
@@ -4803,6 +5000,11 @@ def campaign_phase(fa, train_run: dict, overlap_runs: dict) -> dict:
                   "summary": campaign.summarize_journal(again),
                   "journal": campaign.load_journal(root),
                   "log": "\n".join(log)}
+        gated = None
+        if not first["stray_records"] and all(
+                e["status"] == "done"
+                for e in first["journal"]["points"].values()):
+            gated = perf_gate_leg(root, first["journal"], card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     journal = first["journal"]
@@ -4838,6 +5040,7 @@ def campaign_phase(fa, train_run: dict, overlap_runs: dict) -> dict:
          regression={pid: {k: (e.get("record") or {}).get(k)
                            for k in ("regression", "baseline_record")}
                      for pid, e in journal["points"].items()})
+    emit("perf_gate", card=card, **gated)
     same = {"off": train_run["tokens_per_s_per_gpu"],
             "bucket": overlap_runs["bucket"]["tokens_per_s_per_gpu"]}
     for pid, p in points.items():

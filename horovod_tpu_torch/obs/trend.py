@@ -293,8 +293,8 @@ def render_markdown(record_dir: Optional[str] = None) -> str:
     verdict, per-record table, EWMA baselines, multichip rounds."""
     record_dir = record_dir or repo_record_dir()
     records = load_bench_records(record_dir)
-    lines = ["<!-- generated by scripts/perf_report.py --write-docs; "
-             "do not edit by hand -->", ""]
+    lines = ["<!-- generated by python -m horovod_tpu_torch.bench.report "
+             "--write-docs; do not edit by hand -->", ""]
     if not records:
         lines.append(f"_No BENCH records under {record_dir}._")
         return "\n".join(lines) + "\n"

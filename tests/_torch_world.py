@@ -813,9 +813,17 @@ def replay_worker(n, tuned):
     """``n`` blocking Sum allreduces of ones under one name through the
     eager engine; the values and the engine's stats.  Then ``tuned`` more
     on a second engine started with the online autotuner on (a sample per
-    cycle, no warm-up): their values, and the engine's parameters before
-    and after, read once the coordinated shutdown has stopped every rank's
-    cycle on the same one."""
+    cycle, no warm-up, and a search longer than the ``tuned`` samples the
+    ops can give): their values, and the engine's parameters before and
+    after, read once the coordinated shutdown has stopped every rank's
+    cycle on the same one.
+
+    The search stays open on purpose.  With the default 12 samples a
+    category and one category, the tuner settles inside the 20 ops on the
+    best point it scored, and the start's own window scores best often
+    enough under CPU load (a window's busy time is the cycle before it,
+    which load stretches at random): the parameters then end where they
+    started, which is the tuner's design, not a lost proposal."""
     import torch
 
     import horovod_tpu_torch as hvd
@@ -829,7 +837,9 @@ def replay_worker(n, tuned):
     _engine_registry.shutdown_engine()
     os.environ.update({"HVDTPU_AUTOTUNE": "1",
                        "HVDTPU_AUTOTUNE_WARMUP_SAMPLES": "0",
-                       "HVDTPU_AUTOTUNE_STEPS_PER_SAMPLE": "1"})
+                       "HVDTPU_AUTOTUNE_STEPS_PER_SAMPLE": "1",
+                       "HVDTPU_AUTOTUNE_BAYES_OPT_MAX_SAMPLES":
+                           str(tuned + 1)})
     eng = _engine_registry.get_engine()
     start = (eng.fusion_bytes, eng.cycle_s)
     values = [float(hvd.synchronize(hvd.allreduce_async(

@@ -458,6 +458,19 @@ class TestDriftDetector:
             if p is not None:
                 assert p.cache_enabled
 
+    def test_settles_on_the_start_when_its_window_scored_best(self):
+        """The search ends on the best point it scored, the start
+        included: after a search whose first window (the start's) scored
+        highest, the tuner's last proposal is the start itself."""
+        pm = _pm()
+        start = pm.current
+        proposals = [_sample(pm, 100.0)]
+        while not pm.converged:
+            proposals.append(_sample(pm, 10.0))
+        assert len(proposals) == pm.samples_per_category
+        assert proposals[-1] == start
+        assert all(p != start for p in proposals[:-1])
+
     def test_idle_windows_are_not_drift(self):
         pm = _pm()
         _converge(pm)

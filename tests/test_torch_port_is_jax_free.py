@@ -107,6 +107,7 @@ def test_every_module_imports_without_jax():
                 "obs.trace_merge", "obs.postmortem", "obs.health",
                 "obs.divergence", "obs.anatomy", "bench.campaign",
                 "bench.__main__", "bench.supervisor", "bench.collective",
+                "bench.gate", "bench.report",
                 "estimator", "serve.autoscale",
                 "interop.mxnet", "interop._host", "runtime.native",
                 "runtime.native_build", "optim", "basics",
