@@ -10,9 +10,15 @@ life — launcher-side ingest, schedule broadcast, admission, prefill,
 per-N-token decode windows, finish, result fetch — is recorded as a
 **span** ``(trace, name, t0, dur, epoch, args)`` into a bounded
 per-process ring.  Training gets the same treatment at step
-granularity: engine cycles emit negotiate/execute spans and the
-overlap plane annotates its bucket layout, so negotiation vs wire vs
-compute per step lands in the same merged view.
+granularity: engine cycles emit negotiate/execute spans, the overlap
+plane records each bucket's fill (``overlap/bucket{i}``), and the
+training step its phases (:class:`phase`, trace ``train.steps``), so
+negotiation vs wire vs compute per step lands in the same merged view.
+
+:class:`phase` also opens a ``torch.profiler`` range (``hvd.<name>``)
+while a profiler records: the span then sits in the profiler's Chrome
+trace on the same clock as the device's kernels and copies, whose
+launches it contains.
 
 Design rules, inherited from the planes this rides on:
 
@@ -57,6 +63,8 @@ import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
+from torch.autograd import profiler as _profiler
+
 from ..utils import env as envmod
 
 SCHEMA = "hvdtpu-trace-v1"
@@ -69,6 +77,9 @@ MIN_CAPACITY = 64
 # (the replica_push/drop_replica pattern).
 FAULT_POINT = "trace_flush"
 
+# the trace id of the training step's phases in the ring
+TRAIN_TRACE = "train.steps"
+
 __all__ = [
     "SCHEMA",
     "TraceBuffer",
@@ -79,6 +90,8 @@ __all__ = [
     "reset_buffer",
     "add_span",
     "span",
+    "phase",
+    "TRAIN_TRACE",
     "resolve_dump_path",
     "flush",
 ]
@@ -244,6 +257,44 @@ def span(trace: str, name: str, epoch: Optional[int] = None, **args):
         yield
     finally:
         add_span(trace, name, t0, time.time(), epoch=epoch, **args)
+
+
+class phase:
+    """One phase of a training step, as a context manager: the forward,
+    the backward, the gradient reduction, the optimizer's update.
+
+    While a ``torch.profiler`` session records, it opens
+    ``record_function("hvd.<name>")``: the span lands in the profiler's
+    trace as a ``user_annotation``, on the clock of the device's kernels,
+    so each kernel can be joined to the phase whose host time holds its
+    launch.  With :func:`enabled`, it records ``add_span("train.steps",
+    name, ...)`` into the ring, on the wall clock, with ``args``.  With
+    neither, it costs the profiler's flag and :func:`enabled`'s one env
+    read: no range is opened and no ring made (``record_function`` costs
+    microseconds even with no profiler running)."""
+
+    __slots__ = ("name", "args", "_range", "_t0")
+
+    def __init__(self, name: str, **args):
+        self.name = name
+        self.args = args
+        self._range = None
+        self._t0 = None
+
+    def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(f"hvd.{self.name}")
+            self._range.__enter__()
+        if enabled():
+            self._t0 = time.time()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._t0 is not None:
+            add_span(TRAIN_TRACE, self.name, self._t0, time.time(),
+                     **self.args)
+        if self._range is not None:
+            self._range.__exit__(*exc)
 
 
 def _resolve_rank() -> str:

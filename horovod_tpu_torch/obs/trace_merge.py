@@ -6,7 +6,8 @@ of ``spans.*rank*.json`` files (all ranks, all epochs, the launcher's
 own ``spans.rank.launcher.json`` included):
 
 * **Chrome-trace waterfall** — one ``pid`` lane per trace id (i.e. per
-  request, plus the ``serve.steps`` / ``engine`` step lanes), one
+  request, plus the ``serve.steps`` / ``engine`` / ``overlap`` /
+  ``train.steps`` step lanes), one
   ``tid`` per (rank, epoch) incarnation inside the lane, reusing
   timeline_merge's epoch-lane-stride convention.  A replayed request's
   lane therefore shows its epoch-0 spans and its epoch-1 replay spans
@@ -57,7 +58,9 @@ TTFT_COMPONENTS = ("queue_wait", "schedule_broadcast", "admit_wait",
 TPOT_COMPONENTS = ("decode_compute", "scheduler", "stream_publish")
 
 # Step-lane trace ids: aggregate timing lanes, not requests.
-_STEP_TRACES = ("serve.steps", "engine", "overlap")
+_STEP_TRACES = ("serve.steps", "engine", "overlap", "train.steps")
+# the step lane the tpot decomposition reads
+_SERVE_STEPS = "serve.steps"
 
 __all__ = ["load_docs", "merge", "report", "merge_glob", "main",
            "TTFT_COMPONENTS", "TPOT_COMPONENTS", "REPORT_SCHEMA"]
@@ -201,6 +204,8 @@ def report(paths: Sequence[str],
 
     # trace id -> rank -> name -> [span...]
     per_req: Dict[str, Dict[str, Dict[str, List[dict]]]] = {}
+    # the serving step lane's spans by name: a training step's
+    # ``train.steps/step`` never feeds a tpot component
     step_spans: Dict[str, List[dict]] = {}
     for doc in docs:
         rank = _rank_key(doc)
@@ -208,13 +213,14 @@ def report(paths: Sequence[str],
             tr = s.get("trace")
             if not tr:
                 continue
-            if tr in _STEP_TRACES:
+            if tr == _SERVE_STEPS:
                 # Keep the source rank with the span: the scheduler
                 # residual must subtract each rank's named phases from
                 # ITS OWN whole-step span, not pool all ranks into one
                 # (epoch, step) bucket N-fold.
                 step_spans.setdefault(s.get("name", "?"), []) \
                     .append({**s, "_rank": rank})
+            if tr in _STEP_TRACES:
                 continue
             per_req.setdefault(tr, {}).setdefault(rank, {}) \
                 .setdefault(s.get("name", "?"), []).append(s)

@@ -32,6 +32,7 @@ from ..basics import DP_AXIS, global_topology, group_of_axis, \
     mesh as build_mesh
 from ..ops.collectives import Adasum, Average, ReduceOp, Sum, axis_size, \
     grouped_allreduce
+from ..obs.trace import phase
 from ..ops.compression import Compression
 from ..ops.sparse import IndexedSlices, allreduce_sparse, from_coo, to_coo, \
     to_dense
@@ -232,7 +233,9 @@ class DistributedOptimizer:
     accumulation is open.  A sparse gradient left sparse
     (``sparse_as_dense=False``) comes back as an uncoalesced COO ``.grad``
     for the optimizer's scatter-add (``torch.optim.SGD`` takes one,
-    ``AdamW`` does not).
+    ``AdamW`` does not).  ``step()`` runs the reduction in the span
+    ``phase("grad_reduce")`` and the wrapped step in ``phase("optimizer")``
+    (``obs/trace.py``).
     """
 
     def __init__(
@@ -298,8 +301,10 @@ class DistributedOptimizer:
         if self._passes < self.backward_passes_per_step:
             return None
         self._passes = 0
-        self.synchronize()
-        return self.optimizer.step(closure)
+        with phase("grad_reduce"):
+            self.synchronize()
+        with phase("optimizer"):
+            return self.optimizer.step(closure)
 
 
 class P(tuple):

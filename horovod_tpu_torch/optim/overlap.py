@@ -83,6 +83,7 @@ import torch.utils._pytree as pytree
 from torch import nn
 
 from ..basics import DP_AXIS, global_topology, group_of_axis
+from ..obs import trace as obs_trace
 from ..parallel.hierarchical import (
     _resolve_compressor,
     hierarchical_all_gather,
@@ -276,6 +277,12 @@ class OverlapPlan:
     copied into its bucket by the hook.  One backward per ``step()``.
     ``on_issue``, when set, is called on the host with each bucket's index
     right after its collective is issued (measurement only).
+    Its spans (``obs/trace.py``): each collective's issue in ``phase
+    ("bucket", bucket=i)``, :meth:`reduce` in ``grad_reduce``, the
+    optimizer's step (and ZeRO-1's all-gather) in ``optimizer``; with
+    ``HVDTPU_TRACE``, one ring span ``overlap/bucket{i}`` a bucket and
+    step, from its first leaf's hook to its collective's issue (the
+    bucket's fill), with its ``bytes``, ``leaves`` and ``mode``.
     ``axis_name`` names the ranks the gradients are reduced over (the
     world by default).  ``hierarchical_axes`` / ``dcn_compression``: the
     two-level schedule (module docstring).  ``layout``: a prebuilt
@@ -335,7 +342,6 @@ class OverlapPlan:
             shard_ways=self.world if zero1 else 1)
         self.on_issue: Optional[Callable[[int], None]] = None
         self._hooks: list = []
-        self._annotate_layout()
         self._old: List[torch.Tensor] = []
         if mode == "off":
             from . import DistributedOptimizer  # noqa: PLC0415
@@ -378,8 +384,13 @@ class OverlapPlan:
                 self._hooks.append(self.params[i]
                                    .register_post_accumulate_grad_hook(
                                        self._hook(b.index, view)))
-        self._pending = [len(b.leaf_indices) for b in buckets]
+        # each bucket's leaves, and those whose hook has yet to fire
+        self._leaves = [len(b.leaf_indices) for b in buckets]
+        self._pending = list(self._leaves)
         self._work: list = [None] * len(buckets)
+        # each bucket's first hook of the step (wall clock), with
+        # HVDTPU_TRACE
+        self._filling: list = [None] * len(buckets)
         if self.health:
             self._old = [torch.empty_like(t)
                          for t in (self.shards if zero1 else self.params)]
@@ -389,20 +400,6 @@ class OverlapPlan:
         self.optimizer = (None if make_optimizer is None else
                           make_optimizer(self.shards if zero1 else
                                          self.params))
-
-    def _annotate_layout(self) -> None:
-        """The bucket layout on the trace plane (``HVDTPU_TRACE``): one
-        instant span per bucket, so a merged waterfall's step lanes can
-        be read against the bucket shapes that produced them."""
-        from ..obs import trace as obs_trace  # noqa: PLC0415
-
-        if not obs_trace.enabled():
-            return
-        t = time.time()
-        for b in self.layout.buckets:
-            obs_trace.add_span("overlap", f"bucket{b.index}", t, t,
-                               bucket=b.index, bytes=b.nbytes,
-                               leaves=len(b.sizes), mode=self.mode)
 
     # ------------------------------------------------------------ optimizer
 
@@ -448,6 +445,9 @@ class OverlapPlan:
             plan = plan_ref()
             if plan is None:
                 return
+            if plan._pending[index] == plan._leaves[index] \
+                    and obs_trace.enabled():
+                plan._filling[index] = time.time()
             if param.grad.data_ptr() != view.data_ptr():
                 # a gradient autograd allocated anew: into the bucket
                 with torch.no_grad():
@@ -463,16 +463,25 @@ class OverlapPlan:
         return hook
 
     def _issue(self, index: int) -> None:
+        t0, self._filling[index] = self._filling[index], None
+        if t0 is not None:
+            b = self.layout.buckets[index]
+            obs_trace.add_span("overlap", f"bucket{index}", t0, time.time(),
+                               bucket=index, bytes=b.nbytes,
+                               leaves=len(b.sizes), mode=self.mode)
         grad = self._grads[index]
         zero1 = self.mode == "bucket+zero1"
-        if self.hierarchical_axes is not None:
-            out = self.shards[index].grad if zero1 else grad
-            work = self._issue_two_level(grad, out)
-        elif zero1:
-            work = _reduce_scatter_single(self.shards[index].grad, grad,
-                                          group=self.group, async_op=True)
-        else:
-            work = dist.all_reduce(grad, group=self.group, async_op=True)
+        with obs_trace.phase("bucket", bucket=index):
+            if self.hierarchical_axes is not None:
+                out = self.shards[index].grad if zero1 else grad
+                work = self._issue_two_level(grad, out)
+            elif zero1:
+                work = _reduce_scatter_single(
+                    self.shards[index].grad, grad, group=self.group,
+                    async_op=True)
+            else:
+                work = dist.all_reduce(grad, group=self.group,
+                                       async_op=True)
         self._work[index] = work
         if self.on_issue is not None:
             self.on_issue(index)
@@ -529,22 +538,24 @@ class OverlapPlan:
             self._leaf_bundle(out if loss is None else loss)
             return out
         reduced = self.reduce()
-        if self.health:
-            stepped = self.shards if self.mode == "bucket+zero1" \
-                else self.params
-            torch._foreach_copy_(self._old, stepped)
-        out = self.optimizer.step(closure)
-        if self.health:
-            self._flat_bundle(out if loss is None else loss, reduced)
-        if self.mode == "bucket+zero1" and self.hierarchical_axes is not None:
-            for flat, shard in zip(self._flat, self.shards):
-                self._gather_shard(shard, flat)
-        elif self.mode == "bucket+zero1":
-            works = [_all_gather_single(flat, shard.detach(),
-                                        group=self.group, async_op=True)
-                     for flat, shard in zip(self._flat, self.shards)]
-            for work in works:
-                work.wait()
+        with obs_trace.phase("optimizer"):
+            if self.health:
+                stepped = self.shards if self.mode == "bucket+zero1" \
+                    else self.params
+                torch._foreach_copy_(self._old, stepped)
+            out = self.optimizer.step(closure)
+            if self.health:
+                self._flat_bundle(out if loss is None else loss, reduced)
+            if self.mode == "bucket+zero1" and \
+                    self.hierarchical_axes is not None:
+                for flat, shard in zip(self._flat, self.shards):
+                    self._gather_shard(shard, flat)
+            elif self.mode == "bucket+zero1":
+                works = [_all_gather_single(flat, shard.detach(),
+                                            group=self.group, async_op=True)
+                         for flat, shard in zip(self._flat, self.shards)]
+                for work in works:
+                    work.wait()
         return out
 
     @torch.no_grad()
@@ -555,18 +566,19 @@ class OverlapPlan:
         bucket's collective wrote: the shard's gradient under ZeRO-1, the
         bucket's buffer otherwise (the parameters' ``.grad`` are views of
         it).  :meth:`step` calls it before the optimizer steps."""
-        for index, work in enumerate(self._work):
-            if work is None:
-                self._issue(index)
-        reduced = ([s.grad for s in self.shards]
-                   if self.mode == "bucket+zero1" else self._grads)
-        for index, work in enumerate(self._work):
-            work.wait()
-            if self.op == Average and self.world > 1:
-                reduced[index].div_(self.world)
-        self._work = [None] * len(self._work)
-        self._pending = [len(b.leaf_indices) for b in self.layout.buckets]
-        self._grad_ready_fault(reduced)
+        with obs_trace.phase("grad_reduce"):
+            for index, work in enumerate(self._work):
+                if work is None:
+                    self._issue(index)
+            reduced = ([s.grad for s in self.shards]
+                       if self.mode == "bucket+zero1" else self._grads)
+            for index, work in enumerate(self._work):
+                work.wait()
+                if self.op == Average and self.world > 1:
+                    reduced[index].div_(self.world)
+            self._work = [None] * len(self._work)
+            self._pending = list(self._leaves)
+            self._grad_ready_fault(reduced)
         return reduced
 
     # -------------------------------------------------------------- health

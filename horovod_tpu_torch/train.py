@@ -16,18 +16,22 @@ activations stored through e4m3 (the GPT, and ResNet of the conv zoo).
 A step is ``step(*state) -> carry + (loss,)``: the first
 ``static["carry_len"]`` entries of ``state`` come back updated, the rest
 (the batch) stay.
+
+Its phases are spans (``obs/trace.py``'s :class:`~.obs.trace.phase`,
+under ``torch.profiler`` or ``HVDTPU_TRACE``): ``step`` holds
+``forward`` (``zero_grad``, the model and the loss), ``backward``, the
+optimizer's ``grad_reduce`` and ``optimizer``, and ``loss_reduce`` (the
+loss's mean over the world).
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import basics
-from .obs import trace as obs_trace
+from .obs.trace import phase
 from .models import (VGG16, VGG19, InceptionV3, ResNet18, ResNet50,
                      ResNet101, gpt)
 from .models.layers import from_nhwc
@@ -155,25 +159,25 @@ def build_gpt_step(size: str, dtype: str, batch_size: int, seq_len: int,
     steps = [0]
 
     def step(model, opt, toks):
-        t0 = time.time()
-        opt.zero_grad()
-        loss = lm_loss(model, toks)
-        loss.backward()
-        if health:
-            opt.step(loss=loss.detach())
-            out = (model, opt, allreduce(loss.detach()), opt.bundle)
-        else:
-            opt.step()
-            # the mean over the world, so a non-finite loss on any rank
-            # shows
-            out = (model, opt, allreduce(loss.detach()))
         steps[0] += 1
-        if obs_trace.enabled():
-            # host clock: the span covers the step's issue, and waits
-            # for nothing on the device
-            obs_trace.add_span("train.steps", "step", t0, time.time(),
-                               step=steps[0])
-        return out
+        # host clock: the phases cover the step's issue, and wait for
+        # nothing on the device
+        with phase("step", step=steps[0]):
+            with phase("forward"):
+                opt.zero_grad()
+                loss = lm_loss(model, toks)
+            with phase("backward"):
+                loss.backward()
+            if health:
+                opt.step(loss=loss.detach())
+            else:
+                opt.step()
+            with phase("loss_reduce"):
+                # the mean over the world, so a non-finite loss on any
+                # rank shows
+                mean = allreduce(loss.detach())
+        return (model, opt, mean, opt.bundle) if health else \
+            (model, opt, mean)
 
     state = (model, opt, local)
     return step, state, {"n_chips": n_gpus, "global_batch": global_batch,
@@ -268,12 +272,20 @@ def build_step(model_name: str, dtype: str, batch_size: int,
         opt = OverlapPlan(model.parameters(), make_sgd, mode=overlap_mode,
                           bucket_mb=grad_bucket_mb)
 
+    steps = [0]
+
     def step(model, batch_stats, opt, images, labels):
-        opt.zero_grad()
-        loss = F.cross_entropy(model(images), labels)
-        loss.backward()
-        opt.step()
-        return model, batch_stats, opt, allreduce(loss.detach())
+        steps[0] += 1
+        with phase("step", step=steps[0]):
+            with phase("forward"):
+                opt.zero_grad()
+                loss = F.cross_entropy(model(images), labels)
+            with phase("backward"):
+                loss.backward()
+            opt.step()
+            with phase("loss_reduce"):
+                mean = allreduce(loss.detach())
+        return model, batch_stats, opt, mean
 
     state = (model, batch_stats, opt, images, labels)
     return step, state, {"n_chips": n_gpus, "global_batch": global_batch,

@@ -190,5 +190,5 @@ def test_trace_launcher_run_merges_every_rank(tmp_path):
     steps = [e for e in events if e.get("name") == "step"]
     assert len(steps) == 2 * STEPS
     assert json.load(open(rep_path))["missing_ranks"] == []
-    # the bucket layout's annotation spans, one per bucket and rank
+    # the buckets' fill spans, one per bucket, step and rank
     assert any(e.get("name", "").startswith("bucket") for e in events)
